@@ -1,0 +1,15 @@
+"""dbgtpu_torch — the PyTorch and CUDA port of dbgtpu for one NVIDIA
+Hopper GPU (sm_90a).
+
+Greedy read mapping against the `scan` junction index: the four device
+stages of dbgtpu's align_batch_packed (read scan, junction membership,
+greedy junction walk, path packing) are hand-written CUDA kernels in
+`csrc/`, built with nvcc at first use and bound with ctypes
+(`kernels/build.py`).  Every kernel has a plain torch version beside
+it, which the wrappers use for CPU tensors only.  Graph build, read
+parsing, output formatting and the executable spec are dbgtpu's own
+JAX-free modules; this package never imports JAX.  Module names mirror
+dbgtpu's.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,113 @@
+// Device helpers shared by the dbgtpu_torch kernels.
+//
+// k-mers are one uint64 each (a (k-1)-mer has at most 62 bits, k <= 32),
+// first base in the highest occupied two bits.  Packed read and unitig
+// rows hold 16 bases per uint32 word, base i at bits 2*(i%16) of word
+// i/16 (dbgtpu.index.device.pack_words).  The constants below must
+// match dbgtpu/constants.py and the walk phases of dbgtpu/engine/core.py.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace dbg {
+
+// per-read outcome codes (dbgtpu/constants.py)
+constexpr int STATUS_PENDING = 0;
+constexpr int STATUS_ALIGNED_FWD = 1;
+constexpr int STATUS_ALIGNED_RC = 2;
+constexpr int STATUS_NO_OVERLAP_FWD = 3;
+constexpr int STATUS_RC_NO_OVERLAP = 4;
+constexpr int STATUS_FAILED = 5;
+
+// walk phases (dbgtpu/engine/core.py _FETCH .. _DONE)
+constexpr int FETCH = 0;
+constexpr int LEFT = 1;
+constexpr int RFIRST = 2;
+constexpr int RCONT = 3;
+constexpr int DONE = 4;
+
+constexpr int BIG = 1 << 30;        // miss of an invalid candidate
+constexpr int CHUNK_SHIFT = 7;      // log2(index.device.CHUNK_BASES)
+constexpr int META_COLS = 16;       // umeta metadata columns
+constexpr uint32_t LANE_LO = 0x55555555u;
+
+// murmur3-style finalizer (dbgtpu/engine/kmer32.py mix32)
+__device__ __forceinline__ uint32_t mix32(uint32_t hi, uint32_t lo) {
+  uint32_t h = lo ^ (hi * 0x9E3779B9u);
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+// reverse the 32 two-bit groups of a 64-bit value
+__device__ __forceinline__ uint64_t rev_groups(uint64_t x) {
+  x = __brevll(x);
+  return ((x >> 1) & 0x5555555555555555ull) |
+         ((x & 0x5555555555555555ull) << 1);
+}
+
+// reverse complement of an n-mer, 1 <= n <= 31 (kmer32.rcb_pair)
+__device__ __forceinline__ uint64_t rcb(uint64_t v, int n) {
+  return rev_groups(~v) >> (64 - 2 * n);
+}
+
+__device__ __forceinline__ uint32_t khi(uint64_t v) {
+  return static_cast<uint32_t>(v >> 32);
+}
+__device__ __forceinline__ uint32_t klo(uint64_t v) {
+  return static_cast<uint32_t>(v);
+}
+__device__ __forceinline__ uint64_t join(uint32_t hi, uint32_t lo) {
+  return (static_cast<uint64_t>(hi) << 32) | lo;
+}
+
+// 2-bit base i of a packed row
+__device__ __forceinline__ uint32_t base_at(const uint32_t* row, int i) {
+  return (row[i >> 4] >> (2 * (i & 15))) & 3u;
+}
+
+// the 16 bases starting at base s of a packed row of n words, as one
+// word; words past the row read as zero (the JAX engine pads with zeros)
+__device__ __forceinline__ uint32_t word_at(const uint32_t* row, int n,
+                                            int s) {
+  const int i = s >> 4;
+  const int sh = 2 * (s & 15);
+  const uint32_t w0 = (i >= 0 && i < n) ? row[i] : 0u;
+  if (sh == 0) return w0;
+  const uint32_t w1 = (i + 1 >= 0 && i + 1 < n) ? row[i + 1] : 0u;
+  return (w0 >> sh) | (w1 << (32 - sh));
+}
+
+// exact membership / value lookup in the fused scan table: S slot
+// key-hi, S slot key-lo, then S x 8 values (core._junction_vals).
+// Values of every matching slot are summed, as the JAX masked row-sum
+// does (keys are unique, so at most one slot matches).
+__device__ __forceinline__ bool st_lookup(const uint32_t* st, int nb,
+                                          int cols, uint32_t seed,
+                                          uint64_t key, int32_t* vals8) {
+  const int S = cols / 10;
+  const uint32_t hi = khi(key), lo = klo(key);
+  const uint32_t b = mix32(hi ^ seed, lo) & static_cast<uint32_t>(nb - 1);
+  const uint32_t* row = st + static_cast<size_t>(b) * cols;
+  bool found = false;
+  uint32_t acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  for (int s = 0; s < S; ++s) {
+    if (row[s] == hi && row[S + s] == lo) {
+      found = true;
+      if (vals8)
+        for (int v = 0; v < 8; ++v) acc[v] += row[2 * S + 8 * s + v];
+    }
+  }
+  if (vals8)
+    for (int v = 0; v < 8; ++v) vals8[v] = static_cast<int32_t>(acc[v]);
+  return found;
+}
+
+}  // namespace dbg
+
+// every entry point returns cudaGetLastError() right after its launch
+#define DBG_RETURN_LAUNCH_STATUS() return static_cast<int>(cudaGetLastError())

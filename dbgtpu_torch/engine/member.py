@@ -1,0 +1,130 @@
+"""K2 member: per-position junction membership of the anchor scan.
+
+Counterpart of dbgtpu/engine/core.py _closure_member, _st_member /
+_st_member_positions and the choice between them (align_batch
+:1033-1051): closure probes into `pt_rows` (one probe answers W
+positions) when the batch holds no N and a probe table exists, exact
+per-position lookups of rep1 and rep2 in `st_fused` otherwise.  The
+kernel is csrc/member.cu; `member_ref` is its plain torch version.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from dbgtpu.index.device import PT_SLOTS
+
+from ..kernels import build
+from .index import IndexTensors
+from .kmer import M32, as_i32, mix32_ref, split_ref
+from .read_scan import Scan, unpack_fields
+
+
+def st_member_ref(ix: IndexTensors, keys: torch.Tensor,
+                  chunk: int = 8) -> torch.Tensor:
+    """Exact membership of int64 k-mers [B, Lk] in st_fused, position
+    chunks at a time so the gathered rows stay [B, chunk, 10*S]."""
+    S = ix.st_slots
+    nbm = ix.st_fused.shape[0] - 1
+    out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+    for c0 in range(0, keys.shape[1], chunk):
+        hi, lo = split_ref(keys[:, c0 : c0 + chunk])
+        row = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo) & nbm]
+        ok = (row[..., :S] == as_i32(hi)[..., None]) & (
+            row[..., S : 2 * S] == as_i32(lo)[..., None]
+        )
+        out[:, c0 : c0 + chunk] = ok.any(dim=-1)
+    return out
+
+
+def _closure_member_ref(ix: IndexTensors, scan: Scan, L: int,
+                        k1: int) -> torch.Tensor:
+    """core._closure_member: position i is answered by the probe of
+    p = min(W*(i//W)+1, Lk-1) at offset d = i - p, through the
+    neighbour bits of index/device.py ProbeTable."""
+    S = PT_SLOTS
+    W = ix.pt_window
+    B, Lk = scan.rep1.shape
+    dev = scan.rep1.device
+    i = torch.arange(Lk, device=dev)
+    p = torch.clamp(W * (i // W) + 1, max=Lk - 1)
+    d = i - p
+    hi, lo = split_ref(scan.rep1[:, p])                 # [B, Lk]
+    row = ix.pt_rows[mix32_ref(hi ^ ix.pt_seed, lo)
+                     & (ix.pt_rows.shape[0] - 1)]
+    ok = (row[..., :S] == as_i32(hi ^ M32)[..., None]) & (
+        row[..., S : 2 * S] == as_i32(lo)[..., None]
+    )
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def word(c):
+        return torch.where(ok, row[..., c * S : (c + 1) * S].to(torch.int64)
+                           & M32, zero).sum(dim=-1) & M32
+
+    w0 = word(2)
+    w1 = word(3) if W == 4 else torch.zeros_like(w0)
+    onum = 1 - scan.le1[:, p].to(torch.int64)
+    codes = unpack_fields(scan.rows[0], 2, L)
+
+    def base(cols):
+        return codes[:, cols]
+
+    fb = base(torch.clamp(p - 1, min=0))
+    c1 = base(torch.clamp(p + k1, max=L - 1))
+    c2 = base(torch.clamp(p + k1 + 1, max=L - 1))
+    idx = torch.where(
+        d < 0, 9 + 4 * onum + fb,
+        torch.where(d == 0, zero,
+                    torch.where(d == 1, 1 + 4 * onum + c1,
+                                17 + 16 * onum + ((c1 << 2) | c2))),
+    )
+    bit = torch.where(idx < 32, w0 >> idx.clamp(max=31),
+                      w1 >> (idx - 32).clamp(min=0)) & 1
+    return bit.bool()
+
+
+def member_ref(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int):
+    """Plain torch version of K2 -> (member1, member2) uint8 [B, Lk]."""
+    Lk = scan.rep1.shape[1]
+    valid = (torch.arange(Lk, device=lens.device)[None, :]
+             <= (lens.to(torch.int64) - k1)[:, None])
+    if ix.pt_rows.shape[0] == 0 or bool(scan.has_n.item()):
+        m1 = st_member_ref(ix, scan.rep1) & valid
+        m2 = st_member_ref(ix, scan.rep2) & valid
+    else:
+        m1 = _closure_member_ref(ix, scan, L, k1) & valid
+        m2 = m1
+    return m1.to(torch.uint8), m2.to(torch.uint8)
+
+
+def member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int):
+    """K2 on the scan's device: the kernel on CUDA, the plain version on
+    the CPU, an error anywhere else."""
+    dev = scan.rep1.device
+    if dev.type == "cpu":
+        return member_ref(ix, scan, lens, L=L, k1=k1)
+    if dev.type != "cuda":
+        raise ValueError(f"no member kernel for device {dev}")
+    if ix.st_fused.device != dev or lens.device != dev:
+        raise ValueError("index, scan and lens must share a device")
+    if lens.dtype != torch.int32:
+        raise TypeError("lens must be int32")
+    B, Lk = scan.rep1.shape
+    lens = lens.contiguous()
+    scan = Scan(*(t.contiguous() for t in scan))
+    m1 = torch.empty((B, Lk), dtype=torch.uint8, device=dev)
+    m2 = torch.empty((B, Lk), dtype=torch.uint8, device=dev)
+    if B:
+        lib = build.load()
+        err = lib.dbg_member(
+            scan.rep1.data_ptr(), scan.le1.data_ptr(), scan.rep2.data_ptr(),
+            scan.rows[0].data_ptr(), scan.rows.shape[2], lens.data_ptr(), B,
+            L, k1, ix.st_fused.data_ptr(), ix.st_fused.shape[0],
+            ix.st_fused.shape[1], ix.st_seed, ix.pt_rows.data_ptr(),
+            ix.pt_rows.shape[0], ix.pt_rows.shape[1], ix.pt_seed, PT_SLOTS,
+            scan.has_n.data_ptr(), m1.data_ptr(), m2.data_ptr(),
+            build.stream_ptr(dev),
+        )
+        build.check(err, "member")
+        build.count("member")
+    return m1, m2

@@ -1,0 +1,325 @@
+"""K3 greedy_walk: anchor pick plus the greedy junction walk.
+
+Counterpart of dbgtpu/engine/core.py _first_k_hits / _last_k_hits_rc,
+the scan branch of _junction_vals, _junction_probe, _window_miss and
+the greedy use of _run_walks (bookkeep, junction, final flush).  The
+kernel is csrc/walk.cu (one thread per read, walking to completion);
+`walk_ref` is its plain torch version, a vectorized lockstep loop over
+the batch without the JAX engine's tail compaction.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from dbgtpu.constants import (
+    STATUS_ALIGNED_FWD,
+    STATUS_ALIGNED_RC,
+    STATUS_FAILED,
+    STATUS_NO_OVERLAP_FWD,
+    STATUS_RC_NO_OVERLAP,
+)
+
+from ..kernels import build
+from .index import (
+    C_BEG_HI, C_BEG_LO, C_END_HI, C_END_LO, C_RCB_HI, C_RCB_LO, C_RCE_HI,
+    C_RCE_LO, C_ULEN, C_UOFF, META_COLS, IndexTensors,
+)
+from .kmer import M32, as_i32, mix32_ref, rcb_ref, split_ref
+from .read_scan import Scan, unpack_fields
+
+# walk phases (core.py _FETCH .. _DONE)
+FETCH, LEFT, RFIRST, RCONT, DONE = 0, 1, 2, 3, 4
+BIG = 1 << 30
+CHUNK_SHIFT = 7            # log2(dbgtpu.index.device.CHUNK_BASES)
+
+
+class Walks(NamedTuple):
+    status: torch.Tensor   # int32 [B]
+    orient: torch.Tensor   # int32 [B] 0 forward, 1 reverse complement
+    offset: torch.Tensor   # int32 [B] start offset in the first unitig
+    llen: torch.Tensor     # int32 [B] entries of lbuf in use
+    rlen: torch.Tensor     # int32 [B] entries of rbuf in use
+    lbuf: torch.Tensor     # int32 [B, P] left-walk ids in walk order;
+    #                        only [:llen] is meaningful
+    rbuf: torch.Tensor     # int32 [B, P] right-walk ids; only [:rlen]
+
+
+def max_iters_for(effort: int, L: int) -> int:
+    """Junction-step cap of a read (core.align_batch :937-938)."""
+    return 2 * effort * 2 * L + 64
+
+
+def _anchors(member: torch.Tensor, vals: torch.Tensor, E: int,
+             from_end: bool):
+    """First (or last) E hits per row: (hit column [B, E], value [B, E],
+    count [B]) — core._first_k_hits / _last_k_hits_rc."""
+    memi = member.to(torch.int64)
+    cum = memi.cumsum(dim=1)
+    total = cum[:, -1:]
+    rank = total - cum + memi if from_end else cum
+    col = torch.arange(member.shape[1], device=member.device)[None, :]
+    pos, val = [], []
+    for e in range(E):
+        sel = (rank == e + 1) & member.bool()
+        pos.append(torch.where(sel, col, 0).sum(dim=1))
+        val.append(torch.where(sel, vals, 0).sum(dim=1))
+    if E:
+        return torch.stack(pos, 1), torch.stack(val, 1), total[:, 0].clamp(max=E)
+    z = torch.zeros((member.shape[0], 0), dtype=torch.int64,
+                    device=member.device)
+    return z, z, torch.zeros_like(total[:, 0])
+
+
+def _window_miss_ref(ix: IndexTensors, meta, is_fwd, ustart, rstart, w,
+                     rcodes, ncodes, L: int):
+    """Hamming distance over each candidate's window [B, 4], base by
+    base (core._window_miss): unitig bases [ustart, ustart+w) against
+    read bases [rstart, rstart+w), plus the positions set in ncodes (the
+    N-mask on forward walks, zeros on RC walks)."""
+    SW = ix.seq_words
+    if SW > 0:
+        fwd = unpack_fields(
+            meta[..., META_COLS : META_COLS + SW].reshape(-1, SW), 2, 16 * SW)
+        rc = unpack_fields(
+            meta[..., META_COLS + SW : META_COLS + 2 * SW].reshape(-1, SW), 2,
+            16 * SW)
+        useq = torch.where(is_fwd.reshape(-1, 1), fwd, rc)
+        ustart_ = ustart.reshape(-1)
+    else:
+        RW = ix.pool_rows.shape[1]
+        g = meta[..., C_UOFF].to(torch.int64) + ustart
+        r = (g >> CHUNK_SHIFT) + torch.where(is_fwd, 0, ix.n_chunks)
+        useq = unpack_fields(ix.pool_rows[r.clamp(min=0)].reshape(-1, RW), 2,
+                             16 * RW)
+        ustart_ = (g & ((1 << CHUNK_SHIFT) - 1)).reshape(-1)
+    B = rcodes.shape[0]
+    t = torch.arange(L, device=rcodes.device)[None, :]
+    ui = (ustart_[:, None] + t).clamp(0, useq.shape[1] - 1)
+    ub = useq.gather(1, ui).reshape(B, 4, L)
+    ri = (rstart[..., None] + t[None]).clamp(0, rcodes.shape[1] - 1)
+    rb = rcodes[:, None, :].expand(B, 4, -1).gather(2, ri)
+    bad = (ub != rb) | ncodes[:, None, :].expand(B, 4, -1).gather(2, ri).bool()
+    inwin = t[None] < w[..., None]
+    return (bad & inwin).sum(dim=2)
+
+
+def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
+             k: int, m: int, effort: int, L: int) -> Walks:
+    """Plain torch version of K3: the JAX engine's lockstep loop
+    (bookkeep, junction) over the whole batch, int64 lanes."""
+    k1 = k - 1
+    E = effort
+    B, Lk = scan.bug.shape
+    dev = scan.bug.device
+    Lw = (L + 15) // 16
+    P = 16 * Lw
+    max_iters = max_iters_for(effort, L)
+    lens = lens.to(torch.int64)
+    ar = torch.arange(B, device=dev)
+    apos_f, aval_f, n_f = _anchors(member1, scan.bug, E, from_end=False)
+    col_r, aval_r, n_r = _anchors(member2, scan.rcs, E, from_end=True)
+    apos_r = lens[:, None] - k1 - col_r
+    codes_f = unpack_fields(scan.rows[0], 2, 16 * scan.rows.shape[2])
+    codes_r = unpack_fields(scan.rows[1], 2, 16 * scan.rows.shape[2])
+    nmask = unpack_fields(scan.rows[2], 2, 16 * scan.rows.shape[2])
+
+    def z():
+        return torch.zeros(B, dtype=torch.int64, device=dev)
+
+    s = dict(phase=z() + FETCH, status=z(), orient=z(), aidx=z(), a=z(),
+             a_pos=z(), cur=z(), pos=z(), budget=z(), offset=z(), llen=z(),
+             rlen=z())
+    lbuf = torch.zeros((B, P), dtype=torch.int64, device=dev)
+    rbuf = torch.zeros((B, P), dtype=torch.int64, device=dev)
+
+    def bookkeep():
+        is_f = s["phase"] == FETCH
+        o0 = s["orient"] == 0
+        n_cur = torch.where(o0, n_f, n_r)
+        have = s["aidx"] < n_cur
+        fwd_exh = is_f & ~have & o0
+        rc_exh = is_f & ~have & ~o0
+        st_noov = fwd_exh & (n_f == 0)
+        to_rc = fwd_exh & (n_f > 0)
+        st_rcno = rc_exh & (n_r == 0)
+        st_fail = rc_exh & (n_r > 0)
+        bad = is_f & have & (m < 0)
+        load = is_f & have & ~bad
+        if E:
+            ai = s["aidx"].clamp(0, E - 1)[:, None]
+            apos = torch.where(o0, apos_f.gather(1, ai)[:, 0],
+                               apos_r.gather(1, ai)[:, 0])
+            aval = torch.where(o0, aval_f.gather(1, ai)[:, 0],
+                               aval_r.gather(1, ai)[:, 0])
+        else:
+            apos = aval = z()
+        s["status"] = torch.where(
+            st_noov, STATUS_NO_OVERLAP_FWD,
+            torch.where(st_rcno, STATUS_RC_NO_OVERLAP,
+                        torch.where(st_fail, STATUS_FAILED, s["status"])))
+        s["phase"] = torch.where(st_noov | st_rcno | st_fail, DONE,
+                                 torch.where(load, LEFT, s["phase"]))
+        s["orient"] = torch.where(to_rc, 1, s["orient"])
+        s["aidx"] = torch.where(to_rc, 0,
+                                torch.where(bad, s["aidx"] + 1, s["aidx"]))
+        for key, v in (("a", aval), ("a_pos", apos), ("cur", aval),
+                       ("pos", apos), ("budget", z() + m), ("llen", z()),
+                       ("rlen", z()), ("offset", z())):
+            s[key] = torch.where(load, v, s[key])
+        l0 = (s["phase"] == LEFT) & (s["pos"] == 0)
+        s["offset"] = torch.where(l0, 0, s["offset"])
+        s["phase"] = torch.where(l0, RFIRST, s["phase"])
+        s["cur"] = torch.where(l0, s["a"], s["cur"])
+        s["pos"] = torch.where(l0, s["a_pos"], s["pos"])
+        aligned = torch.where(s["orient"] == 0, STATUS_ALIGNED_FWD,
+                              STATUS_ALIGNED_RC)
+        fin = ((s["phase"] == RFIRST) & (lens - s["pos"] - k1 == 0)) | (
+            (s["phase"] == RCONT) & (lens - s["pos"] < k))
+        s["status"] = torch.where(fin, aligned, s["status"])
+        s["phase"] = torch.where(fin, DONE, s["phase"])
+
+    def junction():
+        phase, pos, cur = s["phase"], s["pos"], s["cur"]
+        mL = phase == LEFT
+        mRF = phase == RFIRST
+        active = mL | mRF | (phase == RCONT)
+        rc = rcb_ref(cur, k1)
+        is_canon = cur <= rc
+        hi, lo = split_ref(torch.where(is_canon, cur, rc))
+        S = ix.st_slots
+        frow = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo)
+                           & (ix.st_fused.shape[0] - 1)]
+        ok = (frow[:, :S] == as_i32(hi)[:, None]) & (
+            frow[:, S : 2 * S] == as_i32(lo)[:, None])
+        vals = frow[:, 2 * S :].reshape(B, S, 8).to(torch.int64) & M32
+        vals8 = torch.where(ok[..., None], vals, 0).sum(dim=1) & M32
+        vals8 = torch.where(vals8 >= 1 << 31, vals8 - (1 << 32), vals8)
+        use_right = torch.where(mL, is_canon, ~is_canon)
+        cands = torch.where(use_right[:, None], vals8[:, 4:8], vals8[:, :4])
+        cands = torch.where(ok.any(dim=1)[:, None], cands, 0)
+        valid = cands > 0
+        meta = ix.umeta[cands.clamp(min=0)].to(torch.int64)   # [B, 4, C]
+
+        def kmer(c_hi, c_lo):
+            return ((meta[..., c_hi] & M32) << 32) | (meta[..., c_lo] & M32)
+
+        ul = meta[..., C_ULEN]
+        beg, end = kmer(C_BEG_HI, C_BEG_LO), kmer(C_END_HI, C_END_LO)
+        is_fwd = torch.where(mL[:, None], end, beg) == cur[:, None]
+        rem = torch.where(mL, pos, torch.where(mRF, lens - pos - k1,
+                                               lens - pos))[:, None]
+        mLc, mRFc = mL[:, None], mRF[:, None]
+        ended = (ul - k1) >= rem
+        ustart = torch.where(mLc & ended, ul - rem - k1,
+                             torch.where(mRFc, k1, 0))
+        rstart = torch.where(
+            mLc, torch.where(ended, 0, pos[:, None] - (ul - k1)),
+            torch.where(mRFc, (pos + k1)[:, None], pos[:, None]))
+        w = torch.where(ended, rem, torch.where(mLc | mRFc, ul - k1,
+                                                torch.minimum(ul, rem)))
+        o0 = (s["orient"] == 0)[:, None]
+        rcodes = torch.where(o0, codes_f, codes_r)
+        ncodes = torch.where(o0, nmask, 0)
+        miss = _window_miss_ref(ix, meta, is_fwd, ustart, rstart, w,
+                                rcodes, ncodes, L)
+        miss = torch.where(valid, miss, BIG)
+        bestj = miss.argmin(dim=1, keepdim=True)     # first minimum
+
+        def sel(x):
+            return x.gather(1, bestj)[:, 0]
+
+        best = sel(miss)
+        end_s, ul_s, ust_s = sel(ended), sel(ul), sel(ustart)
+        sid = torch.where(is_fwd, cands, -cands)
+        sid_s = sel(sid)
+        nxt_l = sel(torch.where(is_fwd, beg, kmer(C_RCE_HI, C_RCE_LO)))
+        nxt_r = sel(torch.where(is_fwd, end, kmer(C_RCB_HI, C_RCB_LO)))
+
+        ok_ = active & (best <= s["budget"])
+        fail = active & (best > s["budget"])
+        push_l = ok_ & mL
+        push_r = ok_ & ~mL
+        li = s["llen"].clamp(0, P - 1)
+        ri = s["rlen"].clamp(0, P - 1)
+        lbuf[ar[push_l], li[push_l]] = sid_s[push_l]
+        rbuf[ar[push_r], ri[push_r]] = sid_s[push_r]
+        s["llen"] = s["llen"] + push_l.to(torch.int64)
+        s["rlen"] = s["rlen"] + push_r.to(torch.int64)
+        s["budget"] = torch.where(ok_, s["budget"] - best, s["budget"])
+        le = ok_ & mL & end_s
+        s["offset"] = torch.where(le, ust_s, s["offset"])
+        s["cur"] = torch.where(le, s["a"], s["cur"])
+        s["pos"] = torch.where(le, s["a_pos"], s["pos"])
+        lc = ok_ & mL & ~end_s
+        s["pos"] = torch.where(lc, pos - (ul_s - k1), s["pos"])
+        s["cur"] = torch.where(lc, nxt_l, s["cur"])
+        re_ = ok_ & ~mL & end_s
+        aligned = torch.where(s["orient"] == 0, STATUS_ALIGNED_FWD,
+                              STATUS_ALIGNED_RC)
+        s["status"] = torch.where(re_, aligned, s["status"])
+        rc_ = ok_ & ~mL & ~end_s
+        s["pos"] = torch.where(rc_, pos + (ul_s - k1), s["pos"])
+        s["cur"] = torch.where(rc_, nxt_r, s["cur"])
+        s["phase"] = torch.where(
+            fail, FETCH,
+            torch.where(le, RFIRST, torch.where(re_, DONE, s["phase"])))
+        s["phase"] = torch.where(rc_, RCONT, s["phase"])
+        s["aidx"] = torch.where(fail, s["aidx"] + 1, s["aidx"])
+
+    it = 0
+    while it < max_iters and bool((s["phase"] != DONE).any()):
+        bookkeep()
+        junction()
+        it += 1
+    bookkeep()
+    bookkeep()
+    i32 = torch.int32
+    return Walks(s["status"].to(i32), s["orient"].to(i32),
+                 s["offset"].to(i32), s["llen"].to(i32), s["rlen"].to(i32),
+                 lbuf.to(i32), rbuf.to(i32))
+
+
+def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
+                k: int, m: int, effort: int, L: int) -> Walks:
+    """K3 on the scan's device: the kernel on CUDA, the plain version on
+    the CPU, an error anywhere else."""
+    dev = scan.bug.device
+    if dev.type == "cpu":
+        return walk_ref(ix, scan, member1, member2, lens, k=k, m=m,
+                        effort=effort, L=L)
+    if dev.type != "cuda":
+        raise ValueError(f"no greedy_walk kernel for device {dev}")
+    if ix.umeta.device != dev or lens.device != dev:
+        raise ValueError("index, scan and lens must share a device")
+    if lens.dtype != torch.int32 or member1.dtype != torch.uint8:
+        raise TypeError("lens must be int32 and members uint8")
+    B, Lk = scan.bug.shape
+    if member1.shape != (B, Lk) or member2.shape != (B, Lk):
+        raise ValueError("member shapes differ from the scan's")
+    P = 16 * ((L + 15) // 16)
+    scan = Scan(*(t.contiguous() for t in scan))
+    member1, member2, lens = (t.contiguous()
+                              for t in (member1, member2, lens))
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    lbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
+    rbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
+    if B:
+        lib = build.load()
+        err = lib.dbg_greedy_walk(
+            member1.data_ptr(), member2.data_ptr(), scan.bug.data_ptr(),
+            scan.rcs.data_ptr(), lens.data_ptr(), scan.rows.data_ptr(), B,
+            Lk, scan.rows.shape[2], ix.st_fused.data_ptr(),
+            ix.st_fused.shape[0], ix.st_fused.shape[1], ix.st_seed,
+            ix.umeta.data_ptr(), ix.umeta.shape[1], ix.pool_rows.data_ptr(),
+            ix.pool_rows.shape[1], ix.n_chunks, k, m, effort,
+            max_iters_for(effort, L), P,
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
+            rbuf.data_ptr(), build.stream_ptr(dev),
+        )
+        build.check(err, "greedy_walk")
+        build.count("greedy_walk")
+    return Walks(out[0], out[1], out[2], out[3], out[4], lbuf, rbuf)

@@ -1,0 +1,155 @@
+"""Build, load and count the CUDA kernels of dbgtpu_torch.
+
+`nvcc` compiles every `dbgtpu_torch/csrc/*.cu` for sm_90a into one
+shared library with a plain C interface under `build/dbgtpu_torch/` at
+the repository root (see `_build_dir` for an installed copy), at first use, and again whenever a source changes
+(the library name carries a hash of the sources).  The library is bound
+with ctypes: pointers and the stream are passed as `c_void_p`.  Every C
+entry point returns `cudaGetLastError()` from right after its launch,
+and `check` raises when it is not 0.
+
+Each kernel has a plain-integer launch counter in `launches`; a wrapper
+adds one where it launches its kernel and nowhere else.
+
+Nothing here runs at import time: the CPU tests import every module,
+and a machine without the CUDA toolkit has no `nvcc`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc"
+_ROOT = Path(__file__).resolve().parents[2]
+
+
+def _build_dir() -> Path:
+    """`build/dbgtpu_torch/` in a checkout of the repository; for an
+    installed package, `$DBGTPU_TORCH_CACHE` or the temp directory, as
+    dbgtpu's native parser does, never the shared site-packages parent."""
+    if (_ROOT / "pyproject.toml").exists() and (_ROOT / "dbgtpu_torch").is_dir():
+        return _ROOT / "build" / "dbgtpu_torch"
+    return Path(os.environ.get("DBGTPU_TORCH_CACHE",
+                               tempfile.gettempdir())) / "dbgtpu_torch"
+
+
+BUILD_DIR = _build_dir()
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+KERNELS = ("read_scan", "member", "greedy_walk", "pack_paths")
+launches = dict.fromkeys(KERNELS, 0)
+
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_ARGTYPES = {
+    "dbg_read_scan": [_P, _I, _P, _I, _P, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P, _P, _P],
+    "dbg_member": [_P, _P, _P, _P, _I, _P, _I, _I, _I,
+                   _P, _I, _I, _U, _P, _I, _I, _U, _I,
+                   _P, _P, _P, _P],
+    "dbg_greedy_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
+                        _P, _I, _I, _U, _P, _I, _P, _I, _I,
+                        _I, _I, _I, _I, _I,
+                        _P, _P, _P, _P, _P, _P, _P, _P],
+    "dbg_pack_paths": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    for name in KERNELS:
+        launches[name] = 0
+
+
+def count(name: str) -> None:
+    launches[name] += 1
+
+
+def sources() -> list[Path]:
+    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    cand = Path(home) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin, /usr/local/cuda/bin "
+            "and PATH): the dbgtpu_torch CUDA kernels cannot be built"
+        )
+    return found
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"libdbgtpu_torch.{source_hash()}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+            f"{res.stdout}{res.stderr}"
+        )
+    os.replace(tmp, so)
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """The kernel library, built at first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _ARGTYPES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.dbg_error_string.argtypes = [ctypes.c_int]
+            lib.dbg_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err != 0:
+        msg = load().dbg_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,97 @@
+"""Shared inputs for the dbgtpu_torch parity tests (tests/test_torch_*.py).
+
+Every dataset comes from a numpy seed (tests.synth); the same packed
+batch goes through the JAX engine's functions (dbgtpu.engine.core, on
+the CPU) and through the port's plain torch versions, and every
+comparison is exact: all outputs are integers.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from dbgtpu.index import device as D
+from dbgtpu.index.build import build_graph_from_seqs
+from dbgtpu.seq import encode, n_mask
+
+from . import synth
+
+
+def fasta_seqs(fa: bytes) -> list[bytes]:
+    return [ln for ln in fa.split(b"\n") if ln and not ln.startswith(b">")]
+
+
+def dataset(seed: int, k: int, n_reads: int = 48, n_frac: float = 0.0,
+            genome_len: int = 8000, **kw):
+    """(graph, read sequences) of a synthetic dataset."""
+    reads_fa, unitigs_fa = synth.make_dataset(
+        seed=seed, genome_len=genome_len, k=k, n_reads=n_reads,
+        n_frac=n_frac, **kw,
+    )
+    return (build_graph_from_seqs(fasta_seqs(unitigs_fa), k),
+            fasta_seqs(reads_fa))
+
+
+def device_index(graph, variant: str = "embedded") -> D.DeviceIndex:
+    """DeviceIndex variants: "embedded" (unitig sequence in the umeta
+    rows, window-3 probe table), "pool" (sequence in pool chunk rows),
+    "probeless" (no closure probe table), "window4" (window-4 probes)."""
+    if variant == "pool":
+        cap = D.EMBED_CAP_BASES
+        D.EMBED_CAP_BASES = 8
+        try:
+            di = D.build_device_index(graph)
+        finally:
+            D.EMBED_CAP_BASES = cap
+        assert di.umeta.shape[1] == 16
+        return di
+    di = D.build_device_index(graph)
+    if variant == "probeless":
+        di.probe_tbl = None
+    elif variant == "window4":
+        keys = graph.jkeys
+        di.probe_tbl = D.build_probe_table(keys, graph.k - 1, window=4)
+        assert di.probe_tbl.rows.shape[1] == 4 * D.PT_SLOTS
+    else:
+        assert variant == "embedded", variant
+    return di
+
+
+def batch(reads: list[bytes], L: int, keep_empty_nmbits: bool = False):
+    """Packed batch as the runner builds it: (codes uint8 [B, L],
+    nmask bool [B, L], lens int32 [B], words uint32 [B, ceil(L/16)],
+    nmbits uint32 [B, ceil(L/32)] or [B, 0] when the batch has no N)."""
+    from dbgtpu_torch.engine.runner import pack_words_batch
+
+    B = len(reads)
+    codes = np.zeros((B, L), np.uint8)
+    nm = np.zeros((B, L), bool)
+    lens = np.zeros(B, np.int32)
+    for i, s in enumerate(reads):
+        codes[i, : len(s)] = encode(s)
+        nm[i, : len(s)] = n_mask(s)
+        lens[i] = len(s)
+    words, nmbits = pack_words_batch(codes, nm)
+    if not nmbits.any() and not keep_empty_nmbits:
+        nmbits = np.zeros((B, 0), np.uint32)
+    return codes, nm, lens, words, nmbits
+
+
+def t32(a: np.ndarray) -> torch.Tensor:
+    """numpy uint32/int32 -> torch int32 with the same bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(a.astype(np.int32, copy=False))
+
+
+def join(hi, lo) -> np.ndarray:
+    """JAX (hi, lo) uint32 pair -> int64 k-mer values."""
+    return ((np.asarray(hi).astype(np.int64) << 32)
+            | np.asarray(lo).astype(np.int64))
+
+
+def as_u32(t: torch.Tensor) -> np.ndarray:
+    """torch int32 (uint32 bits) -> numpy uint32."""
+    return t.numpy().view(np.uint32)
