@@ -1,9 +1,11 @@
 """dbgtpu_torch — the PyTorch and CUDA port of dbgtpu for one NVIDIA
 Hopper GPU (sm_90a).
 
-Greedy read mapping against the `scan` junction index: the four device
-stages of dbgtpu's align_batch_packed (read scan, junction membership,
-greedy junction walk, path packing) are hand-written CUDA kernels in
+Read mapping against the `scan` index layout in all three of dbgtpu's
+device modes: greedy, anchor (dog, -G) and exhaustive (-b, with -i).
+The device stages of dbgtpu's align_batch_packed (read scan, junction
+membership, greedy junction walk, path packing, the dog anchor lookup
+and placement, the exhaustive DFS) are six hand-written CUDA kernels in
 `csrc/`, built with nvcc at first use and bound with ctypes
 (`kernels/build.py`).  Every kernel has a plain torch version beside
 it, which the wrappers use for CPU tensors only.  Graph build, read

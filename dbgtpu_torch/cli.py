@@ -1,13 +1,17 @@
 """bgreat-compatible command line of the torch port.
 
-Takes dbgtpu's flags for greedy mapping on one device:
+Takes dbgtpu's flags for mapping on one device with the scan index:
   -r reads (comma-separated), -k k, -g unitigs, -m mismatches,
   -t threads (accepted; batching replaces it), -e effort, -f paths
-  file, -a notAligned file, -q fastq, -c correction, --batch-size,
+  file, -a notAligned file, -q fastq, -c correction, -G anchor (dog)
+  mode, -b exhaustive mode, -i partial (with -b), --batch-size,
   --json-summary, and --device (where the kernels run; default cuda).
-The flags of dbgtpu's other engines are recognised and refused with
-exit code 2, naming the flag.  Without a GPU the command stops unless
-`--device cpu` asks for the plain torch versions of the kernels.
+As in dbgtpu, -b wins over -G, and -i affects only -b.  The flags of
+features outside the port (path modes, the mphf layout, meshes,
+persistence, ...) are recognised and refused with exit code 2, naming
+the flag; so is an index that needs the MPHF anchor layout.  Without a
+GPU the command stops unless `--device cpu` asks for the plain torch
+versions of the kernels.
 """
 
 from __future__ import annotations
@@ -18,9 +22,6 @@ import sys
 # dbgtpu flags whose engines lie outside this port: (option strings,
 # argparse keywords)
 _REFUSED = (
-    (("-G",), dict(action="store_true")),
-    (("-b",), dict(action="store_true")),
-    (("-i",), dict(action="store_true")),
     (("-p",), dict(action="store_true")),
     (("--mesh",), dict()),
     (("--shard-index",), dict(action="store_true")),
@@ -38,7 +39,8 @@ def make_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="dbgtpu_torch",
         description="de Bruijn graph read mapper (BGREAT-compatible), "
-        "PyTorch and CUDA port of dbgtpu: greedy mode, one device",
+        "PyTorch and CUDA port of dbgtpu: greedy, anchor (-G) and "
+        "exhaustive (-b) modes, scan index, one device",
     )
     p.add_argument("-r", dest="reads", required=True,
                    help="read file(s), comma separated")
@@ -60,6 +62,12 @@ def make_parser() -> argparse.ArgumentParser:
                    help="fastq input")
     p.add_argument("-c", dest="correction", action="store_true",
                    help="output corrected reads instead of paths")
+    p.add_argument("-G", dest="dog_mode", action="store_true",
+                   help="anchor (dog) mode: whole k-mer anchors")
+    p.add_argument("-b", dest="exhaustive", action="store_true",
+                   help="exhaustive (branch-and-bound) mode")
+    p.add_argument("-i", dest="partial", action="store_true",
+                   help="with -b: accept partial alignments")
     p.add_argument("--batch-size", type=int, default=32768,
                    help="reads per device batch (32768)")
     p.add_argument("--json-summary", metavar="FILE",
@@ -85,8 +93,8 @@ def main(argv: list[str] | None = None) -> int:
                       .replace("-", "_"))
         if val not in (None, False):
             print(f"dbgtpu_torch: {flags[0]} needs an engine outside this "
-                  "port (greedy mode, scan index, one device); use dbgtpu",
-                  file=sys.stderr)
+                  "port (greedy, -G and -b modes, scan index, one device); "
+                  "use dbgtpu", file=sys.stderr)
             return 2
     if args.index_layout != "scan":
         print("dbgtpu_torch: --index-layout mphf needs an engine outside "
@@ -107,14 +115,22 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 1
 
+    from .engine.index import UnsupportedIndex
     from .pipeline import run_pipeline
 
     reads_files = args.reads.split(",")
-    paths, na, stats = run_pipeline(
-        reads_files, args.unitigs, k=args.k, m=args.mismatches,
-        effort=args.effort, fastq=args.fastq, correction=args.correction,
-        batch_size=args.batch_size, device=device,
-    )
+    mode = ("exhaustive" if args.exhaustive
+            else "anchors" if args.dog_mode else "greedy")
+    try:
+        paths, na, stats = run_pipeline(
+            reads_files, args.unitigs, k=args.k, m=args.mismatches,
+            effort=args.effort, fastq=args.fastq,
+            correction=args.correction, batch_size=args.batch_size,
+            device=device, mode=mode, partial=args.partial,
+        )
+    except UnsupportedIndex as e:
+        print(f"dbgtpu_torch: {e}; use dbgtpu", file=sys.stderr)
+        return 2
     with open(args.paths_file, "wb") as f:
         f.write(paths)
     with open(args.not_aligned_file, "wb") as f:

@@ -1,7 +1,8 @@
 // Device helpers shared by the dbgtpu_torch kernels.
 //
-// k-mers are one uint64 each (a (k-1)-mer has at most 62 bits, k <= 32),
-// first base in the highest occupied two bits.  Packed read and unitig
+// k-mers are one uint64 each (a (k-1)-mer has at most 62 bits, k <= 32;
+// the whole k-mers of dog mode fill all 64 at k = 32), first base in the
+// highest occupied two bits.  Packed read and unitig
 // rows hold 16 bases per uint32 word, base i at bits 2*(i%16) of word
 // i/16 (dbgtpu.index.device.pack_words).  The constants below must
 // match dbgtpu/constants.py and the walk phases of dbgtpu/engine/core.py.
@@ -50,7 +51,7 @@ __device__ __forceinline__ uint64_t rev_groups(uint64_t x) {
          ((x & 0x5555555555555555ull) << 1);
 }
 
-// reverse complement of an n-mer, 1 <= n <= 31 (kmer32.rcb_pair)
+// reverse complement of an n-mer, 1 <= n <= 32 (kmer32.rcb_pair)
 __device__ __forceinline__ uint64_t rcb(uint64_t v, int n) {
   return rev_groups(~v) >> (64 - 2 * n);
 }
@@ -80,6 +81,16 @@ __device__ __forceinline__ uint32_t word_at(const uint32_t* row, int n,
   if (sh == 0) return w0;
   const uint32_t w1 = (i + 1 >= 0 && i + 1 < n) ? row[i + 1] : 0u;
   return (w0 >> sh) | (w1 << (32 - sh));
+}
+
+// the n-mer (1 <= n <= 32) starting at base i of a packed row of nw
+// words: the 64-bit little-endian window from base i, read in reverse
+// two-bit groups (core._scan_kmer_pairs_words)
+__device__ __forceinline__ uint64_t kmer_at(const uint32_t* row, int nw,
+                                            int i, int n) {
+  const uint64_t x = static_cast<uint64_t>(word_at(row, nw, i)) |
+                     (static_cast<uint64_t>(word_at(row, nw, i + 16)) << 32);
+  return rev_groups(x) >> (64 - 2 * n);
 }
 
 // exact membership / value lookup in the fused scan table: S slot

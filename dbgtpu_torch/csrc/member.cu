@@ -11,6 +11,12 @@
 //      of index/device.py:241-253 (key-hi stored inverted);
 //  (b) exact lookups of rep1 (member1) and of the std canonical rep2
 //      (member2) in st_fused.
+// A second mode serves exhaustive mode (-b): one mask, `inter`
+// (dbgtpu/engine/exhaustive.py:118-148), in member1.  Path (a) is the
+// same probe; path (b) looks up canonical(bug, rcb(bug)) — the bug scan
+// against its own reverse complement, not greedy's rep1 — and position
+// 0 is always set: every read tries its first anchor.
+//
 // Bound on the card: random row reads (a probe row is 384-512 bytes,
 // a scan row 1280), not bandwidth.  One thread per read position; in
 // path (a) the W threads of a window read the same row, which L1 and
@@ -22,6 +28,7 @@ namespace {
 __global__ void member_kernel(const int64_t* __restrict__ rep1,
                               const uint8_t* __restrict__ le1,
                               const int64_t* __restrict__ rep2,
+                              const int64_t* __restrict__ bug, int exhaustive,
                               const uint32_t* __restrict__ rwf, int RWr,
                               const int32_t* __restrict__ lens, int L,
                               int k1, int Lk, const uint32_t* __restrict__ st,
@@ -38,6 +45,14 @@ __global__ void member_kernel(const int64_t* __restrict__ rep1,
   const size_t o = row0 + i;
   const bool valid = i <= lens[b] - k1;
   if (pt_nb == 0 || *has_n) {
+    if (exhaustive) {
+      const uint64_t v = static_cast<uint64_t>(bug[o]);
+      const uint64_t rv = dbg::rcb(v, k1);
+      const bool m = dbg::st_lookup(st, st_nb, st_cols, st_seed,
+                                    v <= rv ? v : rv, nullptr);
+      member1[o] = ((valid && m) || i == 0) ? 1 : 0;
+      return;
+    }
     const bool m1 = dbg::st_lookup(st, st_nb, st_cols, st_seed,
                                    static_cast<uint64_t>(rep1[o]), nullptr);
     const bool m2 = dbg::st_lookup(st, st_nb, st_cols, st_seed,
@@ -78,6 +93,10 @@ __global__ void member_kernel(const int64_t* __restrict__ rep1,
     }
   }
   const uint32_t bit = idx < 32 ? (w0 >> idx) & 1u : (w1 >> (idx - 32)) & 1u;
+  if (exhaustive) {
+    member1[o] = ((valid && bit) || i == 0) ? 1 : 0;
+    return;
+  }
   const uint8_t m = (valid && bit) ? 1 : 0;
   member1[o] = m;
   member2[o] = m;
@@ -86,7 +105,7 @@ __global__ void member_kernel(const int64_t* __restrict__ rep1,
 }  // namespace
 
 extern "C" int dbg_member(const void* rep1, const void* le1, const void* rep2,
-                          const void* rwf, int RWr, const void* lens, int B,
+                          const void* bug, int exhaustive, const void* rwf, int RWr, const void* lens, int B,
                           int L, int k1, const void* st, int st_nb,
                           int st_cols, unsigned st_seed, const void* pt,
                           int pt_nb, int pt_cols, unsigned pt_seed, int S_pt,
@@ -97,7 +116,8 @@ extern "C" int dbg_member(const void* rep1, const void* le1, const void* rep2,
   const dim3 grid(B, (Lk + threads - 1) / threads);
   member_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(rep1), static_cast<const uint8_t*>(le1),
-      static_cast<const int64_t*>(rep2), static_cast<const uint32_t*>(rwf),
+      static_cast<const int64_t*>(rep2), static_cast<const int64_t*>(bug),
+      exhaustive, static_cast<const uint32_t*>(rwf),
       RWr, static_cast<const int32_t*>(lens), L, k1, Lk,
       static_cast<const uint32_t*>(st), st_nb, st_cols, st_seed,
       static_cast<const uint32_t*>(pt), pt_nb, pt_cols, pt_seed, S_pt,

@@ -1,10 +1,14 @@
-// K3 greedy_walk: anchor pick plus the greedy junction walk, one thread
-// per read, walking to completion.
+// K3 greedy_walk: the greedy junction walk, one thread per read, walking
+// to completion, from one initial state per anchor.
 //
-// Replaces, in dbgtpu/engine/core.py: _first_k_hits / _last_k_hits_rc
-// (:643, :656), the scan-layout branch of _junction_vals (:376),
-// _junction_probe (:777), _window_miss (:703) and _run_walks (:1099:
-// bookkeep :1163, junction :1242, final flush :1408-1411).
+// Replaces, in dbgtpu/engine/core.py: _run_walks (:1099: bookkeep :1163,
+// junction :1242, final flush :1408-1411) with the junction probe of
+// junction.cuh, and for the greedy entry _first_k_hits / _last_k_hits_rc
+// (:643, :656).  Two entry points share the walk body:
+//  - dbg_greedy_walk picks its anchors from K2's member masks (greedy
+//    mode: LEFT at the anchor, budget m, nothing preloaded);
+//  - dbg_walk_inits reads per-anchor inits precomputed by K5 (dog mode,
+//    engine/dog.py; core.py:1112-1128 for their meaning).
 //
 // Bound on the card: dependent random row reads (st_fused row, then up
 // to 4 umeta rows per junction step), i.e. memory latency; a read's
@@ -19,17 +23,21 @@
 // bookkeep, then one junction, per iteration, capped at max_iters
 // iterations; then two more bookkeeps.  A read in DONE is a fixed point
 // of both, so leaving the loop early changes nothing.
-#include "common.cuh"
+#include "junction.cuh"
 
 namespace {
 
+// one anchor's initial walk state (core._run_walks `env` entries)
+struct Init {
+  int ph0;
+  uint64_t cur0;
+  int pos0;
+  uint64_t ra;       // right-walk restart (k-1)-mer
+  int ra_pos, bud0, off0, r0, st0;
+};
+
 struct Walk {
-  // loop constants of the read
-  const uint8_t* m1;
-  const uint8_t* m2;
-  const int64_t* bug;
-  const int64_t* rcs;
-  int len, Lk, k1, k, m, n_f, n_r;
+  int len, k1, k, n_f, n_r;
   // state (core._run_walks `state`)
   int phase, status, orient, aidx;
   uint64_t a;        // anchor (k-1)-mer: restart point of the right walk
@@ -38,51 +46,83 @@ struct Walk {
   int pos, budget, offset, llen, rlen;
 };
 
-// the (aidx+1)-th forward anchor (first member1 hits, bug values), or
-// the (aidx+1)-th RC anchor (member2 hits counted from the end, at RC
-// position len-k1-i, rc-of-std values)
-__device__ void fetch_anchor(const Walk& w, uint64_t* val, int* apos) {
-  if (w.orient == 0) {
-    int seen = 0;
-    for (int i = 0; i < w.Lk; ++i) {
-      if (w.m1[i] && seen++ == w.aidx) {
-        *val = static_cast<uint64_t>(w.bug[i]);
-        *apos = i;
-        return;
-      }
-    }
-  } else {
-    int seen = 0;
-    for (int i = w.Lk - 1; i >= 0; --i) {
-      if (w.m2[i] && seen++ == w.aidx) {
-        *val = static_cast<uint64_t>(w.rcs[i]);
-        *apos = w.len - w.k1 - i;
-        return;
-      }
-    }
-  }
-}
+// greedy anchors: the (aidx+1)-th forward anchor (first member1 hits,
+// bug values), or the (aidx+1)-th RC anchor (member2 hits counted from
+// the end, at RC position len-k1-i, rc-of-std values)
+struct GreedyAnchors {
+  const uint8_t* m1;
+  const uint8_t* m2;
+  const int64_t* bug;
+  const int64_t* rcs;
+  int Lk, len, k1, m;
 
-__device__ void bookkeep(Walk& w) {
+  __device__ Init get(int orient, int aidx) const {
+    uint64_t val = 0;
+    int apos = 0;
+    int seen = 0;
+    if (orient == 0) {
+      for (int i = 0; i < Lk; ++i) {
+        if (m1[i] && seen++ == aidx) {
+          val = static_cast<uint64_t>(bug[i]);
+          apos = i;
+          break;
+        }
+      }
+    } else {
+      for (int i = Lk - 1; i >= 0; --i) {
+        if (m2[i] && seen++ == aidx) {
+          val = static_cast<uint64_t>(rcs[i]);
+          apos = len - k1 - i;
+          break;
+        }
+      }
+    }
+    return Init{dbg::LEFT, val, apos, val, apos, m, 0, 0, 0};
+  }
+};
+
+// precomputed inits: planes int64 [9, 2, B, E]
+struct PlaneAnchors {
+  const int64_t* planes;
+  int B, E, b;
+
+  __device__ int64_t at(int f, int orient, int aidx) const {
+    return planes[((static_cast<size_t>(f) * 2 + orient) * B + b) * E + aidx];
+  }
+  __device__ Init get(int orient, int aidx) const {
+    return Init{static_cast<int>(at(0, orient, aidx)),
+                static_cast<uint64_t>(at(1, orient, aidx)),
+                static_cast<int>(at(2, orient, aidx)),
+                static_cast<uint64_t>(at(3, orient, aidx)),
+                static_cast<int>(at(4, orient, aidx)),
+                static_cast<int>(at(5, orient, aidx)),
+                static_cast<int>(at(6, orient, aidx)),
+                static_cast<int>(at(7, orient, aidx)),
+                static_cast<int>(at(8, orient, aidx))};
+  }
+};
+
+template <class Anchors>
+__device__ void bookkeep(Walk& w, const Anchors& anchors, int32_t* rbuf) {
   if (w.phase == dbg::FETCH) {
     const int n_cur = w.orient == 0 ? w.n_f : w.n_r;
     if (w.aidx < n_cur) {
-      if (w.m < 0) {
-        // an anchor with a negative budget fails before it starts
+      const Init in = anchors.get(w.orient, w.aidx);
+      if (in.bud0 < 0) {
+        // an anchor whose placement already failed: skip it
         w.aidx += 1;
       } else {
-        uint64_t val = 0;
-        int apos = 0;
-        fetch_anchor(w, &val, &apos);
-        w.a = val;
-        w.a_pos = apos;
-        w.cur = val;
-        w.pos = apos;
-        w.budget = w.m;
+        if (in.ph0 == dbg::DONE) w.status = in.st0;
+        w.phase = in.ph0;
+        w.a = in.ra;
+        w.a_pos = in.ra_pos;
+        w.cur = in.cur0;
+        w.pos = in.pos0;
+        w.budget = in.bud0;
         w.llen = 0;
-        w.rlen = 0;
-        w.offset = 0;
-        w.phase = dbg::LEFT;
+        w.rlen = in.r0 != 0 ? 1 : 0;
+        if (in.r0 != 0) rbuf[0] = in.r0;
+        w.offset = in.off0;
       }
     } else if (w.orient == 0) {
       if (w.n_f == 0) {
@@ -114,94 +154,25 @@ __device__ void bookkeep(Walk& w) {
   }
 }
 
-struct Index {
-  const uint32_t* st;
-  int st_nb, st_cols;
-  uint32_t st_seed;
-  const int32_t* umeta;
-  int ucols;
-  const uint32_t* pool;
-  int pool_cols, n_chunks;
-};
-
-__device__ void junction(Walk& w, const Index& ix, const uint32_t* rwf,
+__device__ void junction(Walk& w, const dbg::Index& ix, const uint32_t* rwf,
                          const uint32_t* rwr, const uint32_t* nmw, int RWr,
                          int32_t* lbuf, int32_t* rbuf, int P) {
   const bool mL = w.phase == dbg::LEFT;
   const bool mRF = w.phase == dbg::RFIRST;
   if (!(mL || mRF || w.phase == dbg::RCONT)) return;
-  const int k1 = w.k1;
-  const uint64_t rc = dbg::rcb(w.cur, k1);
-  const bool is_canon = w.cur <= rc;
-  int32_t vals8[8];
-  const bool found = dbg::st_lookup(ix.st, ix.st_nb, ix.st_cols, ix.st_seed,
-                                    is_canon ? w.cur : rc, vals8);
-  const bool use_right = mL ? is_canon : !is_canon;
+  const dbg::Junction j =
+      dbg::junction_lookup(ix, mL, mRF, w.cur, w.pos, w.len, w.k1);
   // windowed compare against the orientation-selected read row; the
   // N-mask counts only for forward-oriented walks
   const uint32_t* rrow = w.orient == 0 ? rwf : rwr;
   const uint32_t* nrow = w.orient == 0 ? nmw : nullptr;
-  const int rem = mL ? w.pos : (mRF ? w.len - w.pos - k1 : w.len - w.pos);
-  const int SW = (ix.ucols - dbg::META_COLS) / 2;
-
   int best = 0x7fffffff;
-  bool b_end = false;
-  int b_ul = 0, b_ust = 0, b_sid = 0;
-  uint64_t b_nl = 0, b_nr = 0;
-  for (int j = 0; j < 4; ++j) {
-    const int cand = found ? vals8[(use_right ? 4 : 0) + j] : 0;
-    int miss = dbg::BIG;
-    const int32_t* meta = ix.umeta + static_cast<size_t>(cand > 0 ? cand : 0) *
-                                         ix.ucols;
-    const int uoffc = meta[0];
-    const int ul = meta[1];
-    const uint64_t beg = dbg::join(meta[2], meta[3]);
-    const uint64_t end = dbg::join(meta[4], meta[5]);
-    const bool is_fwd = (mL ? end : beg) == w.cur;
-    const bool ended = (ul - k1) >= rem;
-    const int ustart = (mL && ended) ? ul - rem - k1 : (mRF ? k1 : 0);
-    if (cand > 0) {
-      const int rstart =
-          mL ? (ended ? 0 : w.pos - (ul - k1)) : (mRF ? w.pos + k1 : w.pos);
-      const int win = ended ? rem : ((mL || mRF) ? ul - k1 : min(ul, rem));
-      const uint32_t* src;
-      int nsrc, s0;
-      if (SW > 0) {
-        // the unitig's packed bases ride in its own umeta row
-        src = reinterpret_cast<const uint32_t*>(meta + dbg::META_COLS +
-                                                (is_fwd ? 0 : SW));
-        nsrc = SW;
-        s0 = ustart;
-      } else {
-        // halo'd pool chunk row covering [ustart, ustart + win)
-        const int g = uoffc + ustart;
-        const int r = (g >> dbg::CHUNK_SHIFT) + (is_fwd ? 0 : ix.n_chunks);
-        src = ix.pool + static_cast<size_t>(max(r, 0)) * ix.pool_cols;
-        nsrc = ix.pool_cols;
-        s0 = g & ((1 << dbg::CHUNK_SHIFT) - 1);
-      }
-      miss = 0;
-      for (int t = 0; 16 * t < win; ++t) {
-        const uint32_t x = dbg::word_at(src, nsrc, s0 + 16 * t) ^
-                           dbg::word_at(rrow, RWr, rstart + 16 * t);
-        uint32_t mm = (x | (x >> 1)) & dbg::LANE_LO;
-        if (nrow) mm |= dbg::word_at(nrow, RWr, rstart + 16 * t);
-        const int v = min(win - 16 * t, 16);
-        const uint32_t lane =
-            (v >= 16 ? 0xFFFFFFFFu : ((1u << (2 * v)) - 1u)) & dbg::LANE_LO;
-        miss += __popc(mm & lane);
-      }
-    }
-    if (miss < best) {  // earliest index wins ties (jnp.argmin)
-      best = miss;
-      b_end = ended;
-      b_ul = ul;
-      b_ust = ustart;
-      b_sid = is_fwd ? cand : -cand;
-      // follow-on junction k-mers: LEFT fwd -> begin, rc -> rc(end);
-      // RIGHT fwd -> end, rc -> rc(begin)
-      b_nl = is_fwd ? beg : dbg::join(meta[8], meta[9]);
-      b_nr = is_fwd ? end : dbg::join(meta[6], meta[7]);
+  dbg::Candidate b{};
+  for (int c = 0; c < 4; ++c) {
+    const dbg::Candidate o = dbg::probe_candidate(ix, j, c, rrow, nrow, RWr);
+    if (o.miss < best) {  // earliest index wins ties (jnp.argmin)
+      best = o.miss;
+      b = o;
     }
   }
   if (best > w.budget) {  // fail -> next anchor
@@ -210,62 +181,44 @@ __device__ void junction(Walk& w, const Index& ix, const uint32_t* rwf,
     return;
   }
   if (mL) {
-    lbuf[min(max(w.llen, 0), P - 1)] = b_sid;
+    lbuf[min(max(w.llen, 0), P - 1)] = b.sid;
     w.llen += 1;
   } else {
-    rbuf[min(max(w.rlen, 0), P - 1)] = b_sid;
+    rbuf[min(max(w.rlen, 0), P - 1)] = b.sid;
     w.rlen += 1;
   }
   w.budget -= best;
+  const int k1 = w.k1;
   if (mL) {
-    if (b_end) {  // LEFT ended: record offset, restart right at the anchor
-      w.offset = b_ust;
+    if (b.ended) {  // LEFT ended: record offset, restart right at the anchor
+      w.offset = b.ust;
       w.cur = w.a;
       w.pos = w.a_pos;
       w.phase = dbg::RFIRST;
     } else {
-      w.pos -= b_ul - k1;
-      w.cur = b_nl;
+      w.pos -= b.ul - k1;
+      w.cur = b.nxt_l;
     }
-  } else if (b_end) {  // RIGHT ended: aligned
+  } else if (b.ended) {  // RIGHT ended: aligned
     w.status = w.orient == 0 ? dbg::STATUS_ALIGNED_FWD : dbg::STATUS_ALIGNED_RC;
     w.phase = dbg::DONE;
   } else {
-    w.pos += b_ul - k1;
-    w.cur = b_nr;
+    w.pos += b.ul - k1;
+    w.cur = b.nxt_r;
     w.phase = dbg::RCONT;
   }
 }
 
-__global__ void greedy_walk_kernel(
-    const uint8_t* __restrict__ member1, const uint8_t* __restrict__ member2,
-    const int64_t* __restrict__ bug, const int64_t* __restrict__ rcs,
-    const int32_t* __restrict__ lens, const uint32_t* __restrict__ rows,
-    Index ix, int B, int Lk, int RWr, int k, int m, int E, int max_iters,
-    int P, int32_t* __restrict__ status, int32_t* __restrict__ orient,
-    int32_t* __restrict__ offset, int32_t* __restrict__ llen,
-    int32_t* __restrict__ rlen, int32_t* __restrict__ lbuf,
-    int32_t* __restrict__ rbuf) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const size_t o = static_cast<size_t>(b) * Lk;
-  Walk w;
-  w.m1 = member1 + o;
-  w.m2 = member2 + o;
-  w.bug = bug + o;
-  w.rcs = rcs + o;
-  w.len = lens[b];
-  w.Lk = Lk;
-  w.k = k;
-  w.k1 = k - 1;
-  w.m = m;
-  int c1 = 0, c2 = 0;
-  for (int i = 0; i < Lk; ++i) {
-    c1 += w.m1[i];
-    c2 += w.m2[i];
-  }
-  w.n_f = min(c1, E);
-  w.n_r = min(c2, E);
+struct Out {
+  int32_t *status, *orient, *offset, *llen, *rlen, *lbuf, *rbuf;
+};
+
+// the walk body both entries share: bookkeep + junction per iteration,
+// then the terminal flush
+template <class Anchors>
+__device__ void walk_read(Walk& w, const Anchors& anchors, const dbg::Index& ix,
+                          const uint32_t* rows, int B, int RWr, int b,
+                          int max_iters, int P, const Out& out) {
   w.phase = dbg::FETCH;
   w.status = dbg::STATUS_PENDING;
   w.orient = 0;
@@ -278,25 +231,77 @@ __global__ void greedy_walk_kernel(
   w.offset = 0;
   w.llen = 0;
   w.rlen = 0;
-
   const size_t plane = static_cast<size_t>(B) * RWr;
   const uint32_t* rwf = rows + static_cast<size_t>(b) * RWr;
   const uint32_t* rwr = rwf + plane;
   const uint32_t* nmw = rwf + 2 * plane;
-  int32_t* lb = lbuf + static_cast<size_t>(b) * P;
-  int32_t* rb = rbuf + static_cast<size_t>(b) * P;
+  int32_t* lb = out.lbuf + static_cast<size_t>(b) * P;
+  int32_t* rb = out.rbuf + static_cast<size_t>(b) * P;
   for (int it = 0; it < max_iters && w.phase != dbg::DONE; ++it) {
-    bookkeep(w);
+    bookkeep(w, anchors, rb);
     junction(w, ix, rwf, rwr, nmw, RWr, lb, rb, P);
   }
-  bookkeep(w);
-  bookkeep(w);
-  status[b] = w.status;
-  orient[b] = w.orient;
-  offset[b] = w.offset;
-  llen[b] = w.llen;
-  rlen[b] = w.rlen;
+  bookkeep(w, anchors, rb);
+  bookkeep(w, anchors, rb);
+  out.status[b] = w.status;
+  out.orient[b] = w.orient;
+  out.offset[b] = w.offset;
+  out.llen[b] = w.llen;
+  out.rlen[b] = w.rlen;
 }
+
+__global__ void greedy_walk_kernel(
+    const uint8_t* __restrict__ member1, const uint8_t* __restrict__ member2,
+    const int64_t* __restrict__ bug, const int64_t* __restrict__ rcs,
+    const int32_t* __restrict__ lens, const uint32_t* __restrict__ rows,
+    dbg::Index ix, int B, int Lk, int RWr, int k, int m, int E,
+    int max_iters, int P, Out out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  const size_t o = static_cast<size_t>(b) * Lk;
+  Walk w;
+  w.len = lens[b];
+  w.k = k;
+  w.k1 = k - 1;
+  const GreedyAnchors anchors{member1 + o, member2 + o, bug + o, rcs + o,
+                              Lk,          w.len,       w.k1,    m};
+  int c1 = 0, c2 = 0;
+  for (int i = 0; i < Lk; ++i) {
+    c1 += anchors.m1[i];
+    c2 += anchors.m2[i];
+  }
+  w.n_f = min(c1, E);
+  w.n_r = min(c2, E);
+  walk_read(w, anchors, ix, rows, B, RWr, b, max_iters, P, out);
+}
+
+__global__ void walk_inits_kernel(const int64_t* __restrict__ planes,
+                                  const int32_t* __restrict__ n,
+                                  const int32_t* __restrict__ lens,
+                                  const uint32_t* __restrict__ rows,
+                                  dbg::Index ix, int B, int RWr, int k, int E,
+                                  int max_iters, int P, Out out) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  Walk w;
+  w.len = lens[b];
+  w.k = k;
+  w.k1 = k - 1;
+  w.n_f = n[b];
+  w.n_r = n[B + b];
+  const PlaneAnchors anchors{planes, B, E, b};
+  walk_read(w, anchors, ix, rows, B, RWr, b, max_iters, P, out);
+}
+
+Out make_out(void* status, void* orient, void* offset, void* llen, void* rlen,
+             void* lbuf, void* rbuf) {
+  return Out{static_cast<int32_t*>(status), static_cast<int32_t*>(orient),
+             static_cast<int32_t*>(offset), static_cast<int32_t*>(llen),
+             static_cast<int32_t*>(rlen),   static_cast<int32_t*>(lbuf),
+             static_cast<int32_t*>(rbuf)};
+}
+
+constexpr int kThreads = 128;
 
 }  // namespace
 
@@ -308,26 +313,33 @@ extern "C" int dbg_greedy_walk(
     int n_chunks, int k, int m, int E, int max_iters, int P, void* status,
     void* orient, void* offset, void* llen, void* rlen, void* lbuf,
     void* rbuf, void* stream) {
-  Index ix;
-  ix.st = static_cast<const uint32_t*>(st);
-  ix.st_nb = st_nb;
-  ix.st_cols = st_cols;
-  ix.st_seed = st_seed;
-  ix.umeta = static_cast<const int32_t*>(umeta);
-  ix.ucols = ucols;
-  ix.pool = static_cast<const uint32_t*>(pool);
-  ix.pool_cols = pool_cols;
-  ix.n_chunks = n_chunks;
-  const int threads = 128;
-  greedy_walk_kernel<<<(B + threads - 1) / threads, threads, 0,
+  greedy_walk_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(member1),
       static_cast<const uint8_t*>(member2),
       static_cast<const int64_t*>(bug), static_cast<const int64_t*>(rcs),
       static_cast<const int32_t*>(lens), static_cast<const uint32_t*>(rows),
-      ix, B, Lk, RWr, k, m, E, max_iters, P, static_cast<int32_t*>(status),
-      static_cast<int32_t*>(orient), static_cast<int32_t*>(offset),
-      static_cast<int32_t*>(llen), static_cast<int32_t*>(rlen),
-      static_cast<int32_t*>(lbuf), static_cast<int32_t*>(rbuf));
+      dbg::make_index(st, st_nb, st_cols, st_seed, umeta, ucols, pool, pool_cols,
+                 n_chunks),
+      B, Lk, RWr, k, m, E, max_iters, P,
+      make_out(status, orient, offset, llen, rlen, lbuf, rbuf));
+  DBG_RETURN_LAUNCH_STATUS();
+}
+
+extern "C" int dbg_walk_inits(
+    const void* planes, const void* n, const void* lens, const void* rows,
+    int B, int RWr, const void* st, int st_nb, int st_cols, unsigned st_seed,
+    const void* umeta, int ucols, const void* pool, int pool_cols,
+    int n_chunks, int k, int E, int max_iters, int P, void* status,
+    void* orient, void* offset, void* llen, void* rlen, void* lbuf,
+    void* rbuf, void* stream) {
+  walk_inits_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(planes), static_cast<const int32_t*>(n),
+      static_cast<const int32_t*>(lens), static_cast<const uint32_t*>(rows),
+      dbg::make_index(st, st_nb, st_cols, st_seed, umeta, ucols, pool, pool_cols,
+                 n_chunks),
+      B, RWr, k, E, max_iters, P,
+      make_out(status, orient, offset, llen, rlen, lbuf, rbuf));
   DBG_RETURN_LAUNCH_STATUS();
 }

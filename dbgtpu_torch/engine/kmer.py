@@ -1,10 +1,12 @@
 """K-mer arithmetic on torch tensors: the plain counterparts of
 dbgtpu/engine/kmer32.py and of the device helpers in csrc/common.cuh.
 
-A (k-1)-mer has at most 62 bits (k <= 32), so the port carries each one
-as a single non-negative int64, first base in the highest occupied two
-bits (reference str2num order), instead of kmer32's (hi, lo) uint32
-pair.  The hash tables are still hashed on the 32-bit halves, so
+A k-mer of n <= 32 bases is carried as a single int64 holding its 2n
+bits, first base in the highest occupied two bits (reference str2num
+order), instead of kmer32's (hi, lo) uint32 pair.  A (k-1)-mer has at
+most 62 bits and is non-negative; the k-mers of dog mode (-G) at k = 32
+fill all 64 bits, so their int64 may be negative, and every helper
+below treats the value as unsigned.  The hash tables are still hashed on the 32-bit halves, so
 `mix32_ref` works on halves held in int64 lanes masked to 32 bits:
 torch on the CPU has no `>>` for uint32 or uint64, and an int32
 arithmetic shift would corrupt the hash.  int64 multiplication wraps
@@ -37,8 +39,8 @@ def as_i32(x: torch.Tensor) -> torch.Tensor:
 
 
 def split_ref(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """int64 k-mer -> (hi, lo) 32-bit halves as int64."""
-    return v >> 32, v & M32
+    """int64 k-mer -> (hi, lo) 32-bit halves as int64 in [0, 2**32)."""
+    return (v >> 32) & M32, v & M32
 
 
 def _rev_groups(x: torch.Tensor) -> torch.Tensor:
@@ -52,17 +54,28 @@ def _rev_groups(x: torch.Tensor) -> torch.Tensor:
     return ((x >> 32) & M32) | (x << 32)
 
 
+def _mask(n: int) -> int:
+    """The 2n low bits as an int64 constant (-1 for n = 32: 2**64 - 1
+    does not fit an int64)."""
+    return -1 if n == 32 else (1 << (2 * n)) - 1
+
+
 def rev_ref(v: torch.Tensor, n: int) -> torch.Tensor:
-    """Two-bit-group reversal of an n-mer (kmer32.rev_pair), 1 <= n <= 31."""
-    return (_rev_groups(v) >> (64 - 2 * n)) & ((1 << (2 * n)) - 1)
+    """Two-bit-group reversal of an n-mer (kmer32.rev_pair), 1 <= n <= 32."""
+    if n == 32:
+        return _rev_groups(v)
+    return (_rev_groups(v) >> (64 - 2 * n)) & _mask(n)
 
 
 def rcb_ref(v: torch.Tensor, n: int) -> torch.Tensor:
-    """Reverse complement of an n-mer (kmer32.rcb_pair), 1 <= n <= 31."""
-    return rev_ref(v ^ ((1 << (2 * n)) - 1), n)
+    """Reverse complement of an n-mer (kmer32.rcb_pair), 1 <= n <= 32."""
+    return rev_ref(v ^ _mask(n), n)
 
 
 def le_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a <= b on k-mer values (kmer32.pair_le): the values are
-    non-negative, so the signed compare is the unsigned one."""
-    return a <= b
+    """Unsigned a <= b on k-mer values (kmer32.pair_le), compared on the
+    32-bit halves: a 32-mer's int64 may be negative, where the signed
+    compare is wrong."""
+    ahi, alo = split_ref(a)
+    bhi, blo = split_ref(b)
+    return (ahi < bhi) | ((ahi == bhi) & (alo <= blo))

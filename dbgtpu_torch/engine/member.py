@@ -6,6 +6,13 @@ _st_member_positions and the choice between them (align_batch
 positions) when the batch holds no N and a probe table exists, exact
 per-position lookups of rep1 and rep2 in `st_fused` otherwise.  The
 kernel is csrc/member.cu; `member_ref` is its plain torch version.
+
+The kernel's second mode serves exhaustive mode (-b): the one mask
+`inter` of dbgtpu/engine/exhaustive.py:118-148.  Without N it is the
+same closure probe; with N (or without a probe table) it looks up the
+canonical of the bug scan against ITS OWN reverse complement,
+canonical(bug, rcb(bug)) (:130-136), not greedy's canonical(bug, rcs),
+and position 0 is always set: every read tries its first anchor.
 """
 
 from __future__ import annotations
@@ -15,18 +22,18 @@ import torch
 from dbgtpu.index.device import PT_SLOTS
 
 from ..kernels import build
-from .index import IndexTensors
-from .kmer import M32, as_i32, mix32_ref, split_ref
+from .index import LOOKUP_CHUNK, IndexTensors
+from .kmer import M32, as_i32, mix32_ref, rcb_ref, split_ref
 from .read_scan import Scan, unpack_fields
 
 
-def st_member_ref(ix: IndexTensors, keys: torch.Tensor,
-                  chunk: int = 8) -> torch.Tensor:
-    """Exact membership of int64 k-mers [B, Lk] in st_fused, position
-    chunks at a time so the gathered rows stay [B, chunk, 10*S]."""
+def st_member_ref(ix: IndexTensors, keys: torch.Tensor) -> torch.Tensor:
+    """Exact membership of int64 k-mers [B, Lk] in st_fused, LOOKUP_CHUNK
+    positions at a time."""
     S = ix.st_slots
     nbm = ix.st_fused.shape[0] - 1
     out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
+    chunk = LOOKUP_CHUNK
     for c0 in range(0, keys.shape[1], chunk):
         hi, lo = split_ref(keys[:, c0 : c0 + chunk])
         row = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo) & nbm]
@@ -97,11 +104,38 @@ def member_ref(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int):
     return m1.to(torch.uint8), m2.to(torch.uint8)
 
 
+def inter_ref(ix: IndexTensors, scan: Scan, lens, *, L: int,
+              k1: int) -> torch.Tensor:
+    """Plain torch version of K2's exhaustive mode -> inter uint8 [B, Lk]:
+    (member & valid) | (column == 0)."""
+    Lk = scan.bug.shape[1]
+    col = torch.arange(Lk, device=lens.device)[None, :]
+    valid = col <= (lens.to(torch.int64) - k1)[:, None]
+    if ix.pt_rows.shape[0] == 0 or bool(scan.has_n.item()):
+        rb = rcb_ref(scan.bug, k1)
+        m = st_member_ref(ix, torch.minimum(scan.bug, rb))
+    else:
+        m = _closure_member_ref(ix, scan, L, k1)
+    return ((m & valid) | (col == 0)).to(torch.uint8)
+
+
 def member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int):
     """K2 on the scan's device: the kernel on CUDA, the plain version on
     the CPU, an error anywhere else."""
+    return _member(ix, scan, lens, L=L, k1=k1, exhaustive=False)
+
+
+def inter(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int):
+    """K2's exhaustive mode on the scan's device, as `member`."""
+    return _member(ix, scan, lens, L=L, k1=k1, exhaustive=True)
+
+
+def _member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
+            exhaustive: bool):
     dev = scan.rep1.device
     if dev.type == "cpu":
+        if exhaustive:
+            return inter_ref(ix, scan, lens, L=L, k1=k1)
         return member_ref(ix, scan, lens, L=L, k1=k1)
     if dev.type != "cuda":
         raise ValueError(f"no member kernel for device {dev}")
@@ -113,18 +147,19 @@ def member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int):
     lens = lens.contiguous()
     scan = Scan(*(t.contiguous() for t in scan))
     m1 = torch.empty((B, Lk), dtype=torch.uint8, device=dev)
-    m2 = torch.empty((B, Lk), dtype=torch.uint8, device=dev)
+    m2 = None if exhaustive else torch.empty_like(m1)
     if B:
         lib = build.load()
         err = lib.dbg_member(
             scan.rep1.data_ptr(), scan.le1.data_ptr(), scan.rep2.data_ptr(),
+            scan.bug.data_ptr(), int(exhaustive),
             scan.rows[0].data_ptr(), scan.rows.shape[2], lens.data_ptr(), B,
             L, k1, ix.st_fused.data_ptr(), ix.st_fused.shape[0],
             ix.st_fused.shape[1], ix.st_seed, ix.pt_rows.data_ptr(),
             ix.pt_rows.shape[0], ix.pt_rows.shape[1], ix.pt_seed, PT_SLOTS,
-            scan.has_n.data_ptr(), m1.data_ptr(), m2.data_ptr(),
-            build.stream_ptr(dev),
+            scan.has_n.data_ptr(), m1.data_ptr(),
+            None if m2 is None else m2.data_ptr(), build.stream_ptr(dev),
         )
         build.check(err, "member")
         build.count("member")
-    return m1, m2
+    return m1 if exhaustive else (m1, m2)

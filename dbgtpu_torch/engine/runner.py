@@ -1,12 +1,14 @@
 """Host-side batching around the torch engine (counterpart of
-dbgtpu/engine/runner.py align_bulk, greedy mode, one device).
+dbgtpu/engine/runner.py align_bulk, one device, greedy, anchor and
+exhaustive modes).
 
 Parsed reads are packed into batches (2-bit words + N bits, native C
 packer when available), each batch is mapped by
 core.align_batch_packed on the device, and the fused result rows are
 unpacked in input order.  Rows whose true path length exceeds the
 batch's pmax are recomputed exactly on the host by the executable spec
-(dbgtpu.model) — part of the output contract, as in dbgtpu.  There is
+of the mode (dbgtpu.model, dbgtpu.anchors, dbgtpu.exhaustive) — part
+of the output contract, as in dbgtpu.  There is
 no other host fallback: a device failure raises.
 
 dbgtpu/engine/runner.py imports JAX, so the small helpers it shares
@@ -21,6 +23,8 @@ from dbgtpu import native
 from dbgtpu.constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
 from dbgtpu.index.build import UnitigGraph
 from dbgtpu.index.device import DeviceIndex, build_device_index
+from dbgtpu.anchors import align_read_greedy_anchors
+from dbgtpu.exhaustive import align_read_exhaustive
 from dbgtpu.model import align_read_greedy
 
 from .core import align_batch_packed
@@ -37,7 +41,8 @@ def _pmax_cap(L: int) -> int:
 
 def get_device_index(graph: UnitigGraph) -> DeviceIndex:
     """The graph's scan-layout DeviceIndex, built once and kept on the
-    graph (the same attribute dbgtpu's runner uses)."""
+    graph (the same attribute dbgtpu's runner uses); a graph built in
+    dog mode also gets its anchor table."""
     di = getattr(graph, "_device_index", None)
     if di is None:
         di = build_device_index(graph, layout="scan")
@@ -102,15 +107,31 @@ def pack_records(parsed, lens_all, s0: int, nb: int, L: int):
     return words, nmbits, blens.astype(np.int32)
 
 
+def spec_for(mode: str, m: int, effort: int, partial: bool):
+    """The executable spec of `mode` for one read: (graph, codes, nm) ->
+    (status, path or None) (runner.align_bulk :213-229)."""
+    if mode == "greedy":
+        return lambda g, codes, nm: align_read_greedy(g, codes, nm, m, effort)
+    if mode == "anchors":
+        return lambda g, codes, nm: align_read_greedy_anchors(
+            g, codes, nm, m, effort)
+    if mode == "exhaustive":
+        return lambda g, codes, nm: align_read_exhaustive(
+            g, codes, nm, m, partial)
+    raise ValueError(f"no device engine for mode {mode!r}")
+
+
 def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
-               batch_size: int, device, on_batch=None, xfer=None):
-    """Greedy mapping of every parsed record, input order preserved.
+               batch_size: int, device, mode: str = "greedy",
+               partial: bool = False, on_batch=None, xfer=None):
+    """Mapping of every parsed record in `mode`, input order preserved.
 
     Returns (status int32 [N], path_off int64 [N+1], paths_flat int32):
     aligned reads' spans hold [offset, signed ids...], other reads have
     empty spans.  `on_batch(slot, s0, nb, status, counts, flat)` is
     called after each batch (the caller formats output there); `xfer`
     collects the batch payload bytes (h2d_bytes, d2h_bytes)."""
+    spec = spec_for(mode, m, effort, partial)
     di = get_device_index(graph)
     ix = index_tensors(di, device)
     k = graph.k
@@ -132,8 +153,8 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
         xfer["h2d_bytes"] += words.nbytes + nmbits.nbytes + blens.nbytes
         fused = align_batch_packed(
             ix, to_device(words, device), to_device(nmbits, device),
-            to_device(blens, device), k=k, m=m, effort=effort, L=L,
-            pmax=pmax,
+            to_device(blens, device), mode=mode, k=k, m=m, effort=effort,
+            L=L, pmax=pmax, partial=partial,
         )
         out = fused.cpu().numpy()
         xfer["d2h_bytes"] += out.nbytes
@@ -158,7 +179,7 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
             full = {}
             for i in np.nonzero(over)[0]:
                 _, codes, nm = parsed.record(s0 + int(i))
-                st, path = align_read_greedy(graph, codes, nm, m, effort)
+                st, path = spec(graph, codes, nm)
                 status[i] = st
                 full[int(i)] = path or []
             aligned = (status == STATUS_ALIGNED_FWD) | (

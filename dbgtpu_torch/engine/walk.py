@@ -1,11 +1,16 @@
-"""K3 greedy_walk: anchor pick plus the greedy junction walk.
+"""K3 greedy_walk: the greedy junction walk from per-anchor inits.
 
-Counterpart of dbgtpu/engine/core.py _first_k_hits / _last_k_hits_rc,
-the scan branch of _junction_vals, _junction_probe, _window_miss and
-the greedy use of _run_walks (bookkeep, junction, final flush).  The
-kernel is csrc/walk.cu (one thread per read, walking to completion);
-`walk_ref` is its plain torch version, a vectorized lockstep loop over
-the batch without the JAX engine's tail compaction.
+Counterpart of dbgtpu/engine/core.py _run_walks in its general form
+(bookkeep, junction, final flush), with _junction_probe, the scan
+branch of _junction_vals and _window_miss.  A walk starts from one
+initial state per anchor (`Inits`, core.py:1112-1128): greedy mode is
+the special case (LEFT at the anchor, budget m, nothing preloaded) whose
+anchors are the first / last E junction hits of the scan
+(_first_k_hits / _last_k_hits_rc); dog mode (-G) precomputes the inits
+in K5 (engine/dog.py).  The kernel is csrc/walk.cu (one thread per read,
+walking to completion) with two entry points, one per way the inits
+arrive; `walk_inits_ref` is its plain torch version, a vectorized
+lockstep loop over the batch without the JAX engine's tail compaction.
 """
 
 from __future__ import annotations
@@ -75,7 +80,7 @@ def _anchors(member: torch.Tensor, vals: torch.Tensor, E: int,
 
 def _window_miss_ref(ix: IndexTensors, meta, is_fwd, ustart, rstart, w,
                      rcodes, ncodes, L: int):
-    """Hamming distance over each candidate's window [B, 4], base by
+    """Hamming distance over each candidate's window [B, C], base by
     base (core._window_miss): unitig bases [ustart, ustart+w) against
     read bases [rstart, rstart+w), plus the positions set in ncodes (the
     N-mask on forward walks, zeros on RC walks)."""
@@ -95,36 +100,133 @@ def _window_miss_ref(ix: IndexTensors, meta, is_fwd, ustart, rstart, w,
         useq = unpack_fields(ix.pool_rows[r.clamp(min=0)].reshape(-1, RW), 2,
                              16 * RW)
         ustart_ = (g & ((1 << CHUNK_SHIFT) - 1)).reshape(-1)
-    B = rcodes.shape[0]
+    B, C = is_fwd.shape
     t = torch.arange(L, device=rcodes.device)[None, :]
     ui = (ustart_[:, None] + t).clamp(0, useq.shape[1] - 1)
-    ub = useq.gather(1, ui).reshape(B, 4, L)
+    ub = useq.gather(1, ui).reshape(B, C, L)
     ri = (rstart[..., None] + t[None]).clamp(0, rcodes.shape[1] - 1)
-    rb = rcodes[:, None, :].expand(B, 4, -1).gather(2, ri)
-    bad = (ub != rb) | ncodes[:, None, :].expand(B, 4, -1).gather(2, ri).bool()
+    rb = rcodes[:, None, :].expand(B, C, -1).gather(2, ri)
+    bad = (ub != rb) | ncodes[:, None, :].expand(B, C, -1).gather(2, ri).bool()
     inwin = t[None] < w[..., None]
     return (bad & inwin).sum(dim=2)
 
 
-def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
-             k: int, m: int, effort: int, L: int) -> Walks:
-    """Plain torch version of K3: the JAX engine's lockstep loop
-    (bookkeep, junction) over the whole batch, int64 lanes."""
-    k1 = k - 1
+INIT_FIELDS = ("ph0", "cur0", "pos0", "ra", "ra_pos", "bud0", "off0", "r0",
+               "st0")
+
+
+class Inits(NamedTuple):
+    """Per-anchor initial walk states (core._run_walks `env`).  planes is
+    int64 [9, 2, B, E]: INIT_FIELDS in order, [.., 0, ..] the forward
+    anchors, [.., 1, ..] the RC anchors.  ph0 initial phase (LEFT,
+    RFIRST or DONE); cur0 / pos0 initial (k-1)-mer and read position;
+    ra / ra_pos the right-walk restart point; bud0 initial budget
+    (negative: the anchor already failed); off0 preset offset; r0 signed
+    id preloaded into rbuf[0] (0: none); st0 status recorded when ph0 is
+    DONE.  Rows e >= n_f (n_r) are never read."""
+    planes: torch.Tensor
+    n_f: torch.Tensor      # int32 [B] forward anchors, <= E
+    n_r: torch.Tensor      # int32 [B] RC anchors, <= E
+
+    def field(self, name: str) -> torch.Tensor:
+        return self.planes[INIT_FIELDS.index(name)]
+
+
+def greedy_inits_ref(scan: Scan, member1, member2, lens, *, k: int, m: int,
+                     effort: int) -> Inits:
+    """Greedy inits (core.align_batch :1059-1091): the first E member1
+    hits with their bug values, the last E member2 hits mapped to RC
+    positions with their rc values; LEFT at the anchor, budget m."""
     E = effort
-    B, Lk = scan.bug.shape
-    dev = scan.bug.device
-    Lw = (L + 15) // 16
-    P = 16 * Lw
-    max_iters = max_iters_for(effort, L)
     lens = lens.to(torch.int64)
-    ar = torch.arange(B, device=dev)
     apos_f, aval_f, n_f = _anchors(member1, scan.bug, E, from_end=False)
     col_r, aval_r, n_r = _anchors(member2, scan.rcs, E, from_end=True)
-    apos_r = lens[:, None] - k1 - col_r
-    codes_f = unpack_fields(scan.rows[0], 2, 16 * scan.rows.shape[2])
-    codes_r = unpack_fields(scan.rows[1], 2, 16 * scan.rows.shape[2])
-    nmask = unpack_fields(scan.rows[2], 2, 16 * scan.rows.shape[2])
+    apos_r = lens[:, None] - (k - 1) - col_r
+    cur = torch.stack([aval_f, aval_r])
+    pos = torch.stack([apos_f, apos_r])
+    const = torch.zeros_like(pos)
+    planes = torch.stack([const + LEFT, cur, pos, cur, pos, const + m, const,
+                          const, const])
+    return Inits(planes, n_f.to(torch.int32), n_r.to(torch.int32))
+
+
+def junction_probe_ref(ix: IndexTensors, mL, mRF, cur, pos, lens, rcodes,
+                       ncodes, *, k1: int, L: int) -> dict:
+    """core._junction_probe for the phases in (mL, mRF) (RCONT where
+    neither): candidate lookup of the (k-1)-mer `cur` plus the windowed
+    Hamming of its <= 4 candidates against the read codes `rcodes` [B, L]
+    (N-mask `ncodes`).  Returns int64/bool [B, 4] arrays: valid, sid,
+    miss (BIG where invalid), ended, ul, ust, nxt_l, nxt_r."""
+    B = cur.shape[0]
+    rc = rcb_ref(cur, k1)
+    is_canon = cur <= rc
+    hi, lo = split_ref(torch.where(is_canon, cur, rc))
+    S = ix.st_slots
+    frow = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo)
+                       & (ix.st_fused.shape[0] - 1)]
+    ok = (frow[:, :S] == as_i32(hi)[:, None]) & (
+        frow[:, S : 2 * S] == as_i32(lo)[:, None])
+    vals = frow[:, 2 * S :].reshape(B, S, 8).to(torch.int64) & M32
+    vals8 = torch.where(ok[..., None], vals, 0).sum(dim=1) & M32
+    vals8 = torch.where(vals8 >= 1 << 31, vals8 - (1 << 32), vals8)
+    use_right = torch.where(mL, is_canon, ~is_canon)
+    cands = torch.where(use_right[:, None], vals8[:, 4:8], vals8[:, :4])
+    cands = torch.where(ok.any(dim=1)[:, None], cands, 0)
+    valid = cands > 0
+    meta = ix.umeta[cands.clamp(min=0)].to(torch.int64)   # [B, 4, C]
+
+    def kmer(c_hi, c_lo):
+        return ((meta[..., c_hi] & M32) << 32) | (meta[..., c_lo] & M32)
+
+    ul = meta[..., C_ULEN]
+    beg, end = kmer(C_BEG_HI, C_BEG_LO), kmer(C_END_HI, C_END_LO)
+    is_fwd = torch.where(mL[:, None], end, beg) == cur[:, None]
+    rem = torch.where(mL, pos, torch.where(mRF, lens - pos - k1,
+                                           lens - pos))[:, None]
+    mLc, mRFc = mL[:, None], mRF[:, None]
+    ended = (ul - k1) >= rem
+    ustart = torch.where(mLc & ended, ul - rem - k1,
+                         torch.where(mRFc, k1, 0))
+    rstart = torch.where(
+        mLc, torch.where(ended, 0, pos[:, None] - (ul - k1)),
+        torch.where(mRFc, (pos + k1)[:, None], pos[:, None]))
+    w = torch.where(ended, rem, torch.where(mLc | mRFc, ul - k1,
+                                            torch.minimum(ul, rem)))
+    miss = _window_miss_ref(ix, meta, is_fwd, ustart, rstart, w, rcodes,
+                            ncodes, L)
+    return dict(
+        valid=valid,
+        sid=torch.where(is_fwd, cands, -cands),
+        miss=torch.where(valid, miss, BIG),
+        ended=ended,
+        ul=ul,
+        ust=ustart,
+        nxt_l=torch.where(is_fwd, beg, kmer(C_RCE_HI, C_RCE_LO)),
+        nxt_r=torch.where(is_fwd, end, kmer(C_RCB_HI, C_RCB_LO)),
+    )
+
+
+def walk_inits_ref(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
+                   L: int) -> Walks:
+    """Plain torch version of K3: the JAX engine's lockstep loop
+    (bookkeep, junction) over the whole batch, int64 lanes.  rows is the
+    scan's packed [3, B, RWr] forward / RC / N-mask rows."""
+    k1 = k - 1
+    _, _, B, E = inits.planes.shape
+    dev = rows.device
+    Lw = (L + 15) // 16
+    P = 16 * Lw
+    max_iters = max_iters_for(E, L)
+    lens = lens.to(torch.int64)
+    ar = torch.arange(B, device=dev)
+    n_f = inits.n_f.to(torch.int64)
+    n_r = inits.n_r.to(torch.int64)
+    planes = inits.planes
+    if E == 0:     # no anchor is ever loaded; keep the gathers in range
+        planes = torch.zeros((9, 2, B, 1), dtype=torch.int64, device=dev)
+    codes_f = unpack_fields(rows[0], 2, 16 * rows.shape[2])
+    codes_r = unpack_fields(rows[1], 2, 16 * rows.shape[2])
+    nmask = unpack_fields(rows[2], 2, 16 * rows.shape[2])
 
     def z():
         return torch.zeros(B, dtype=torch.int64, device=dev)
@@ -134,6 +236,10 @@ def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
              rlen=z())
     lbuf = torch.zeros((B, P), dtype=torch.int64, device=dev)
     rbuf = torch.zeros((B, P), dtype=torch.int64, device=dev)
+
+    def aligned_status():
+        return torch.where(s["orient"] == 0, STATUS_ALIGNED_FWD,
+                           STATUS_ALIGNED_RC)
 
     def bookkeep():
         is_f = s["phase"] == FETCH
@@ -146,98 +252,57 @@ def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
         to_rc = fwd_exh & (n_f > 0)
         st_rcno = rc_exh & (n_r == 0)
         st_fail = rc_exh & (n_r > 0)
-        bad = is_f & have & (m < 0)
+        ai = s["aidx"].clamp(0, planes.shape[3] - 1)
+        both = planes[:, :, ar, ai]                      # [9, 2, B]
+        init = dict(zip(INIT_FIELDS, torch.where(o0, both[:, 0], both[:, 1])))
+        bad = is_f & have & (init["bud0"] < 0)
         load = is_f & have & ~bad
-        if E:
-            ai = s["aidx"].clamp(0, E - 1)[:, None]
-            apos = torch.where(o0, apos_f.gather(1, ai)[:, 0],
-                               apos_r.gather(1, ai)[:, 0])
-            aval = torch.where(o0, aval_f.gather(1, ai)[:, 0],
-                               aval_r.gather(1, ai)[:, 0])
-        else:
-            apos = aval = z()
         s["status"] = torch.where(
             st_noov, STATUS_NO_OVERLAP_FWD,
             torch.where(st_rcno, STATUS_RC_NO_OVERLAP,
                         torch.where(st_fail, STATUS_FAILED, s["status"])))
+        s["status"] = torch.where(load & (init["ph0"] == DONE), init["st0"],
+                                  s["status"])
         s["phase"] = torch.where(st_noov | st_rcno | st_fail, DONE,
-                                 torch.where(load, LEFT, s["phase"]))
+                                 torch.where(load, init["ph0"], s["phase"]))
         s["orient"] = torch.where(to_rc, 1, s["orient"])
         s["aidx"] = torch.where(to_rc, 0,
                                 torch.where(bad, s["aidx"] + 1, s["aidx"]))
-        for key, v in (("a", aval), ("a_pos", apos), ("cur", aval),
-                       ("pos", apos), ("budget", z() + m), ("llen", z()),
-                       ("rlen", z()), ("offset", z())):
+        r0 = init["r0"]
+        for key, v in (("a", init["ra"]), ("a_pos", init["ra_pos"]),
+                       ("cur", init["cur0"]), ("pos", init["pos0"]),
+                       ("budget", init["bud0"]), ("llen", z()),
+                       ("rlen", (r0 != 0).to(torch.int64)),
+                       ("offset", init["off0"])):
             s[key] = torch.where(load, v, s[key])
+        rbuf[:, 0] = torch.where(load & (r0 != 0), r0, rbuf[:, 0])
         l0 = (s["phase"] == LEFT) & (s["pos"] == 0)
         s["offset"] = torch.where(l0, 0, s["offset"])
         s["phase"] = torch.where(l0, RFIRST, s["phase"])
         s["cur"] = torch.where(l0, s["a"], s["cur"])
         s["pos"] = torch.where(l0, s["a_pos"], s["pos"])
-        aligned = torch.where(s["orient"] == 0, STATUS_ALIGNED_FWD,
-                              STATUS_ALIGNED_RC)
         fin = ((s["phase"] == RFIRST) & (lens - s["pos"] - k1 == 0)) | (
             (s["phase"] == RCONT) & (lens - s["pos"] < k))
-        s["status"] = torch.where(fin, aligned, s["status"])
+        s["status"] = torch.where(fin, aligned_status(), s["status"])
         s["phase"] = torch.where(fin, DONE, s["phase"])
 
     def junction():
-        phase, pos, cur = s["phase"], s["pos"], s["cur"]
+        phase, pos = s["phase"], s["pos"]
         mL = phase == LEFT
         mRF = phase == RFIRST
         active = mL | mRF | (phase == RCONT)
-        rc = rcb_ref(cur, k1)
-        is_canon = cur <= rc
-        hi, lo = split_ref(torch.where(is_canon, cur, rc))
-        S = ix.st_slots
-        frow = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo)
-                           & (ix.st_fused.shape[0] - 1)]
-        ok = (frow[:, :S] == as_i32(hi)[:, None]) & (
-            frow[:, S : 2 * S] == as_i32(lo)[:, None])
-        vals = frow[:, 2 * S :].reshape(B, S, 8).to(torch.int64) & M32
-        vals8 = torch.where(ok[..., None], vals, 0).sum(dim=1) & M32
-        vals8 = torch.where(vals8 >= 1 << 31, vals8 - (1 << 32), vals8)
-        use_right = torch.where(mL, is_canon, ~is_canon)
-        cands = torch.where(use_right[:, None], vals8[:, 4:8], vals8[:, :4])
-        cands = torch.where(ok.any(dim=1)[:, None], cands, 0)
-        valid = cands > 0
-        meta = ix.umeta[cands.clamp(min=0)].to(torch.int64)   # [B, 4, C]
-
-        def kmer(c_hi, c_lo):
-            return ((meta[..., c_hi] & M32) << 32) | (meta[..., c_lo] & M32)
-
-        ul = meta[..., C_ULEN]
-        beg, end = kmer(C_BEG_HI, C_BEG_LO), kmer(C_END_HI, C_END_LO)
-        is_fwd = torch.where(mL[:, None], end, beg) == cur[:, None]
-        rem = torch.where(mL, pos, torch.where(mRF, lens - pos - k1,
-                                               lens - pos))[:, None]
-        mLc, mRFc = mL[:, None], mRF[:, None]
-        ended = (ul - k1) >= rem
-        ustart = torch.where(mLc & ended, ul - rem - k1,
-                             torch.where(mRFc, k1, 0))
-        rstart = torch.where(
-            mLc, torch.where(ended, 0, pos[:, None] - (ul - k1)),
-            torch.where(mRFc, (pos + k1)[:, None], pos[:, None]))
-        w = torch.where(ended, rem, torch.where(mLc | mRFc, ul - k1,
-                                                torch.minimum(ul, rem)))
         o0 = (s["orient"] == 0)[:, None]
-        rcodes = torch.where(o0, codes_f, codes_r)
-        ncodes = torch.where(o0, nmask, 0)
-        miss = _window_miss_ref(ix, meta, is_fwd, ustart, rstart, w,
-                                rcodes, ncodes, L)
-        miss = torch.where(valid, miss, BIG)
-        bestj = miss.argmin(dim=1, keepdim=True)     # first minimum
+        p = junction_probe_ref(
+            ix, mL, mRF, s["cur"], pos, lens, torch.where(o0, codes_f, codes_r),
+            torch.where(o0, nmask, 0), k1=k1, L=L)
+        bestj = p["miss"].argmin(dim=1, keepdim=True)     # first minimum
 
         def sel(x):
             return x.gather(1, bestj)[:, 0]
 
-        best = sel(miss)
-        end_s, ul_s, ust_s = sel(ended), sel(ul), sel(ustart)
-        sid = torch.where(is_fwd, cands, -cands)
-        sid_s = sel(sid)
-        nxt_l = sel(torch.where(is_fwd, beg, kmer(C_RCE_HI, C_RCE_LO)))
-        nxt_r = sel(torch.where(is_fwd, end, kmer(C_RCB_HI, C_RCB_LO)))
-
+        best = sel(p["miss"])
+        end_s, ul_s, ust_s, sid_s = (sel(p[n]) for n in
+                                     ("ended", "ul", "ust", "sid"))
         ok_ = active & (best <= s["budget"])
         fail = active & (best > s["budget"])
         push_l = ok_ & mL
@@ -255,14 +320,12 @@ def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
         s["pos"] = torch.where(le, s["a_pos"], s["pos"])
         lc = ok_ & mL & ~end_s
         s["pos"] = torch.where(lc, pos - (ul_s - k1), s["pos"])
-        s["cur"] = torch.where(lc, nxt_l, s["cur"])
+        s["cur"] = torch.where(lc, sel(p["nxt_l"]), s["cur"])
         re_ = ok_ & ~mL & end_s
-        aligned = torch.where(s["orient"] == 0, STATUS_ALIGNED_FWD,
-                              STATUS_ALIGNED_RC)
-        s["status"] = torch.where(re_, aligned, s["status"])
+        s["status"] = torch.where(re_, aligned_status(), s["status"])
         rc_ = ok_ & ~mL & ~end_s
         s["pos"] = torch.where(rc_, pos + (ul_s - k1), s["pos"])
-        s["cur"] = torch.where(rc_, nxt_r, s["cur"])
+        s["cur"] = torch.where(rc_, sel(p["nxt_r"]), s["cur"])
         s["phase"] = torch.where(
             fail, FETCH,
             torch.where(le, RFIRST, torch.where(re_, DONE, s["phase"])))
@@ -282,10 +345,19 @@ def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
                  lbuf.to(i32), rbuf.to(i32))
 
 
+def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
+             k: int, m: int, effort: int, L: int) -> Walks:
+    """Plain torch version of K3's greedy entry."""
+    inits = greedy_inits_ref(scan, member1, member2, lens, k=k, m=m,
+                             effort=effort)
+    return walk_inits_ref(ix, scan.rows, lens, inits, k=k, L=L)
+
+
 def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
                 k: int, m: int, effort: int, L: int) -> Walks:
-    """K3 on the scan's device: the kernel on CUDA, the plain version on
-    the CPU, an error anywhere else."""
+    """K3's greedy entry on the scan's device: the kernel on CUDA, the
+    plain version on the CPU, an error anywhere else.  The kernel picks
+    the anchors from the member masks itself."""
     dev = scan.bug.device
     if dev.type == "cpu":
         return walk_ref(ix, scan, member1, member2, lens, k=k, m=m,
@@ -322,4 +394,46 @@ def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
         )
         build.check(err, "greedy_walk")
         build.count("greedy_walk")
+    return Walks(out[0], out[1], out[2], out[3], out[4], lbuf, rbuf)
+
+
+def walk_inits(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
+               L: int) -> Walks:
+    """K3's entry from precomputed inits (dog mode) on the rows' device:
+    the kernel on CUDA, the plain version on the CPU, an error anywhere
+    else."""
+    dev = rows.device
+    if dev.type == "cpu":
+        return walk_inits_ref(ix, rows, lens, inits, k=k, L=L)
+    if dev.type != "cuda":
+        raise ValueError(f"no walk_inits kernel for device {dev}")
+    if ix.umeta.device != dev or lens.device != dev:
+        raise ValueError("index, rows and lens must share a device")
+    if lens.dtype != torch.int32 or inits.planes.dtype != torch.int64:
+        raise TypeError("lens must be int32 and the init planes int64")
+    _, B, RWr = rows.shape
+    if inits.planes.shape[:3] != (len(INIT_FIELDS), 2, B):
+        raise ValueError(f"init planes {tuple(inits.planes.shape)} for B={B}")
+    E = inits.planes.shape[3]
+    P = 16 * ((L + 15) // 16)
+    rows, lens = rows.contiguous(), lens.contiguous()
+    planes = inits.planes.contiguous()
+    n = torch.stack([inits.n_f, inits.n_r]).to(torch.int32).contiguous()
+    out = torch.empty((5, B), dtype=torch.int32, device=dev)
+    lbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
+    rbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
+    if B:
+        lib = build.load()
+        err = lib.dbg_walk_inits(
+            planes.data_ptr(), n.data_ptr(), lens.data_ptr(), rows.data_ptr(),
+            B, RWr, ix.st_fused.data_ptr(), ix.st_fused.shape[0],
+            ix.st_fused.shape[1], ix.st_seed, ix.umeta.data_ptr(),
+            ix.umeta.shape[1], ix.pool_rows.data_ptr(),
+            ix.pool_rows.shape[1], ix.n_chunks, k, E, max_iters_for(E, L), P,
+            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+            out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
+            rbuf.data_ptr(), build.stream_ptr(dev),
+        )
+        build.check(err, "walk_inits")
+        build.count("walk_inits")
     return Walks(out[0], out[1], out[2], out[3], out[4], lbuf, rbuf)

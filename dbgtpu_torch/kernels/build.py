@@ -1,7 +1,8 @@
 """Build, load and count the CUDA kernels of dbgtpu_torch.
 
 `nvcc` compiles every `dbgtpu_torch/csrc/*.cu` for sm_90a into one
-shared library with a plain C interface under `build/dbgtpu_torch/` at
+shared library (one nvcc process per source, all started together,
+then one link) with a plain C interface under `build/dbgtpu_torch/` at
 the repository root (see `_build_dir` for an installed copy), at first use, and again whenever a source changes
 (the library name carries a hash of the sources).  The library is bound
 with ctypes: pointers and the stream are passed as `c_void_p`.  Every C
@@ -43,24 +44,36 @@ def _build_dir() -> Path:
 BUILD_DIR = _build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 ]
 
-KERNELS = ("read_scan", "member", "greedy_walk", "pack_paths")
+KERNELS = ("read_scan", "member", "greedy_walk", "walk_inits", "pack_paths",
+           "dog_anchors", "exhaustive_dfs")
 launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _ARGTYPES = {
     "dbg_read_scan": [_P, _I, _P, _I, _P, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P],
-    "dbg_member": [_P, _P, _P, _P, _I, _P, _I, _I, _I,
+    "dbg_member": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
                    _P, _I, _I, _U, _P, _I, _I, _U, _I,
                    _P, _P, _P, _P],
     "dbg_greedy_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
                         _P, _I, _I, _U, _P, _I, _P, _I, _I,
                         _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P],
+    "dbg_walk_inits": [_P, _P, _P, _P, _I, _I,
+                       _P, _I, _I, _U, _P, _I, _P, _I, _I,
+                       _I, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P],
     "dbg_pack_paths": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
+    "dbg_dog_anchors": [_P, _I, _I, _P, _P, _I, _I, _U,
+                        _P, _I, _P, _I, _I, _I, _I, _I,
+                        _P, _P, _P],
+    "dbg_exhaustive_dfs": [_P, _P, _P, _P, _I, _I, _I,
+                           _P, _I, _I, _U, _P, _I, _P, _I, _I,
+                           _I, _I, _I, _I,
+                           _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -114,17 +127,37 @@ def build() -> Path:
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(_CSRC.glob("*.cu"))]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-            f"{res.stdout}{res.stderr}"
-        )
-    os.replace(tmp, so)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in sorted(_CSRC.glob("*.cu")):
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        objs.append(obj)
+    tmp = so.with_name(f"{tag}.tmp.so")
+    try:
+        for cmd, proc in procs:
+            _finish(cmd, proc.communicate()[0], proc.returncode)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *[str(o) for o in objs]]
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        _finish(cmd, res.stdout, res.returncode)
+        os.replace(tmp, so)
+    finally:
+        for cmd, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return so
+
+
+def _finish(cmd: list[str], output: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{output}")
 
 
 def load() -> ctypes.CDLL:

@@ -1,6 +1,7 @@
 """End-to-end mapping on one torch device: parse -> align -> format
 (counterpart of dbgtpu/pipeline.py run_pipeline and _run_file_bulk for
-greedy mode and the scan index layout).
+the greedy, anchor (-G) and exhaustive (-b, -i) modes and the scan
+index layout).
 
 Parsing, graph build and output formatting are dbgtpu's own (native C
 where available); only the alignment runs in this package.  Output
@@ -55,7 +56,7 @@ def _sync(device: torch.device) -> None:
 
 
 def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
-              stats, paths_out, na_out):
+              mode, partial, stats, paths_out, na_out):
     t = time.monotonic()
     parsed = native.parse_reads(rf, graph.k, fastq)
     stats.parse_seconds += time.monotonic() - t
@@ -94,7 +95,7 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
     t = time.monotonic()
     status, path_off, flat = align_bulk(
         graph, parsed, m, effort, batch_size=batch_size, device=device,
-        on_batch=on_batch, xfer=xfer,
+        mode=mode, partial=partial, on_batch=on_batch, xfer=xfer,
     )
     stats.align_seconds += time.monotonic() - t
     stats.payload_h2d_bytes += xfer["h2d_bytes"]
@@ -122,16 +123,21 @@ def run_pipeline(
     batch_size: int = 32768,
     graph: UnitigGraph | None = None,
     device="cuda",
+    mode: str = "greedy",
+    partial: bool = False,
 ):
     """Returns (paths_bytes, not_aligned_bytes, TorchRunStats).
 
     `device` is where the kernels run: a CUDA device, or "cpu" for the
-    plain torch versions of the kernels (tests and small runs)."""
+    plain torch versions of the kernels (tests and small runs).  `mode`
+    is "greedy", "anchors" (-G) or "exhaustive" (-b); `partial` (-i)
+    applies to exhaustive mode.  A graph passed in for anchor mode must
+    be built with dog_mode=True."""
     device = torch.device(device)
     stats = TorchRunStats(device=str(device))
     t0 = time.monotonic()
     if graph is None:
-        graph = build_graph(unitig_file, k)
+        graph = build_graph(unitig_file, k, dog_mode=(mode == "anchors"))
     stats.index_seconds = time.monotonic() - t0
 
     t1 = time.monotonic()
@@ -147,6 +153,6 @@ def run_pipeline(
     na_out: list[bytes] = []
     for rf in reads_files:
         _run_file(graph, rf, m, effort, fastq, correction, batch_size,
-                  device, stats, paths_out, na_out)
+                  device, mode, partial, stats, paths_out, na_out)
     stats.map_seconds = time.monotonic() - t1
     return b"".join(paths_out), b"".join(na_out), stats

@@ -7,8 +7,9 @@ import torch
 
 from dbgtpu.engine.core import index_to_device
 from dbgtpu.index.build import build_graph_from_seqs
+from dbgtpu.index import device as device_mod
 from dbgtpu.index.device import build_device_index
-from dbgtpu_torch.engine.index import index_tensors
+from dbgtpu_torch.engine.index import UnsupportedIndex, index_tensors
 
 from . import synth
 from .torch_parity import as_u32, dataset, device_index, fasta_seqs
@@ -50,11 +51,32 @@ def test_index_tensors_memoized_per_device(graph):
     assert index_tensors(di, "cpu") is index_tensors(di, torch.device("cpu"))
 
 
-def test_index_tensors_refuse_mphf_and_dog():
+def test_index_tensors_accept_anchor_scan():
+    """A dog-mode index uploads its anchor scan table as dbgtpu fuses it:
+    [nba, 5*S] of S key-hi, S key-lo, S x (uid, upos, ucanon)."""
+    _, ufa = synth.make_dataset(seed=13, genome_len=3000, k=21, n_reads=4)
+    gd = build_graph_from_seqs(fasta_seqs(ufa), 21, dog_mode=True)
+    di = build_device_index(gd)
+    assert di.anchor_scan is not None
+    ix = index_tensors(di, "cpu")
+    jx = index_to_device(di)
+    np.testing.assert_array_equal(as_u32(ix.at_fused), np.asarray(jx.at_fused))
+    assert ix.at_seed == int(jx.at_seed)
+    assert ix.at_slots == np.asarray(jx.at_fused).shape[1] // 5
+    plain = index_tensors(build_device_index(build_graph_from_seqs(
+        fasta_seqs(ufa), 21)), "cpu")
+    assert tuple(plain.at_fused.shape) == (0, 160)
+
+
+def test_index_tensors_refuse_mphf_and_anchor_mphf(monkeypatch):
     g, _ = dataset(seed=12, k=21, n_reads=4, genome_len=3000)
-    with pytest.raises(ValueError, match="scan"):
+    with pytest.raises(UnsupportedIndex, match="'mphf'.*B12"):
         index_tensors(build_device_index(g, layout="mphf"), "cpu")
     _, ufa = synth.make_dataset(seed=13, genome_len=3000, k=21, n_reads=4)
     gd = build_graph_from_seqs(fasta_seqs(ufa), 21, dog_mode=True)
-    with pytest.raises(ValueError, match="greedy"):
-        index_tensors(build_device_index(gd), "cpu")
+    monkeypatch.setattr(device_mod, "ANCHOR_MPHF_MIN", 0)
+    di = build_device_index(gd)
+    assert di.anchor_mphf is not None and di.anchor_scan is None
+    n = len(di.anchor_mphf.arows)
+    with pytest.raises(UnsupportedIndex, match=f"{n:,} anchors.*B12"):
+        index_tensors(di, "cpu")

@@ -29,7 +29,7 @@ def test_mix32_matches_kmer32():
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
 
 
-@pytest.mark.parametrize("n", range(1, 32))
+@pytest.mark.parametrize("n", range(1, 33))
 def test_rcb_rev_le_match_kmer32(n):
     v = _values(n)
     w = _values(n, seed=99)

@@ -106,8 +106,46 @@ def test_cli_writes_dbgtpu_outputs(tmp_path, monkeypatch, capsys):
     assert '"device": "cpu"' in (tmp_path / "s.json").read_text()
 
 
+@pytest.mark.parametrize("flags,mode,partial", [
+    (["-G"], "anchors", False),
+    (["-b"], "exhaustive", False),
+    (["-b", "-i"], "exhaustive", True),
+    # dbgtpu's precedence: -b wins over -G, -i affects only -b
+    (["-G", "-b", "-i"], "exhaustive", True),
+    (["-i"], "greedy", False),
+])
+def test_cli_runs_anchor_and_exhaustive_modes(tmp_path, monkeypatch, flags,
+                                              mode, partial):
+    """-G, -b and -b -i through cli.main on the CPU: bytes equal to
+    dbgtpu's spec in the same mode."""
+    rf, uf = _files(tmp_path, 76, 21, 64, n_frac=0.1)
+    monkeypatch.chdir(tmp_path)
+    assert cli.main(["-r", rf, "-k", "21", "-g", uf, "-m", "2",
+                     "--device", "cpu"] + flags) == 0
+    want = dbgtpu_pipeline([rf], uf, k=21, m=2, impl="python", mode=mode,
+                           partial=partial)
+    assert (tmp_path / "paths").read_bytes() == want[0]
+    assert (tmp_path / "notAligned.fa").read_bytes() == want[1]
+    assert want[2].aligned > 0
+
+
+def test_cli_refuses_an_mphf_anchor_index(tmp_path, monkeypatch, capsys):
+    """-G on a dog keyset that takes the MPHF anchor layout exits 2 and
+    names the layout and the anchor count."""
+    from dbgtpu.index import device as device_mod
+
+    rf, uf = _files(tmp_path, 77, 21, 8)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(device_mod, "ANCHOR_MPHF_MIN", 0)
+    assert cli.main(["-r", rf, "-k", "21", "-g", uf, "-G",
+                     "--device", "cpu"]) == 2
+    err = capsys.readouterr().err
+    assert "MPHF anchor layout" in err and "anchors" in err and "B12" in err
+    assert not (tmp_path / "paths").exists()
+
+
 @pytest.mark.parametrize("flags", [
-    ["-G"], ["-b"], ["-i"], ["-p"], ["--index-layout", "mphf"],
+    ["-p"], ["-b", "-p"], ["--index-layout", "mphf"],
     ["--mesh", "2"], ["--shard-index"], ["--num-processes", "2"],
     ["--coordinator", "localhost:1"], ["--merge-shards", "2"],
     ["--save-index", "x.npz"], ["--load-index", "x.npz"], ["--resume"],
@@ -116,7 +154,8 @@ def test_cli_writes_dbgtpu_outputs(tmp_path, monkeypatch, capsys):
 def test_cli_refuses_flags_outside_the_slice(flags, capsys):
     assert cli.main(["-r", "reads.fa", "-k", "21", "--device", "cpu"]
                     + flags) == 2
-    assert flags[0] in capsys.readouterr().err
+    refused = "-p" if "-p" in flags else flags[0]
+    assert refused in capsys.readouterr().err
 
 
 def test_cli_without_gpu_stops(tmp_path, monkeypatch, capsys):
@@ -171,8 +210,8 @@ def test_kernel_build_recipe(monkeypatch):
     from dbgtpu_torch.kernels import build
 
     names = {p.name for p in build.sources()}
-    assert {"read_scan.cu", "member.cu", "walk.cu", "pack.cu",
-            "common.cuh"} <= names
+    assert {"read_scan.cu", "member.cu", "walk.cu", "pack.cu", "dog.cu",
+            "exhaustive.cu", "common.cuh", "junction.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     so = build.library_path()
     assert so.parent == ROOT / "build" / "dbgtpu_torch"

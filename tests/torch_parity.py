@@ -23,14 +23,32 @@ def fasta_seqs(fa: bytes) -> list[bytes]:
 
 
 def dataset(seed: int, k: int, n_reads: int = 48, n_frac: float = 0.0,
-            genome_len: int = 8000, **kw):
-    """(graph, read sequences) of a synthetic dataset."""
+            genome_len: int = 8000, dog_mode: bool = False, **kw):
+    """(graph, read sequences) of a synthetic dataset; dog_mode builds
+    the anchor table of -G."""
     reads_fa, unitigs_fa = synth.make_dataset(
         seed=seed, genome_len=genome_len, k=k, n_reads=n_reads,
         n_frac=n_frac, **kw,
     )
-    return (build_graph_from_seqs(fasta_seqs(unitigs_fa), k),
+    return (build_graph_from_seqs(fasta_seqs(unitigs_fa), k,
+                                  dog_mode=dog_mode),
             fasta_seqs(reads_fa))
+
+
+def assert_walks_equal(got, want: dict) -> None:
+    """Port Walks against a JAX result dict: every scalar field, and
+    lbuf[:llen] / rbuf[:rlen] (buffer tails are stale after a failed
+    anchor)."""
+    for f in ("status", "orient", "offset", "llen", "rlen"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      np.asarray(want[f]), err_msg=f)
+    lbuf = np.asarray(want["lbuf"]).astype(np.int32)
+    rbuf = np.asarray(want["rbuf"]).astype(np.int32)
+    assert got.lbuf.shape == lbuf.shape and got.rbuf.shape == rbuf.shape
+    for i in range(lbuf.shape[0]):
+        ll, rl = int(got.llen[i]), int(got.rlen[i])
+        np.testing.assert_array_equal(got.lbuf[i, :ll].numpy(), lbuf[i, :ll])
+        np.testing.assert_array_equal(got.rbuf[i, :rl].numpy(), rbuf[i, :rl])
 
 
 def device_index(graph, variant: str = "embedded") -> D.DeviceIndex:
