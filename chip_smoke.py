@@ -3,40 +3,71 @@
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from dbgtpu_torch/csrc (K1-K6; K3 has two entry
-points, each its own kernel), then:
+Runs with `dbgtpu` and `jax` blocked in sys.modules (the port stands on
+its own) and fails if either was imported by the end.  Builds the CUDA
+kernels from dbgtpu_torch/csrc (K1-K8; K3 has two entry points, each
+its own kernel), then:
   1. prints the card's name and power limit and the kernel build time;
+     the native parser / formatter must build too;
   2. runs the kernels of each mode's path and their plain torch versions
      on the same CUDA inputs (the first 32,768-read batch of the survey
      workload) and requires exactly equal integer outputs; prints both
-     times.  Greedy: K1 read_scan, K2 member, K3 greedy_walk, K4
-     pack_paths; anchors (-G): K5 dog_anchors, K3 walk_inits (the walk
-     from K5's inits);
-     exhaustive (-b): K2's exhaustive mode, K6 exhaustive_dfs;
-  3. maps the survey workload (bench.build_workload: 2 Mbp genome, ~30.7k
-     unitigs of 40-150 bp, 131,072 reads of 100 bp, k=31, m=2, e=2,
-     batch 32,768) through `dbgtpu_torch.cli.main` in greedy mode, with
-     -G and with -b, and requires each path's kernels to be launched
+     times and each kernel's bound.  Greedy: K1 read_scan, K2 member, K3
+     greedy_walk, K4 pack_paths, K8 compact_result (int16 and int32);
+     anchors (-G): K5 dog_anchors, K3 walk_inits (the walk from K5's
+     inits); exhaustive (-b): K2's exhaustive mode, K6 exhaustive_dfs.
+     The same again on the mphf index as the main path holds it (with
+     its probe table, so K2 takes the closure-probe branch on this batch;
+     K3, walk_inits, K5 and K6 run K7's device function inline), and K2
+     once more on that index without the probe table (its per-position
+     MPHF branch, which batches with N take; no main-path launch count
+     goes with that row).  K7 mphf_slots itself against its plain
+     version on the survey junction MPHF, the survey anchor MPHF and a
+     tight-gamma MPHF that uses the final table, each with keys of the
+     set, keys outside it and the all-ones key, and on an empty MPHF;
+     it is timed on the stored keys of each survey table, the shape the
+     main path gives it (the check of a table at upload);
+  3. maps the survey workload (2 Mbp genome, ~30.7k unitigs of 40-150
+     bp, 131,072 reads of 100 bp, k=31, m=2, e=2, batch 32,768) through
+     `dbgtpu_torch.cli.main` in greedy mode, with -G and with -b, under
+     `--index-layout scan` and then `--index-layout mphf`, bytes equal
+     across the layouts, and requires each path's kernels to be launched
      > 0 times in its own run and no other kernel launched (counts set
-     to 0 just before each run);
-  4. requires byte equality with dbgtpu's executable spec
-     (dbgtpu.pipeline.run_pipeline, impl="python") and each kernel of
-     the mode equal to its plain version on each of these files:
-     greedy: the first 4,096 survey reads, a k=21 dataset with N, the
-     same with a probe-less index, the same with a pool-chunk index, a
-     k=32 dataset of 300-bp reads and a dataset whose paths overflow
-     pmax; -G: the first 4,096 survey reads, k=21 with N, the same with
-     a pool-chunk index, k=32 with 300-bp reads; -b and -b -i: the first
-     4,096 survey reads, 1,500 k=21 reads with N, the same with a
-     probe-less index;
-  5. prints the kernels' JSON line and, last, the result line.
+     to 0 just before each run).  mphf_slots counts only launches of the
+     standalone K7 kernel: one per MPHF table of the run's index (per
+     4,194,304 stored keys of it), none under the scan layout;
+  4. requires byte equality with the port's executable spec
+     (dbgtpu_torch.spec.run_pipeline) and each kernel of the mode equal
+     to its plain version on each of these files: scan layout as before
+     (survey prefix, k=21 with N, probe-less, pool-chunk, k=32 with
+     300-bp reads, pmax overflow); mphf layout: the survey prefix in
+     every mode, k=21 with N in every mode, probe-less, k=32 -G; and -G
+     on a scan-layout index whose dog keyset takes the MPHF anchor
+     layout (ANCHOR_MPHF_MIN lowered);
+  5. prints the kernels' JSON line and, last, the result line.  The
+     line holds each kernel once with the launches of its scan-layout
+     run and that run's batch timings, and `<kernel>@mphf` entries for
+     K2, K3, walk_inits, K5 and K6 with the launches of the
+     `--index-layout mphf` runs and the timings on the mphf index.
 Any failure raises, and the script exits non-zero without a result.
-The machine with the card has no JAX: nothing here imports it, and the
-reference on the card is dbgtpu's python spec.
+
+Bounds.  `bound_ms` is the larger of bytes / 3.35e12 B/s (the H100's
+published memory rate) and operations / 16.75e12 op/s (32-bit integer
+operations: a quarter of the published 67 TFLOP/s of float32, which
+counts a fused multiply-add as two on twice as many lanes).  Bytes are
+the tensors a kernel must read and write once, plus the table rows this
+batch's lookups touch (never more than the table); for the walks and
+the DFS the lookups are the junction steps that ended on the reported
+paths, a lower bound.  K1's outputs are the tensors it hands to K2-K6
+(four int64 k-mer planes, a byte plane, the packed rows); its bound
+from the packed batch in and the packed rows out alone is printed
+beside it.  Operations are counted from the kernel bodies, per position,
+slot, step or key: the OPS_* constants and ops_* functions below.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
@@ -49,6 +80,107 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SCRATCH = ROOT / "build" / "chip_smoke"
 
+# the survey workload (SURVEY.md §6): the same seed and steps as the JAX
+# package's benchmark, so both map the same reads
+SEED, GENOME_LEN, K, M, EFFORT, READ_LEN = 20260817, 2_000_000, 31, 2, 2, 100
+BATCH, N_BATCHES = 32768, 4
+
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 67e12 / 4
+
+# Integer operations per unit of work, counted from the kernel bodies in
+# dbgtpu_torch/csrc.  A shift, mask, add, compare, select, multiply,
+# popcount or bit reversal is one operation, an index computation counts
+# its arithmetic, a load, store or branch is none.  Where the work
+# depends on the data the count is the least a unit can do (one level of
+# an MPHF, one candidate and one window word of a junction step), so the
+# operation time is a lower bound like the byte time.
+OPS_MIX32 = 10      # common.cuh mix32: mul, xor, 3 x (shift, xor), 2 mul
+OPS_BASE_AT = 5     # base_at: i >> 4, i & 15, * 2, shift, and
+OPS_NM_BIT = 4      # read_scan.cu nm_bit: i >> 5, i & 31, shift, and
+OPS_RCB = 9         # rcb: not, brev, 2 x (shift, and), or, 64 - 2n, shift
+OPS_WORD_AT = 8     # word_at: s >> 4, s & 15, * 2, 2 range tests, 2 shifts, or
+# mphf.cuh mphf_slot, one level: 2 seed xors, mix32, mask, word and bit
+# index (2), row address (shift, add, multiply), word select, bit test (2)
+OPS_MPHF_LEVEL = 2 + OPS_MIX32 + 1 + 2 + 3 + 1 + 2
+# the rank at a hit: popcount + add of the words below (0-3, mean 1.5),
+# then the bit mask (shift, subtract), and, popcount, add
+OPS_MPHF_RANK = 3 + 5
+# mphf_row: slot range (2), row address (2), two key compares and an and
+OPS_MPHF_VERIFY = 7
+# junction.cuh probe_candidate without its window: row address (2), four
+# joins (8), orientation (1), ended (2), window start (4), signed id (2),
+# the follow-on selects (2), read start and window length (8)
+OPS_CANDIDATE = 29
+# window_miss, one 16-base word: two word_at, xor, the 2-bit compare (3),
+# the N-mask word_at and or, the lane mask (5), popcount and add
+OPS_WINDOW_WORD = 2 * OPS_WORD_AT + 1 + 3 + OPS_WORD_AT + 1 + 5 + 2
+OPS_WALK_UPDATE = 8  # walk.cu junction: budget, buffer index clamp (2),
+#                      length, position, k-mer, phase, status
+
+
+def ops_scan_lookup(slots: int, vals: int) -> int:
+    """common.cuh st_lookup / dog.cu at_lookup of one key: split (2), seed
+    xor, mix32, bucket mask, row address (2), per slot two compares and
+    an and, then `vals` adds for the one matching slot."""
+    return 2 + 1 + OPS_MIX32 + 1 + 2 + 3 * slots + vals
+
+
+def ops_mphf_lookup(vals: int, verify: bool = True) -> int:
+    """mphf.cuh mphf_slot (+ mphf_row) of a key of the set that hits at
+    its first level, which nearly every key does at gamma 16; a key
+    outside the set visits every level, so this is the least."""
+    return (2 + OPS_MPHF_LEVEL + OPS_MPHF_RANK
+            + (OPS_MPHF_VERIFY if verify else 0) + vals)
+
+
+def ops_read_scan(B: int, Lk: int, Lw: int, k1: int) -> int:
+    """read_scan.cu.  Per scan position: k1 steps of base_at, the std
+    shift-or (2), the N test of the bug scan (compare, nm_bit, and,
+    select) and its shift-or (2); then rcb, 3 compares and 2 selects.
+    Per packed-row word: 16 bases of base_at + shift-or forward, nm_bit +
+    shift-or for the N row, and compare, index, base_at, complement,
+    shift-or for the RC row."""
+    per_pos = k1 * (OPS_BASE_AT + 2 + 3 + OPS_NM_BIT + 2) + OPS_RCB + 5
+    per_word = 16 * (OPS_BASE_AT + 2 + OPS_NM_BIT + 2 + 2 + OPS_BASE_AT + 3)
+    return B * (Lk * per_pos + Lw * per_word)
+
+
+def ops_member_probe(n: int, pt_slots: int, window: int) -> int:
+    """member.cu closure-probe branch, n positions: the window's probe
+    position (5), split (2), seed xor, mix32, bucket mask, row address
+    (2); per slot two compares, an and and window - 2 adds; orientation
+    (1), the neighbour-bit index (clamp, base_at, 3 of arithmetic), the
+    bit (3) and the valid test (3)."""
+    return n * (5 + 2 + 1 + OPS_MIX32 + 1 + 2 + pt_slots * (3 + window - 2)
+                + 1 + (2 + OPS_BASE_AT + 3) + 3 + 3)
+
+
+def ops_junction_step(j_lookup: int) -> int:
+    """One junction step of walk.cu / exhaustive.cu at its least:
+    junction_lookup (rcb, canonical compare and select, the lookup with
+    its 8 values, side select, 4 candidate selects), one valid candidate
+    with one window word, and the walk's state update."""
+    return (OPS_RCB + 2 + j_lookup + 1 + 4 + OPS_CANDIDATE + OPS_WINDOW_WORD
+            + OPS_WALK_UPDATE)
+
+
+# dog.cu per scanned k-mer besides its lookup: kmer_at (two word_at, shift
+# and or, rev_groups 6, the final shift 2), rcb, compare and select
+OPS_DOG_KMER = 2 * OPS_WORD_AT + 2 + 6 + 2 + OPS_RCB + 2
+# dog.cu Place per anchor: metadata address (2), orientation (2),
+# oriented position (3), joins and selects (10), the four-case geometry
+# (13), 9 plane stores of address (5) + value (1), one window word
+OPS_DOG_PLACE = 2 + 2 + 3 + 10 + 13 + 9 * 6 + OPS_WINDOW_WORD
+OPS_PACK_ELEM = 11   # pack.cu: plen (2), the case compares (4), source
+#                      index (3), output address (2)
+# compact.cu per row: row_count in passes 1 and 3 (address 2, 2 compares,
+# or, min: 6 each), the histogram add, match-any + popcounts + lane mask
+# (5), the rank adds (1 + 3.5 warps before, mean), the meta addresses (2);
+# per populated slot: the column offset add and the row address
+OPS_COMPACT_ROW, OPS_COMPACT_SLOT = 6 + 1 + 6 + 5 + 5 + 2, 2
+
+
 KERNELS = (
     # name, source, the TPU-era stage it replaces
     ("read_scan", "dbgtpu_torch/csrc/read_scan.cu", "dbgtpu/engine/core.py:683"),
@@ -59,21 +191,65 @@ KERNELS = (
     ("dog_anchors", "dbgtpu_torch/csrc/dog.cu", "dbgtpu/engine/dog.py:59"),
     ("exhaustive_dfs", "dbgtpu_torch/csrc/exhaustive.cu",
      "dbgtpu/engine/exhaustive.py:83"),
+    ("mphf_slots", "dbgtpu_torch/csrc/mphf.cu", "dbgtpu/engine/core.py:293"),
+    ("compact_result", "dbgtpu_torch/csrc/compact.cu",
+     "dbgtpu/engine/core.py:1529"),
 )
-# the kernels each mode's path launches, and the mode whose phase-2 run
-# gives each kernel's time in the JSON line
+# the kernels each mode's path launches under the scan layout (an index
+# with MPHF tables adds mphf_slots: one launch of K7's kernel per table
+# at upload; the lookups of K2-K6 run its device function inline), and
+# the (layout, mode) run that gives each kernel's launches and times in
+# the JSON line
 PATH_KERNELS = {
-    "greedy": ("read_scan", "member", "greedy_walk", "pack_paths"),
-    "anchors": ("read_scan", "dog_anchors", "walk_inits", "pack_paths"),
-    "exhaustive": ("read_scan", "member", "exhaustive_dfs", "pack_paths"),
+    "greedy": ("read_scan", "member", "greedy_walk", "pack_paths",
+               "compact_result"),
+    "anchors": ("read_scan", "dog_anchors", "walk_inits", "pack_paths",
+                "compact_result"),
+    "exhaustive": ("read_scan", "member", "exhaustive_dfs", "pack_paths",
+                   "compact_result"),
 }
-TIMED_IN = {"dog_anchors": "anchors", "walk_inits": "anchors",
-            "exhaustive_dfs": "exhaustive"}
+TIMED_IN = {"dog_anchors": ("scan", "anchors"),
+            "walk_inits": ("scan", "anchors"),
+            "exhaustive_dfs": ("scan", "exhaustive"),
+            "mphf_slots": ("mphf", "greedy")}
+# the kernels that run K7's device function inline under an MPHF layout:
+# name -> (mode of its path, the mphf branch of the TPU-era stage); each
+# gets a `<name>@mphf` entry in the JSON line.  K2 takes that branch only
+# where it looks up per position (batches with N, probe-less indexes); on
+# the survey batch its @mphf entry is the closure-probe branch again.
+MPHF_ENTRIES = {
+    "member": ("greedy", "dbgtpu/engine/core.py:434"),
+    "greedy_walk": ("greedy", "dbgtpu/engine/core.py:409"),
+    "walk_inits": ("anchors", "dbgtpu/engine/core.py:409"),
+    "dog_anchors": ("anchors", "dbgtpu/engine/dog.py:68"),
+    "exhaustive_dfs": ("exhaustive", "dbgtpu/engine/core.py:409"),
+}
 MODE_FLAGS = {"greedy": [], "anchors": ["-G"], "exhaustive": ["-b"]}
+# what the kernels' JSON line states of a kernel besides its name, route,
+# source, the stage it replaces and its launches
+KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+               "library_ms")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def block_reference_packages() -> None:
+    """Make `import dbgtpu` and `import jax` fail: the port and this
+    script must run without either."""
+    for name in ("dbgtpu", "jax"):
+        if name in sys.modules and sys.modules[name] is not None:
+            raise AssertionError(f"{name} was imported before the run")
+        sys.modules[name] = None
+
+
+def assert_reference_packages_unused() -> None:
+    bad = [n for n, mod in sys.modules.items()
+           if n.split(".")[0] in ("dbgtpu", "jax", "jaxlib")
+           and mod is not None]
+    if bad:
+        raise AssertionError(f"imported during the run: {bad[:5]}")
 
 
 def card_line() -> str:
@@ -82,6 +258,32 @@ def card_line() -> str:
          "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def survey_workload():
+    """(unitig_seqs list[bytes], reads [131072, 100] uint8 codes), cached
+    under SCRATCH."""
+    import numpy as np
+
+    from dbgtpu_torch.seq import encode
+    from tests import synth
+
+    cache = SCRATCH / "workload.npz"
+    key = f"{SEED}-{GENOME_LEN}-{K}-{READ_LEN}-{BATCH * N_BATCHES}"
+    if cache.exists():
+        z = np.load(cache, allow_pickle=True)
+        if str(z["key"]) == key:
+            return list(z["unitigs"]), z["codes"]
+    rng = np.random.default_rng(SEED)
+    genome = synth.make_genome(rng, GENOME_LEN)
+    unitigs = synth.chop_unitigs(genome, K, rng, 40, 150)
+    unitigs = synth.orient_shuffle(unitigs, rng)
+    reads = synth.sample_reads(genome, rng, BATCH * N_BATCHES, READ_LEN,
+                               err_frac=0.5)
+    codes = np.stack([encode(r) for r in reads])
+    np.savez(cache, key=key, unitigs=np.array(unitigs, dtype=object),
+             codes=codes)
+    return unitigs, codes
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -115,6 +317,20 @@ def _max_abs_err(got, want) -> int:
     return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
 
 
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound_of(stream_bytes: int, touched: int, table: int, ops: int):
+    """(bound_ms, bound_by) of a kernel that streams `stream_bytes`,
+    touches `touched` bytes of rows in tables of `table` bytes and does
+    `ops` integer operations."""
+    t_bytes = (stream_bytes + min(touched, table)) / HBM_BYTES_PER_S
+    t_ops = ops / INT_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def walks_pairs(wk, wr):
     """(kernel, plain) pairs of two Walks; only lbuf[:llen] and
     rbuf[:rlen] are meaningful."""
@@ -129,40 +345,99 @@ def walks_pairs(wk, wr):
 
 
 def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
-                    timed: bool, partial: bool = False):
+                    timed: bool, partial: bool = False, perpos_ix=None):
     """Each kernel of `mode`'s path against its plain version on the same
     CUDA inputs.  Integer outputs must be exactly equal (tolerance 0).
-    Returns {name: (max_abs_err, ms, plain_ms)}; K2's exhaustive mode is
-    "member (inter)"."""
+    Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    library_ms, and the bound's inputs bound_bytes and bound_ops)}; K2's
+    exhaustive mode is "member (inter)", K8 on the other result dtype
+    "compact_result (int32)" or "(int16)".  `perpos_ix` (the same index
+    without its probe table) adds K2 on its per-position branch as
+    "member (per-position)" / "member (inter, per-position)"."""
     import torch
 
-    from dbgtpu_torch.engine.dog import dog_anchors, dog_anchors_ref
+    from dbgtpu_torch.engine.compact import compact_ref, compact_result
+    from dbgtpu_torch.engine.dog import (
+        anchor_lookup_ref, dog_anchors, dog_anchors_ref,
+    )
     from dbgtpu_torch.engine.exhaustive import exhaustive_dfs, exhaustive_ref
+    from dbgtpu_torch.engine.kmer import le_ref, rcb_ref
     from dbgtpu_torch.engine.member import inter, inter_ref, member, member_ref
     from dbgtpu_torch.engine.pack import out_dtype_for, pack_paths, pack_ref
-    from dbgtpu_torch.engine.read_scan import read_scan, read_scan_ref
+    from dbgtpu_torch.engine.read_scan import (
+        _scan, read_scan, read_scan_ref, unpack_fields,
+    )
     from dbgtpu_torch.engine.walk import (
         greedy_walk, walk_inits, walk_inits_ref, walk_ref,
     )
 
     k1 = k - 1
+    B = words.shape[0]
     out = {}
+    jl_mphf = ix.mph_meta is not None
+    # bytes of one junction lookup and of the junction table
+    j_row = 20 + 40 if jl_mphf else ix.st_fused.shape[1] * 4
+    j_table = (nbytes(ix.mph_rows, ix.mph_jrows, ix.mph_f) if jl_mphf
+               else nbytes(ix.st_fused))
 
-    def record(name, pairs, fk, fr, reps_k=20, reps_r=3):
+    def j_ops(vals):
+        return (ops_mphf_lookup(vals) if jl_mphf
+                else ops_scan_lookup(ix.st_slots, vals))
+
+    step_ops = ops_junction_step(j_ops(8))
+    u_row = ix.umeta.shape[1] * 4
+
+    def record(name, pairs, fk, fr, *, stream, touched=0, table=0, ops,
+               reps_k=20, reps_r=3, library=False, min_stream=None):
         torch.cuda.synchronize()
         err = max(_max_abs_err(g, w) for g, w in pairs)
         if err:
             raise AssertionError(f"{name}: kernel != plain version "
                                  f"(max abs err {err})")
+        bound_ms, bound_by = bound_of(stream, touched, table, ops)
         ms = cuda_ms(fk, reps_k) if timed else None
         pms = cuda_ms(fr, reps_r) if timed else None
-        out[name] = (err, ms, pms)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         library_ms=pms if library else None,
+                         bound_bytes=stream + min(touched, table),
+                         bound_ops=ops)
+        if min_stream is not None:
+            out[name]["bound_min_bytes_ms"] = bound_of(
+                min_stream, 0, 0, 0)[0]
+
+    def walk_out_bytes(w):
+        return 5 * B * 4 + 4 * int(w.llen.sum() + w.rlen.sum())
 
     sk = read_scan(words, nmbits, lens, L=L, k1=k1)
     sr = read_scan_ref(words, nmbits, lens, L=L, k1=k1)
+    Lk = sk.bug.shape[1]
     record("read_scan", list(zip(sk, sr)),
            lambda: read_scan(words, nmbits, lens, L=L, k1=k1),
-           lambda: read_scan_ref(words, nmbits, lens, L=L, k1=k1))
+           lambda: read_scan_ref(words, nmbits, lens, L=L, k1=k1),
+           stream=nbytes(words, nmbits, lens, *sk),
+           ops=ops_read_scan(B, Lk, words.shape[1], k1),
+           min_stream=nbytes(words, nmbits, lens, sk.rows))
+    has_n = bool(sk.has_n.item())
+
+    def member_cost(ix_, n_masks):
+        """(stream, touched, table, ops) of K2 writing n_masks masks from
+        the index ix_; the exhaustive per-position branch also takes the
+        reverse complement and the smaller of the two (OPS_RCB + 2)."""
+        if ix_.pt_rows.shape[0] > 0 and not has_n:
+            W = ix_.pt_window
+            return dict(
+                stream=nbytes(sk.rep1, sk.le1, sk.rows[0], lens)
+                + n_masks * B * Lk,
+                touched=B * ((Lk + W - 1) // W) * ix_.pt_rows.shape[1] * 4,
+                table=nbytes(ix_.pt_rows),
+                ops=ops_member_probe(B * Lk, ix_.pt_rows.shape[1] // W, W))
+        return dict(
+            stream=n_masks * nbytes(sk.rep1) + nbytes(lens)
+            + n_masks * B * Lk,
+            touched=n_masks * B * Lk * j_row, table=j_table,
+            ops=B * Lk * (n_masks * j_ops(0) + 3
+                          + (OPS_RCB + 2 if n_masks == 1 else 0)))
 
     kw = dict(k=k, m=m, effort=effort, L=L)
     if mode == "greedy":
@@ -170,40 +445,104 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         mr = member_ref(ix, sk, lens, L=L, k1=k1)
         record("member", list(zip(mk, mr)),
                lambda: member(ix, sk, lens, L=L, k1=k1),
-               lambda: member_ref(ix, sk, lens, L=L, k1=k1))
+               lambda: member_ref(ix, sk, lens, L=L, k1=k1),
+               **member_cost(ix, 2))
+        if perpos_ix is not None:
+            px = perpos_ix
+            record("member (per-position)",
+                   list(zip(member(px, sk, lens, L=L, k1=k1),
+                            member_ref(px, sk, lens, L=L, k1=k1))),
+                   lambda: member(px, sk, lens, L=L, k1=k1),
+                   lambda: member_ref(px, sk, lens, L=L, k1=k1),
+                   **member_cost(px, 2))
         wk = greedy_walk(ix, sk, *mk, lens, **kw)
         wr = walk_ref(ix, sk, *mk, lens, **kw)
+        steps = int(wk.llen.sum() + wk.rlen.sum())
         record("greedy_walk", walks_pairs(wk, wr),
                lambda: greedy_walk(ix, sk, *mk, lens, **kw),
-               lambda: walk_ref(ix, sk, *mk, lens, **kw), reps_r=2)
+               lambda: walk_ref(ix, sk, *mk, lens, **kw), reps_r=2,
+               stream=nbytes(*mk, sk.bug, sk.rcs, lens, sk.rows)
+               + walk_out_bytes(wk),
+               touched=steps * (j_row + u_row),
+               table=j_table + nbytes(ix.umeta),
+               # the anchor count: an add and a loop step per member byte
+               ops=4 * B * Lk + steps * step_ops)
     elif mode == "anchors":
         ik = dog_anchors(ix, sk.rows, lens, **kw)
         ir = dog_anchors_ref(ix, sk.rows, lens, **kw)
         # init rows e >= n_f (n_r) are never read
         used = (torch.arange(effort, device=lens.device)[None, None, :]
                 < torch.stack([ir.n_f, ir.n_r])[:, :, None])
+        # k-mers K5 must look up: a read is scanned from the start up to
+        # its E-th hit and from the end down to its E-th hit from there
+        f = _scan(unpack_fields(sk.rows[0], 2, L), k)
+        r = rcb_ref(f, k)
+        hit = anchor_lookup_ref(ix, torch.where(le_ref(f, r), f, r))[0]
+        col = torch.arange(f.shape[1], device=f.device)[None, :]
+        hit &= col <= (lens.to(torch.int64) - k)[:, None]
+        nv = (lens.to(torch.int64) - k + 1).clamp(min=0)
+        looked = 0
+        for h, lead in ((hit, 0), (torch.flip(hit, [1]), f.shape[1] - nv)):
+            # positions of the valid span scanned until the E-th hit
+            # (`lead`: columns past the read's last k-mer, flipped to
+            # the front)
+            c = h.to(torch.int64).cumsum(1)
+            reached = (c >= effort).to(torch.int64).argmax(1) + 1 - lead
+            looked += int(torch.where(c[:, -1] >= effort, reached, nv).sum())
+        anchors = int(ir.n_f.sum() + ir.n_r.sum())
+        al_mphf = ix.amph_meta is not None
+        a_row = 20 + 20 if al_mphf else ix.at_fused.shape[1] * 4
+        a_table = (nbytes(ix.amph_rows, ix.amph_arows, ix.amph_f) if al_mphf
+                   else nbytes(ix.at_fused))
+        a_ops = (ops_mphf_lookup(3) if al_mphf
+                 else ops_scan_lookup(ix.at_slots, 3))
         record("dog_anchors", [(ik.n_f, ir.n_f), (ik.n_r, ir.n_r),
                                (ik.planes[:, used], ir.planes[:, used])],
                lambda: dog_anchors(ix, sk.rows, lens, **kw),
-               lambda: dog_anchors_ref(ix, sk.rows, lens, **kw))
+               lambda: dog_anchors_ref(ix, sk.rows, lens, **kw),
+               stream=nbytes(sk.rows, lens) + anchors * 9 * 8 + 2 * B * 4,
+               touched=looked * a_row + anchors * u_row,
+               table=a_table + nbytes(ix.umeta),
+               ops=looked * (OPS_DOG_KMER + a_ops) + anchors * OPS_DOG_PLACE)
         wk = walk_inits(ix, sk.rows, lens, ik, k=k, L=L)
         wr = walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L)
+        steps = int(wk.llen.sum() + wk.rlen.sum())
         record("walk_inits", walks_pairs(wk, wr),
                lambda: walk_inits(ix, sk.rows, lens, ik, k=k, L=L),
                lambda: walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L),
-               reps_r=2)
+               reps_r=2,
+               stream=anchors * 9 * 8 + 2 * B * 4 + nbytes(lens, sk.rows)
+               + walk_out_bytes(wk),
+               touched=steps * (j_row + u_row),
+               table=j_table + nbytes(ix.umeta),
+               ops=steps * step_ops)
     elif mode == "exhaustive":
         xk = inter(ix, sk, lens, L=L, k1=k1)
         xr = inter_ref(ix, sk, lens, L=L, k1=k1)
         record("member (inter)", [(xk, xr)],
                lambda: inter(ix, sk, lens, L=L, k1=k1),
-               lambda: inter_ref(ix, sk, lens, L=L, k1=k1))
+               lambda: inter_ref(ix, sk, lens, L=L, k1=k1),
+               **member_cost(ix, 1))
+        if perpos_ix is not None:
+            px = perpos_ix
+            record("member (inter, per-position)",
+                   [(inter(px, sk, lens, L=L, k1=k1),
+                     inter_ref(px, sk, lens, L=L, k1=k1))],
+                   lambda: inter(px, sk, lens, L=L, k1=k1),
+                   lambda: inter_ref(px, sk, lens, L=L, k1=k1),
+                   **member_cost(px, 1))
         xw = dict(k=k, m=m, partial=partial, L=L)
         wk = exhaustive_dfs(ix, sk, xk, lens, **xw)
         wr = exhaustive_ref(ix, sk, xk, lens, **xw)
+        steps = int(wk.llen.sum() + wk.rlen.sum())
         record("exhaustive_dfs", walks_pairs(wk, wr),
                lambda: exhaustive_dfs(ix, sk, xk, lens, **xw),
-               lambda: exhaustive_ref(ix, sk, xk, lens, **xw), reps_r=2)
+               lambda: exhaustive_ref(ix, sk, xk, lens, **xw), reps_r=2,
+               stream=nbytes(xk, sk.bug, lens, sk.rows) + walk_out_bytes(wk),
+               touched=steps * (j_row + u_row),
+               table=j_table + nbytes(ix.umeta),
+               # the anchor scan: a test and a loop step per inter byte
+               ops=2 * B * Lk + steps * step_ops)
     else:
         raise ValueError(mode)
 
@@ -212,8 +551,79 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     pr = pack_ref(wk, pmax=pmax, dtype=dtype)
     record("pack_paths", [(pk, pr)],
            lambda: pack_paths(wk, pmax=pmax, dtype=dtype),
-           lambda: pack_ref(wk, pmax=pmax, dtype=dtype))
+           lambda: pack_ref(wk, pmax=pmax, dtype=dtype),
+           stream=walk_out_bytes(wk) - B * 4 + nbytes(pk),
+           ops=B * (pmax + 2) * OPS_PACK_ELEM)
+    if dtype == torch.int16:
+        variants = ((pk, "compact_result"),
+                    (pk.to(torch.int32), "compact_result (int32)"))
+    elif int(pk.abs().max()) <= 32767:
+        variants = ((pk, "compact_result"),
+                    (pk.to(torch.int16), "compact_result (int16)"))
+    else:
+        variants = ((pk, "compact_result"),)
+    aligned = (pk[:, 0] == 1) | (pk[:, 0] == 2)
+    slots = int((pk[:, 1].clamp(max=pmax) * aligned).sum())   # populated
+    for fused, name in variants:
+        ck = compact_result(fused, pmax)
+        cr = compact_ref(fused, pmax)
+        record(name, list(zip(ck, cr)),
+               lambda fused=fused: compact_result(fused, pmax),
+               lambda fused=fused: compact_ref(fused, pmax),
+               stream=nbytes(fused, *ck),
+               ops=B * OPS_COMPACT_ROW + slots * OPS_COMPACT_SLOT,
+               library=True)
     return out
+
+
+def compare_mphf(label, mphf, device, extra_keys, timed: bool):
+    """K7 against its plain version (and, for keys of the build set,
+    against the host lookup) on one host MPHF."""
+    import numpy as np
+    import torch
+
+    from dbgtpu_torch.engine.index import fuse_mphf, mphf_meta_of, to_device
+    from dbgtpu_torch.engine.mphf import mphf_slot_ref, mphf_slots
+    from dbgtpu_torch.kernels import build
+
+    rows_np, frows_np = fuse_mphf(mphf)
+    rows, frows = to_device(rows_np, device), to_device(frows_np, device)
+    meta = mphf_meta_of(mphf)
+    keys = to_device(np.ascontiguousarray(extra_keys).view(np.int64), device)
+    before = build.launches["mphf_slots"]
+    got = mphf_slots(rows, frows, meta, keys)
+    want = mphf_slot_ref(rows, frows, meta, keys)
+    torch.cuda.synchronize()
+    if keys.numel() and build.launches["mphf_slots"] != before + 1:
+        raise AssertionError(f"{label}: the K7 wrapper did not launch")
+    err = _max_abs_err(got, want)
+    host = torch.from_numpy(mphf.lookup(extra_keys).astype(np.int32))
+    # the host lookup takes the first matching slot of the final table,
+    # the device lookups sum matching slots: equal wherever found
+    found = host >= 0
+    if err or not torch.equal(got.cpu()[found], host[found]):
+        raise AssertionError(f"{label}: K7 != plain version (err {err}) or "
+                             "!= the host lookup")
+    n = keys.numel()
+    res = dict(max_abs_err=err, ms=None, plain_ms=None, library_ms=None)
+    # per key: the thread's index (2) and the lookup without the verify
+    ops = n * (2 + ops_mphf_lookup(0, verify=False))
+    res["bound_ms"], res["bound_by"] = bound_of(
+        n * 12, n * 20, nbytes(rows, frows), ops)
+    res["bound_bytes"] = n * 12 + min(n * 20, nbytes(rows, frows))
+    res["bound_ops"] = ops
+    if timed and n:
+        res["ms"] = cuda_ms(lambda: mphf_slots(rows, frows, meta, keys), 20)
+        res["plain_ms"] = cuda_ms(
+            lambda: mphf_slot_ref(rows, frows, meta, keys), 3)
+    log(f"[kernel] mphf_slots on {label}: {n} keys ({int(found.sum())} of "
+        f"the set), {meta.n_levels} levels, final table "
+        f"{meta.final_nb} buckets: == plain version and host lookup "
+        f"(max abs err {err}, tolerance 0)"
+        + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+           f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
+           if res["ms"] is not None else ""))
+    return res
 
 
 def batch_tensors(codes, nmask, device):
@@ -236,29 +646,29 @@ def write_fasta(path: Path, seqs) -> None:
 
 
 def spec_bytes_equal(label, reads_fa, unitigs_fa, k, m, graph, device,
-                     check_ix=None, mode="greedy", partial=False):
-    """The port on `device` against dbgtpu's python spec in `mode`, byte
-    for byte; also the mode's kernels against their plain versions on
-    the whole file as one batch."""
+                     check_ix=None, mode="greedy", partial=False,
+                     layout="scan"):
+    """The port on `device` against its python spec in `mode`, byte for
+    byte; also the mode's kernels against their plain versions on the
+    whole file as one batch."""
     import numpy as np
     import torch
 
-    from dbgtpu import native
-    from dbgtpu.pipeline import run_pipeline as spec_pipeline
+    from dbgtpu_torch import native
     from dbgtpu_torch.engine.index import index_tensors, to_device
     from dbgtpu_torch.engine.runner import (
         _bucket_len, _pmax_cap, _pmax_for, get_device_index, pack_records,
     )
     from dbgtpu_torch.pipeline import run_pipeline
+    from dbgtpu_torch.spec import run_pipeline as spec_pipeline
 
     t0 = time.monotonic()
     got = run_pipeline([str(reads_fa)], str(unitigs_fa), k=k, m=m,
                        batch_size=32768, graph=graph, device=device,
-                       mode=mode, partial=partial)
+                       mode=mode, partial=partial, index_layout=layout)
     t1 = time.monotonic()
     want = spec_pipeline([str(reads_fa)], str(unitigs_fa), k=k, m=m,
-                         impl="python", graph=graph, mode=mode,
-                         partial=partial)
+                         graph=graph, mode=mode, partial=partial)
     t2 = time.monotonic()
     for what, a, b in (("paths", got[0], want[0]),
                        ("notAligned.fa", got[1], want[1])):
@@ -268,8 +678,10 @@ def spec_bytes_equal(label, reads_fa, unitigs_fa, k, m, graph, device,
     for f in ("read_number", "aligned", "not_aligned", "no_overlap"):
         if getattr(got[2], f) != getattr(want[2], f):
             raise AssertionError(f"{label}: stats {f} differs")
-    di = get_device_index(graph)
+    di = get_device_index(graph, layout)
     ix = index_tensors(di, device)
+    if (ix.mph_meta is not None) != (layout == "mphf"):
+        raise AssertionError(f"{label}: junction layout is not {layout}")
     if check_ix is not None:
         check_ix(ix)
     parsed = native.parse_reads(str(reads_fa), k, False)
@@ -283,13 +695,15 @@ def spec_bytes_equal(label, reads_fa, unitigs_fa, k, m, graph, device,
         partial=partial,
     )
     torch.cuda.synchronize()
-    flags = " ".join(MODE_FLAGS[mode] + (["-i"] if partial else []))
+    errs_s = ", ".join(f"{n} {e['max_abs_err']}" for n, e in errs.items())
+    flags = " ".join(MODE_FLAGS[mode] + (["-i"] if partial else [])
+                     + (["--index-layout", "mphf"] if layout == "mphf"
+                        else []))
     log(f"[bytes] {label} [{flags or 'greedy'}]: {got[2].read_number} "
         f"reads, {got[2].aligned} "
         f"aligned, paths {len(got[0])} B, notAligned {len(got[1])} B: "
         f"byte-identical to the spec (port {t1 - t0:.2f} s, spec "
-        f"{t2 - t1:.2f} s); kernels == plain on the file "
-        f"({', '.join(f'{n} {e[0]}' for n, e in errs.items())})")
+        f"{t2 - t1:.2f} s); kernels == plain on the file ({errs_s})")
 
 
 def main() -> int:
@@ -298,25 +712,25 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    block_reference_packages()
     sys.path.insert(0, str(ROOT))
     SCRATCH.mkdir(parents=True, exist_ok=True)
-    # bench.build_workload caches its reads here; dbgtpu.native builds
-    # its parser library here (both default to the system temp dir)
-    os.environ["DBGTPU_BENCH_CACHE"] = str(SCRATCH / "workload.npz")
+    # the native parser builds its library here (default: the temp dir)
     os.environ["DBGTPU_NATIVE_CACHE"] = str(SCRATCH / "native")
 
     import numpy as np
 
-    import bench
-    from dbgtpu.index import device as dev_index
-    from dbgtpu.index.build import build_graph_from_seqs
-    from tests import synth
-    from dbgtpu_torch import cli
+    from dbgtpu_torch import cli, native
     from dbgtpu_torch.engine.index import index_tensors
+    from dbgtpu_torch.engine.mphf import CHECK_CHUNK
     from dbgtpu_torch.engine.runner import (
         _bucket_len, _pmax_cap, _pmax_for, get_device_index,
     )
+    from dbgtpu_torch.index import device as dev_index
+    from dbgtpu_torch.index.build import build_graph, build_graph_from_seqs
+    from dbgtpu_torch.index.mphf import build_mphf
     from dbgtpu_torch.kernels import build
+    from tests import synth
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -330,33 +744,39 @@ def main() -> int:
     build.load()
     log(f"[build] {lib_path.name}: {time.monotonic() - t0:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
-    from dbgtpu import native
-
     t0 = time.monotonic()
-    log(f"[build] dbgtpu native parser/formatter: available "
-        f"{native.available()} ({time.monotonic() - t0:.1f} s, g++)")
+    if not native.available():
+        raise AssertionError("the native parser / formatter did not build "
+                             "(g++): the run would take the python fallback")
+    log(f"[build] native parser/formatter: available "
+        f"({time.monotonic() - t0:.1f} s, g++)")
 
     # ---- phase 2: kernels against their plain versions ----
     t0 = time.monotonic()
-    unitigs, codes_all = bench.build_workload()
+    unitigs, codes_all = survey_workload()
     n_reads, read_len = codes_all.shape
     log(f"[workload] {len(unitigs)} unitigs, {n_reads} reads of "
         f"{read_len} bp ({time.monotonic() - t0:.1f} s)")
-    k, m, effort, B = bench.K, bench.M, bench.EFFORT, bench.BATCH
+    k, m, effort, B = K, M, EFFORT, BATCH
     graphs, ixs = {}, {}
     for dog in (False, True):
-        t0 = time.monotonic()
-        g = build_graph_from_seqs(unitigs, k, dog_mode=dog)
-        di = get_device_index(g)
-        graphs[dog], ixs[dog] = g, index_tensors(di, device)
-        torch.cuda.synchronize()
-        ix = ixs[dog]
-        log(f"[index] {'dog-mode ' if dog else ''}graph + device index "
-            f"{time.monotonic() - t0:.1f} s: st_fused "
-            f"{tuple(ix.st_fused.shape)}, umeta {tuple(ix.umeta.shape)}, "
-            f"pt_rows {tuple(ix.pt_rows.shape)}, at_fused "
-            f"{tuple(ix.at_fused.shape)}")
-    graph, di = graphs[False], get_device_index(graphs[False])
+        graphs[dog] = build_graph_from_seqs(unitigs, k, dog_mode=dog)
+        for layout in ("scan", "mphf"):
+            t0 = time.monotonic()
+            di = get_device_index(graphs[dog], layout)
+            ix = ixs[layout, dog] = index_tensors(di, device)
+            torch.cuda.synchronize()
+            log(f"[index] {'dog-mode ' if dog else ''}{layout} device index "
+                f"{time.monotonic() - t0:.1f} s: st_fused "
+                f"{tuple(ix.st_fused.shape)}, umeta {tuple(ix.umeta.shape)}, "
+                f"pt_rows {tuple(ix.pt_rows.shape)}, at_fused "
+                f"{tuple(ix.at_fused.shape)}, mph_rows/jrows/f "
+                f"{tuple(ix.mph_rows.shape)}/{tuple(ix.mph_jrows.shape)}/"
+                f"{tuple(ix.mph_f.shape)}, amph_rows/arows/f "
+                f"{tuple(ix.amph_rows.shape)}/{tuple(ix.amph_arows.shape)}/"
+                f"{tuple(ix.amph_f.shape)}; hbm_report "
+                f"{dev_index.hbm_report(di)}")
+    graph, di = graphs[False], get_device_index(graphs[False], "scan")
     L = _bucket_len(read_len, k)
     pmax = min(_pmax_for(di, L), _pmax_cap(L))
     codes = np.zeros((B, L), np.uint8)
@@ -364,14 +784,58 @@ def main() -> int:
     words, nmbits = batch_tensors(codes, np.zeros((B, L), bool), device)
     lens = torch.full((B,), read_len, dtype=torch.int32, device=device)
     results = {}
-    for mode in PATH_KERNELS:
-        results[mode] = compare_kernels(
-            ixs[mode == "anchors"], words, nmbits, lens, mode=mode, k=k, m=m,
-            effort=effort, L=L, pmax=pmax, timed=True)
-        for name, (err, ms, pms) in results[mode].items():
-            log(f"[kernel] {mode}: {name}: == plain version (max abs err "
-                f"{err}, tolerance 0); kernel {ms:.4f} ms, plain {pms:.4f} "
-                f"ms per {B}-read batch (L={L}, pmax={pmax})")
+    for layout in ("scan", "mphf"):
+        for mode in PATH_KERNELS:
+            ix = ixs[layout, mode == "anchors"]
+            # on the mphf index also K2's per-position branch, which the
+            # survey batch (no N, a probe table) does not take
+            perpos = (dataclasses.replace(ix, pt_rows=ix.pt_rows[:0])
+                      if layout == "mphf" and mode != "anchors" else None)
+            results[layout, mode] = compare_kernels(
+                ix, words, nmbits, lens, mode=mode, k=k, m=m, effort=effort,
+                L=L, pmax=pmax, timed=True, perpos_ix=perpos)
+            for name, r in results[layout, mode].items():
+                log(f"[kernel] {layout} {mode}: {name}: == plain version "
+                    f"(max abs err {r['max_abs_err']}, tolerance 0); kernel "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
+                    f"{r['bound_bytes']} B, {r['bound_ops']} operations)"
+                    + (f", from the packed batch in and the packed rows "
+                       f"out alone {r['bound_min_bytes_ms']:.4f} ms"
+                       if "bound_min_bytes_ms" in r else "")
+                    + f" per {B}-read batch (L={L}, pmax={pmax})")
+
+    # K7 alone: keys of the set, keys outside it, the all-ones key
+    rng = np.random.default_rng(SEED)
+    outside = rng.integers(0, 1 << 62, size=100_000, dtype=np.uint64)
+    ones = np.array([0xFFFFFFFFFFFFFFFF], np.uint64)
+
+    def table_keys(vrows):
+        return ((vrows[:, 0].astype(np.uint64) << np.uint64(32))
+                | vrows[:, 1].astype(np.uint64))
+
+    mj = get_device_index(graphs[False], "mphf").mphf_junction
+    ma = get_device_index(graphs[True], "mphf").anchor_mphf
+    compare_mphf("the survey junction MPHF", mj.mphf, device,
+                 np.concatenate([table_keys(mj.jrows), outside, ones]), False)
+    compare_mphf("the survey anchor MPHF", ma.mphf, device,
+                 np.concatenate([table_keys(ma.arows), outside, ones]), False)
+    tight_keys = np.unique(rng.integers(0, 1 << 62, size=200_000,
+                                        dtype=np.uint64))
+    tight = build_mphf(tight_keys, gamma=1.0, max_levels=2)
+    if tight.final_tbl is None:
+        raise AssertionError("the tight-gamma MPHF has no final table")
+    compare_mphf("a tight-gamma MPHF (gamma 1, 2 levels)", tight, device,
+                 np.concatenate([tight_keys, outside, ones]), False)
+    compare_mphf("an empty MPHF", build_mphf(np.zeros(0, np.uint64)), device,
+                 np.concatenate([outside[:1000], ones]), False)
+    # timed at the shape the main path gives it: the check of a table at
+    # upload looks up every stored key (engine/mphf.py check_mphf_table)
+    results["mphf", "greedy"]["mphf_slots"] = compare_mphf(
+        "the survey junction MPHF, its stored keys", mj.mphf, device,
+        table_keys(mj.jrows), True)
+    compare_mphf("the survey anchor MPHF, its stored keys", ma.mphf, device,
+                 table_keys(ma.arows), True)
 
     # ---- phase 3: each mode's path at real size through the CLI ----
     with tempfile.TemporaryDirectory(dir=SCRATCH) as td:
@@ -380,57 +844,87 @@ def main() -> int:
         write_fasta(uf, unitigs)
         chars = np.frombuffer(b"ACGT", np.uint8)
         write_fasta(rf, (chars[r].tobytes() for r in codes_all))
-        launches = {}
-        for mode, flags in MODE_FLAGS.items():
-            js = td / "summary.json"
-            argv = ["-r", str(rf), "-k", str(k), "-g", str(uf), "-m", str(m),
-                    "-e", str(effort), "--batch-size", str(B),
-                    "-f", str(td / "paths"), "-a", str(td / "notAligned.fa"),
-                    "--json-summary", str(js)] + flags
-            held = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            build.reset_launches()
-            t0 = time.monotonic()
-            rc = cli.main(argv)
-            wall = time.monotonic() - t0
-            peak = torch.cuda.max_memory_allocated()
-            launches[mode] = dict(build.launches)
-            if rc != 0:
-                raise AssertionError(f"cli.main {flags} exited {rc}")
-            summ = json.loads(js.read_text())
-            n_paths = (td / "paths").read_bytes().count(b"\n") // 2
-            tag = f"[slice {' '.join(flags) or 'greedy'}]"
-            log(f"{tag} python -m dbgtpu_torch {' '.join(argv)}")
-            log(f"{tag} index build {summ['index_seconds']} s (graph) + "
-                f"{summ['device_index_seconds']} s (device index); upload "
-                f"{summ['upload_seconds']} s; parse {summ['parse_seconds']} "
-                f"s; mapping {summ['reads'] / summ['align_seconds']:.1f} "
-                f"reads/s ({summ['align_seconds']} s for pack + kernels + "
-                f"unpack + format of {summ['reads']} reads); end-to-end "
-                f"{summ['reads'] / wall:.1f} reads/s ({wall:.2f} s wall, "
-                f"map_seconds {summ['map_seconds']}); max_memory_allocated "
-                f"{peak} B, of which {peak - held} B above the {held} B "
-                f"the script held before the run")
-            log(f"{tag} {summ['aligned']} aligned, {summ['no_overlap']} no "
-                f"overlap, {summ['not_aligned']} not aligned; launches "
-                f"{launches[mode]}")
-            if summ["reads"] != n_reads or n_paths != summ["aligned"]:
-                raise AssertionError(f"{tag} output does not match its stats")
-            if not summ["aligned"]:
-                raise AssertionError(f"{tag} aligned no read")
-            missing = [n for n in PATH_KERNELS[mode]
-                       if launches[mode][n] <= 0]
-            if missing:
-                raise AssertionError(f"{tag} kernels not launched: {missing}")
-            extra = [n for n, c in launches[mode].items()
-                     if c and n not in PATH_KERNELS[mode]]
-            if extra:
-                raise AssertionError(f"{tag} kernels of another path "
-                                     f"launched: {extra}")
+        launches, outputs = {}, {}
+        for layout in ("scan", "mphf"):
+            for mode, flags in MODE_FLAGS.items():
+                flags = flags + ["--index-layout", layout]
+                js = td / "summary.json"
+                argv = ["-r", str(rf), "-k", str(k), "-g", str(uf),
+                        "-m", str(m), "-e", str(effort),
+                        "--batch-size", str(B), "-f", str(td / "paths"),
+                        "-a", str(td / "notAligned.fa"),
+                        "--json-summary", str(js)] + flags
+                held = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                build.reset_launches()
+                t0 = time.monotonic()
+                rc = cli.main(argv)
+                wall = time.monotonic() - t0
+                peak = torch.cuda.max_memory_allocated()
+                launches[layout, mode] = dict(build.launches)
+                if rc != 0:
+                    raise AssertionError(f"cli.main {flags} exited {rc}")
+                summ = json.loads(js.read_text())
+                paths_b = (td / "paths").read_bytes()
+                na_b = (td / "notAligned.fa").read_bytes()
+                outputs[layout, mode] = (paths_b, na_b)
+                n_paths = paths_b.count(b"\n") // 2
+                tag = f"[slice {' '.join(flags)}]"
+                log(f"{tag} python -m dbgtpu_torch {' '.join(argv)}")
+                log(f"{tag} index build {summ['index_seconds']} s (graph) + "
+                    f"{summ['device_index_seconds']} s (device index); "
+                    f"upload {summ['upload_seconds']} s; parse "
+                    f"{summ['parse_seconds']} s; mapping "
+                    f"{summ['reads'] / summ['align_seconds']:.1f} reads/s "
+                    f"({summ['align_seconds']} s for pack + kernels + "
+                    f"unpack + format of {summ['reads']} reads); end-to-end "
+                    f"{summ['reads'] / wall:.1f} reads/s ({wall:.2f} s "
+                    f"wall, map_seconds {summ['map_seconds']}); "
+                    f"max_memory_allocated {peak} B, of which "
+                    f"{peak - held} B above the {held} B the script held "
+                    f"before the run")
+                log(f"{tag} {summ['aligned']} aligned, {summ['no_overlap']} "
+                    f"no overlap, {summ['not_aligned']} not aligned; "
+                    f"launches {launches[layout, mode]}; hbm_report "
+                    f"{summ['index_hbm_bytes']}; payload H2D "
+                    f"{summ['payload_h2d_bytes']} B, D2H "
+                    f"{summ['payload_d2h_bytes']} B (padded rows would be "
+                    f"{n_reads * (2 + pmax) * 2} B)")
+                if summ["reads"] != n_reads or n_paths != summ["aligned"]:
+                    raise AssertionError(
+                        f"{tag} output does not match its stats")
+                if not summ["aligned"]:
+                    raise AssertionError(f"{tag} aligned no read")
+                want = PATH_KERNELS[mode] + (
+                    ("mphf_slots",) if layout == "mphf" else ())
+                # one K7 launch per CHECK_CHUNK stored keys of each MPHF
+                # table of the run's index, at its upload
+                ix = ixs[layout, mode == "anchors"]
+                checks = sum(
+                    -(-meta.n_keys // CHECK_CHUNK)
+                    for meta in (ix.mph_meta, ix.amph_meta)
+                    if meta is not None)
+                if launches[layout, mode]["mphf_slots"] != checks:
+                    raise AssertionError(
+                        f"{tag} mphf_slots launched "
+                        f"{launches[layout, mode]['mphf_slots']} times, "
+                        f"its index's tables need {checks}")
+                missing = [n for n in want if launches[layout, mode][n] <= 0]
+                if missing:
+                    raise AssertionError(
+                        f"{tag} kernels not launched: {missing}")
+                extra = [n for n, c in launches[layout, mode].items()
+                         if c and n not in want]
+                if extra:
+                    raise AssertionError(f"{tag} kernels of another path "
+                                         f"launched: {extra}")
+        for mode in MODE_FLAGS:
+            if outputs["scan", mode] != outputs["mphf", mode]:
+                raise AssertionError(f"{mode}: the mphf layout's bytes "
+                                     "differ from the scan layout's")
+        log("[slice] every mode: --index-layout mphf bytes == scan bytes")
 
         # ---- phase 4: bytes against the spec ----
-        from dbgtpu.index.build import build_graph
-
         def probe_present(ix_):
             if ix_.pt_rows.shape[0] == 0:
                 raise AssertionError("expected a probe table")
@@ -443,6 +937,11 @@ def main() -> int:
             if ix_.seq_words != 0:
                 raise AssertionError("expected a pool-chunk index")
 
+        def mphf_anchors_on_scan(ix_):
+            if ix_.amph_meta is None or ix_.mph_meta is not None:
+                raise AssertionError("expected MPHF anchors beside a scan "
+                                     "junction table")
+
         def pool_graph(path, k_, dog):
             cap = dev_index.EMBED_CAP_BASES
             dev_index.EMBED_CAP_BASES = 8
@@ -453,58 +952,87 @@ def main() -> int:
                 dev_index.EMBED_CAP_BASES = cap
             return g
 
-        def probeless_graph(path, k_):
+        def probeless_graph(path, k_, layout="scan"):
             g = build_graph(str(path), k_)
-            get_device_index(g).probe_tbl = None
+            get_device_index(g, layout).probe_tbl = None
+            return g
+
+        def small_mphf_anchor_graph(path, k_):
+            """A dog-mode graph whose scan-layout index takes the MPHF
+            anchor layout, as keysets of 4,000,000 keys or more do."""
+            floor = dev_index.ANCHOR_MPHF_MIN
+            dev_index.ANCHOR_MPHF_MIN = 1
+            try:
+                g = build_graph(str(path), k_, dog_mode=True)
+                get_device_index(g)
+            finally:
+                dev_index.ANCHOR_MPHF_MIN = floor
             return g
 
         n4 = 4096
         write_fasta(td / "r4096.fa", (chars[r].tobytes()
                                       for r in codes_all[:n4]))
-        spec_bytes_equal(f"survey first {n4} reads", td / "r4096.fa", uf,
-                         k, m, graph, device)
-        spec_bytes_equal(f"survey first {n4} reads", td / "r4096.fa", uf,
-                         k, m, graphs[True], device, mode="anchors")
-        for partial in (False, True):
+        for layout in ("scan", "mphf"):
             spec_bytes_equal(f"survey first {n4} reads", td / "r4096.fa", uf,
-                             k, m, graph, device, probe_present,
-                             mode="exhaustive", partial=partial)
+                             k, m, graph, device, layout=layout)
+            spec_bytes_equal(f"survey first {n4} reads", td / "r4096.fa", uf,
+                             k, m, graphs[True], device, mode="anchors",
+                             layout=layout)
+            for partial in (False, True):
+                spec_bytes_equal(f"survey first {n4} reads", td / "r4096.fa",
+                                 uf, k, m, graph, device, probe_present,
+                                 mode="exhaustive", partial=partial,
+                                 layout=layout)
+        spec_bytes_equal(f"survey first {n4} reads, MPHF anchors on the scan "
+                         "layout", td / "r4096.fa", uf, k, m,
+                         small_mphf_anchor_graph(uf, k), device,
+                         mphf_anchors_on_scan, mode="anchors")
         reads_fa, unitigs_fa = synth.make_dataset(
             seed=4242, genome_len=60000, k=21, n_reads=3000, n_frac=0.1)
         nr, nu = td / "nr.fa", td / "nu.fa"
         nr.write_bytes(reads_fa)
         nu.write_bytes(unitigs_fa)
-        spec_bytes_equal("k=21 with N", nr, nu, 21, 1, build_graph(str(nu), 21),
-                         device, probe_present)
-        spec_bytes_equal("k=21 with N, probe-less index", nr, nu, 21, 1,
-                         probeless_graph(nu, 21), device, probe_less)
+        for layout in ("scan", "mphf"):
+            spec_bytes_equal("k=21 with N", nr, nu, 21, 1,
+                             build_graph(str(nu), 21), device, probe_present,
+                             layout=layout)
+            spec_bytes_equal("k=21 with N, probe-less index", nr, nu, 21, 1,
+                             probeless_graph(nu, 21, layout), device,
+                             probe_less, layout=layout)
+            spec_bytes_equal("k=21 with N", nr, nu, 21, 1,
+                             build_graph(str(nu), 21, dog_mode=True), device,
+                             mode="anchors", layout=layout)
         spec_bytes_equal("k=21 with N, pool-chunk index", nr, nu, 21, 1,
                          pool_graph(nu, 21, False), device, pool_chunk)
-        spec_bytes_equal("k=21 with N", nr, nu, 21, 1,
-                         build_graph(str(nu), 21, dog_mode=True), device,
-                         mode="anchors")
         spec_bytes_equal("k=21 with N, pool-chunk index", nr, nu, 21, 1,
                          pool_graph(nu, 21, True), device, pool_chunk,
                          mode="anchors")
+        spec_bytes_equal("k=21 with N, MPHF anchors on the scan layout", nr,
+                         nu, 21, 1, small_mphf_anchor_graph(nu, 21), device,
+                         mphf_anchors_on_scan, mode="anchors")
         reads_fa, unitigs_fa = synth.make_dataset(
             seed=4244, genome_len=60000, k=21, n_reads=1500, n_frac=0.1)
         br, bu = td / "br.fa", td / "bu.fa"
         br.write_bytes(reads_fa)
         bu.write_bytes(unitigs_fa)
         for partial in (False, True):
-            spec_bytes_equal("1,500 k=21 reads with N", br, bu, 21, 1,
-                             build_graph(str(bu), 21), device, probe_present,
-                             mode="exhaustive", partial=partial)
+            for layout in ("scan", "mphf"):
+                spec_bytes_equal("1,500 k=21 reads with N", br, bu, 21, 1,
+                                 build_graph(str(bu), 21), device,
+                                 probe_present, mode="exhaustive",
+                                 partial=partial, layout=layout)
             spec_bytes_equal("1,500 k=21 reads with N, probe-less index", br,
                              bu, 21, 1, probeless_graph(bu, 21), device,
                              probe_less, mode="exhaustive", partial=partial)
         # 64-bit k-mers with 300-bp reads (L=512): k-1 = 31 in greedy
-        # mode, whole 32-mers in dog mode; and stride-1 unitigs whose
-        # paths overflow pmax (host recompute)
-        for label, k_, modes, kw in (
-            ("k=32, 300-bp reads with N", 32, ("greedy", "anchors"),
+        # mode, whole 32-mers in dog mode (through the anchor MPHF too);
+        # and stride-1 unitigs whose paths overflow pmax (host recompute)
+        for label, k_, cases, kw in (
+            ("k=32, 300-bp reads with N", 32,
+             (("greedy", "scan"), ("anchors", "scan"), ("anchors", "mphf")),
              dict(n_frac=0.1, read_len=300, genome_len=60000)),
-            ("k=15, 15-18 bp unitigs (pmax overflow)", 15, ("greedy",),
+            ("k=15, 15-18 bp unitigs (pmax overflow)", 15,
+             (("greedy", "scan"), ("greedy", "mphf")),
              dict(min_unitig=15, max_unitig=18, decoy_frac=0.0,
                   genome_len=20000)),
         ):
@@ -512,22 +1040,29 @@ def main() -> int:
                 seed=4343, k=k_, n_reads=2000, **kw)
             (td / "xr.fa").write_bytes(reads_fa)
             (td / "xu.fa").write_bytes(unitigs_fa)
-            for mode in modes:
+            for mode, layout in cases:
                 spec_bytes_equal(
                     label, td / "xr.fa", td / "xu.fa", k_, 2,
                     build_graph(str(td / "xu.fa"), k_,
                                 dog_mode=mode == "anchors"),
-                    device, mode=mode)
+                    device, mode=mode, layout=layout)
 
     # ---- phase 5: result ----
+    assert_reference_packages_unused()
     kernels = []
     for name, source, replaces in KERNELS:
-        mode = TIMED_IN.get(name, "greedy")
-        err, ms, pms = results[mode][name]
+        run = TIMED_IN.get(name, ("scan", "greedy"))
+        r = results[run][name]
         kernels.append(dict(name=name, route="cuda", source=source,
-                            replaces=replaces,
-                            launches=launches[mode][name],
-                            max_abs_err=err, ms=ms, plain_ms=pms))
+                            replaces=replaces, launches=launches[run][name],
+                            **{key: r[key] for key in KERNEL_KEYS}))
+    sources = {name: source for name, source, _ in KERNELS}
+    for name, (mode, replaces) in MPHF_ENTRIES.items():
+        r = results["mphf", mode][name]
+        kernels.append(dict(name=f"{name}@mphf", route="cuda",
+                            source=sources[name], replaces=replaces,
+                            launches=launches["mphf", mode][name],
+                            **{key: r[key] for key in KERNEL_KEYS}))
     log(card_line())        # the card's name and power limit, as printed
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,15 @@
 """bgreat-compatible command line of the torch port.
 
-Takes dbgtpu's flags for mapping on one device with the scan index:
+Takes dbgtpu's flags for mapping on one device:
   -r reads (comma-separated), -k k, -g unitigs, -m mismatches,
   -t threads (accepted; batching replaces it), -e effort, -f paths
   file, -a notAligned file, -q fastq, -c correction, -G anchor (dog)
   mode, -b exhaustive mode, -i partial (with -b), --batch-size,
-  --json-summary, and --device (where the kernels run; default cuda).
+  --json-summary, --index-layout scan|mphf, and --device (where the
+  kernels run; default cuda).
 As in dbgtpu, -b wins over -G, and -i affects only -b.  The flags of
-features outside the port (path modes, the mphf layout, meshes,
-persistence, ...) are recognised and refused with exit code 2, naming
-the flag; so is an index that needs the MPHF anchor layout.  Without a
+features outside the port (path modes, meshes, persistence, ...) are
+recognised and refused with exit code 2, naming the flag.  Without a
 GPU the command stops unless `--device cpu` asks for the plain torch
 versions of the kernels.
 """
@@ -40,7 +40,7 @@ def make_parser() -> argparse.ArgumentParser:
         prog="dbgtpu_torch",
         description="de Bruijn graph read mapper (BGREAT-compatible), "
         "PyTorch and CUDA port of dbgtpu: greedy, anchor (-G) and "
-        "exhaustive (-b) modes, scan index, one device",
+        "exhaustive (-b) modes, scan and mphf index layouts, one device",
     )
     p.add_argument("-r", dest="reads", required=True,
                    help="read file(s), comma separated")
@@ -74,7 +74,9 @@ def make_parser() -> argparse.ArgumentParser:
                    help="write a structured run summary (JSON)")
     p.add_argument("--index-layout", choices=["scan", "mphf"],
                    default="scan",
-                   help="junction index layout; this port runs 'scan'")
+                   help="junction index layout: 'scan' (one-row lookups) "
+                        "or 'mphf' (compact minimal perfect hash; MPHF "
+                        "dog anchors at any keyset size)")
     p.add_argument("--device", default="cuda",
                    help="torch device for the kernels (cuda); 'cpu' runs "
                         "their plain torch versions")
@@ -93,13 +95,9 @@ def main(argv: list[str] | None = None) -> int:
                       .replace("-", "_"))
         if val not in (None, False):
             print(f"dbgtpu_torch: {flags[0]} needs an engine outside this "
-                  "port (greedy, -G and -b modes, scan index, one device); "
+                  "port (greedy, -G and -b modes, one device); "
                   "use dbgtpu", file=sys.stderr)
             return 2
-    if args.index_layout != "scan":
-        print("dbgtpu_torch: --index-layout mphf needs an engine outside "
-              "this port (scan index only); use dbgtpu", file=sys.stderr)
-        return 2
     if not 2 <= args.k <= 32:
         parser.error(
             f"-k {args.k} is out of range: supported k is 2..32 "
@@ -115,22 +113,18 @@ def main(argv: list[str] | None = None) -> int:
               file=sys.stderr)
         return 1
 
-    from .engine.index import UnsupportedIndex
     from .pipeline import run_pipeline
 
     reads_files = args.reads.split(",")
     mode = ("exhaustive" if args.exhaustive
             else "anchors" if args.dog_mode else "greedy")
-    try:
-        paths, na, stats = run_pipeline(
-            reads_files, args.unitigs, k=args.k, m=args.mismatches,
-            effort=args.effort, fastq=args.fastq,
-            correction=args.correction, batch_size=args.batch_size,
-            device=device, mode=mode, partial=args.partial,
-        )
-    except UnsupportedIndex as e:
-        print(f"dbgtpu_torch: {e}; use dbgtpu", file=sys.stderr)
-        return 2
+    paths, na, stats = run_pipeline(
+        reads_files, args.unitigs, k=args.k, m=args.mismatches,
+        effort=args.effort, fastq=args.fastq,
+        correction=args.correction, batch_size=args.batch_size,
+        device=device, mode=mode, partial=args.partial,
+        index_layout=args.index_layout,
+    )
     with open(args.paths_file, "wb") as f:
         f.write(paths)
     with open(args.not_aligned_file, "wb") as f:

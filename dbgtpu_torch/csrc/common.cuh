@@ -93,6 +93,63 @@ __device__ __forceinline__ uint64_t kmer_at(const uint32_t* row, int nw,
   return rev_groups(x) >> (64 - 2 * n);
 }
 
+// second, independent hash of a k-mer pair (kmer32.py mix32b): the other
+// bucket of the two-choice final table of an MPHF
+__device__ __forceinline__ uint32_t mix32b(uint32_t hi, uint32_t lo) {
+  return mix32(lo ^ 0x7FEB352Du, hi ^ 0x846CA68Bu);
+}
+
+// Static structure of one MPHF (engine/index.py MphfMeta): per level the
+// hash seeds, the bit mask of the level's size and the offset of its
+// first rank-group row; then the two-choice final table's bucket mask.
+// Passed by value inside a kernel parameter.
+constexpr int MPHF_MAX_LEVELS = 25;   // index/mphf.py build_mphf max_levels
+struct MphfMeta {
+  int32_t n_levels;
+  int32_t has_final;
+  uint32_t final_mask;                // final_nb - 1
+  int32_t n_keys;                     // rows of the verify / value table
+  uint32_t seed_hi[MPHF_MAX_LEVELS];
+  uint32_t seed_lo[MPHF_MAX_LEVELS];
+  uint32_t mask[MPHF_MAX_LEVELS];
+  int32_t row_off[MPHF_MAX_LEVELS];
+};
+
+// One MPHF-backed table: fused rank-group rows [ng, 5], final table
+// [nbf, 12] and the dense rows at each key's slot, which start with the
+// stored key (hi, lo): jrows [n, 10] for junctions, arows [n, 5] for
+// dog anchors.
+struct Mphf {
+  const uint32_t* rows;
+  const uint32_t* frows;
+  const uint32_t* vrows;
+  MphfMeta meta;
+};
+
+// The device index tables, as engine/index.py IndexTensors.c_index lays
+// them out (kernels/build.py IndexC mirrors this struct field by field).
+// jl_mphf / al_mphf say which layout the junction table and the dog
+// anchor table have; the two are independent.
+struct Index {
+  const uint32_t* st;      // fused junction scan table [st_nb, st_cols]
+  const int32_t* umeta;    // [U+1, ucols] metadata (+ embedded sequence)
+  const uint32_t* pool;    // [2*n_chunks, pool_cols] halo'd chunk rows
+  const uint32_t* pt;      // closure-probe rows [pt_nb, pt_cols]
+  const uint32_t* at;      // fused dog anchor scan table [at_nb, at_cols]
+  int32_t st_nb, st_cols;
+  uint32_t st_seed;
+  int32_t ucols;
+  int32_t pool_cols, n_chunks;
+  int32_t pt_nb, pt_cols;
+  uint32_t pt_seed;
+  int32_t pt_slots;
+  int32_t at_nb, at_cols;
+  uint32_t at_seed;
+  int32_t jl_mphf, al_mphf;
+  Mphf jm;                 // junction MPHF, vrows = jrows [n, 10]
+  Mphf am;                 // anchor MPHF, vrows = arows [n, 5]
+};
+
 // exact membership / value lookup in the fused scan table: S slot
 // key-hi, S slot key-lo, then S x 8 values (core._junction_vals).
 // Values of every matching slot are summed, as the JAX masked row-sum

@@ -1,13 +1,16 @@
 // K5 dog_anchors: the anchor stage of dog mode (-G), one thread per read.
 //
-// Replaces, in dbgtpu/engine/dog.py: the k-mer scan and the scan-table
-// branch of _anchor_lookup (:59, used at :195-231), the anchor pick
+// Replaces, in dbgtpu/engine/dog.py: the k-mer scan and both branches
+// of _anchor_lookup (:59, used at :195-231: the fused scan table, or
+// for large keysets and the mphf layout the MPHF slot plus the
+// stored-key verify in arows, mphf.cuh), the anchor pick
 // (core.py:643 _first_k_hits and :656 _last_k_hits_rc with n_mer = k)
 // and _dog_inits (:101), whose placement verify is one window compare
 // (junction.cuh window_miss, core.py:703 _window_miss).
 //
 // Bound on the card: one random 5*S-word row read from the anchor table
-// per scanned k-mer, then one umeta row and one window compare per
+// per scanned k-mer (under the MPHF layout a 20-byte level row and a
+// 20-byte arows row), then one umeta row and one window compare per
 // anchor.  The JAX version looks up every position of every read
 // ([B, Lk] row gathers, chunked) and extracts the first / last E hits
 // with masked rank sums; only those hits are used, so here a thread
@@ -29,17 +32,30 @@ struct AnchorHit {
   int uid, upos, ucan;
 };
 
-// canonical k-mer -> (uid, upos, ucanon) in the fused anchor table:
-// S slot key-hi, S slot key-lo, then S x (uid, upos, ucanon); values of
-// every matching slot are summed, as the JAX masked row-sum does
-__device__ __forceinline__ AnchorHit at_lookup(const uint32_t* at, int nb,
-                                               int cols, uint32_t seed,
+// canonical k-mer -> (uid, upos, ucanon).  MPHF layout: the arows row
+// (key-hi, key-lo, uid, upos, ucanon) at the key's slot, verified.
+// Scan layout: the fused anchor table, S slot key-hi, S slot key-lo,
+// then S x (uid, upos, ucanon); values of every matching slot are
+// summed, as the JAX masked row-sum does
+__device__ __forceinline__ AnchorHit at_lookup(const dbg::Index& ix,
                                                uint64_t key) {
+  AnchorHit h{false, 0, 0, 0};
+  if (ix.al_mphf) {
+    const uint32_t* arow = dbg::mphf_row(ix.am, 5, key);
+    if (arow) {
+      h.hit = true;
+      h.uid = static_cast<int>(arow[2]);
+      h.upos = static_cast<int>(arow[3]);
+      h.ucan = static_cast<int>(arow[4]);
+    }
+    return h;
+  }
+  const int cols = ix.at_cols;
   const int S = cols / 5;
   const uint32_t hi = dbg::khi(key), lo = dbg::klo(key);
-  const uint32_t b = dbg::mix32(hi ^ seed, lo) & static_cast<uint32_t>(nb - 1);
-  const uint32_t* row = at + static_cast<size_t>(b) * cols;
-  AnchorHit h{false, 0, 0, 0};
+  const uint32_t b =
+      dbg::mix32(hi ^ ix.at_seed, lo) & static_cast<uint32_t>(ix.at_nb - 1);
+  const uint32_t* row = ix.at + static_cast<size_t>(b) * cols;
   uint32_t v[3] = {0, 0, 0};
   for (int s = 0; s < S; ++s) {
     if (row[s] == hi && row[S + s] == lo) {
@@ -56,7 +72,7 @@ __device__ __forceinline__ AnchorHit at_lookup(const uint32_t* at, int nb,
 struct Place {
   int64_t* planes;
   int B, E, b, k, m, len, RWr;
-  dbg::Index ix;
+  const dbg::Index& ix;   // the kernel's grid-constant parameter
 
   __device__ void put(int f, int orient, int e, int64_t v) const {
     planes[((static_cast<size_t>(f) * 2 + orient) * B + b) * E + e] = v;
@@ -103,9 +119,8 @@ struct Place {
 
 __global__ void dog_anchors_kernel(const uint32_t* __restrict__ rows, int B,
                                    int RWr, const int32_t* __restrict__ lens,
-                                   const uint32_t* __restrict__ at, int at_nb,
-                                   int at_cols, uint32_t at_seed,
-                                   dbg::Index ix, int k, int m, int E,
+                                   const __grid_constant__ dbg::Index ix,
+                                   int k, int m, int E,
                                    int64_t* __restrict__ planes,
                                    int32_t* __restrict__ n) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
@@ -123,7 +138,7 @@ __global__ void dog_anchors_kernel(const uint32_t* __restrict__ rows, int B,
     const uint64_t f = dbg::kmer_at(rwf, RWr, i, k);
     const uint64_t r = dbg::rcb(f, k);
     const bool le = f <= r;
-    const AnchorHit h = at_lookup(at, at_nb, at_cols, at_seed, le ? f : r);
+    const AnchorHit h = at_lookup(ix, le ? f : r);
     if (h.hit) place(0, nf++, h, le, i, rwf, nmw);
   }
   // RC anchors: the RC read's e-th anchor is the (e+1)-th hit from the
@@ -132,7 +147,7 @@ __global__ void dog_anchors_kernel(const uint32_t* __restrict__ rows, int B,
   for (int i = last; i >= 0 && nr < E; --i) {
     const uint64_t f = dbg::kmer_at(rwf, RWr, i, k);
     const uint64_t r = dbg::rcb(f, k);
-    const AnchorHit h = at_lookup(at, at_nb, at_cols, at_seed, f <= r ? f : r);
+    const AnchorHit h = at_lookup(ix, f <= r ? f : r);
     if (h.hit) place(1, nr++, h, r <= f, len - k - i, rwr, nullptr);
   }
   n[b] = nf;
@@ -142,18 +157,15 @@ __global__ void dog_anchors_kernel(const uint32_t* __restrict__ rows, int B,
 }  // namespace
 
 extern "C" int dbg_dog_anchors(const void* rows, int B, int RWr,
-                               const void* lens, const void* at, int at_nb,
-                               int at_cols, unsigned at_seed,
-                               const void* umeta, int ucols, const void* pool,
-                               int pool_cols, int n_chunks, int k, int m,
-                               int E, void* planes, void* n, void* stream) {
-  const dbg::Index ix = dbg::make_index(nullptr, 0, 0, 0, umeta, ucols, pool,
-                                        pool_cols, n_chunks);
+                               const void* lens, const void* index, int k,
+                               int m, int E, void* planes, void* n,
+                               void* stream) {
   dog_anchors_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), B, RWr,
-      static_cast<const int32_t*>(lens), static_cast<const uint32_t*>(at),
-      at_nb, at_cols, at_seed, ix, k, m, E, static_cast<int64_t*>(planes),
+      static_cast<const int32_t*>(lens),
+      *static_cast<const dbg::Index*>(index), k, m, E,
+      static_cast<int64_t*>(planes),
       static_cast<int32_t*>(n));
   DBG_RETURN_LAUNCH_STATUS();
 }

@@ -50,7 +50,8 @@ struct Top {   // the top frame's candidates, compacted (valid ones first)
 __global__ void exhaustive_kernel(
     const uint8_t* __restrict__ inter, const int64_t* __restrict__ bug,
     const int32_t* __restrict__ lens, const uint32_t* __restrict__ rows,
-    dbg::Index ix, int B, int Lk, int RWr, int k, int m, int partial, int D,
+    const __grid_constant__ dbg::Index ix, int B, int Lk, int RWr, int k,
+    int m, int partial, int D,
     int32_t* __restrict__ stack, int32_t* __restrict__ status_o,
     int32_t* __restrict__ offset_o, int32_t* __restrict__ llen_o,
     int32_t* __restrict__ rlen_o, int32_t* __restrict__ lbuf,
@@ -267,18 +268,15 @@ __global__ void exhaustive_kernel(
 
 extern "C" int dbg_exhaustive_dfs(
     const void* inter, const void* bug, const void* lens, const void* rows,
-    int B, int Lk, int RWr, const void* st, int st_nb, int st_cols,
-    unsigned st_seed, const void* umeta, int ucols, const void* pool,
-    int pool_cols, int n_chunks, int k, int m, int partial, int D,
-    void* stack, void* status, void* offset, void* llen, void* rlen,
+    int B, int Lk, int RWr, const void* index, int k, int m, int partial,
+    int D, void* stack, void* status, void* offset, void* llen, void* rlen,
     void* lbuf, void* rbuf, void* stream) {
   exhaustive_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(inter), static_cast<const int64_t*>(bug),
       static_cast<const int32_t*>(lens), static_cast<const uint32_t*>(rows),
-      dbg::make_index(st, st_nb, st_cols, st_seed, umeta, ucols, pool,
-                      pool_cols, n_chunks),
-      B, Lk, RWr, k, m, partial, D, static_cast<int32_t*>(stack),
+      *static_cast<const dbg::Index*>(index), B, Lk, RWr, k, m, partial, D,
+      static_cast<int32_t*>(stack),
       static_cast<int32_t*>(status), static_cast<int32_t*>(offset),
       static_cast<int32_t*>(llen), static_cast<int32_t*>(rlen),
       static_cast<int32_t*>(lbuf), static_cast<int32_t*>(rbuf));

@@ -1,46 +1,20 @@
 // The junction probe shared by K3 (walk.cu), K5 (dog.cu) and K6
 // (exhaustive.cu): one candidate lookup of a junction (k-1)-mer in the
-// fused scan table and the windowed Hamming compare of a candidate
-// unitig against the read.
+// junction table (the fused scan table, or the MPHF layout through
+// mphf.cuh) and the windowed Hamming compare of a candidate unitig
+// against the read.
 //
-// Replaces, in dbgtpu/engine/core.py: the scan-layout branch of
-// _junction_vals (:376), _junction_probe (:777) and _window_miss (:703).
+// Replaces, in dbgtpu/engine/core.py: _junction_vals (:376),
+// _junction_probe (:777) and _window_miss (:703).
 // The JAX version evaluates all 4 candidates of a batch at once as
 // [B, 4] arrays; here a caller asks for one candidate at a time, so the
 // greedy walk keeps only the best so far and the DFS only the valid
 // ones, in registers.
 #pragma once
 
-#include "common.cuh"
+#include "mphf.cuh"
 
 namespace dbg {
-
-// the device index tables a walk reads
-struct Index {
-  const uint32_t* st;      // fused junction scan table [st_nb, st_cols]
-  int st_nb, st_cols;
-  uint32_t st_seed;
-  const int32_t* umeta;    // [U+1, ucols] metadata (+ embedded sequence)
-  int ucols;
-  const uint32_t* pool;    // [2*n_chunks, pool_cols] halo'd chunk rows
-  int pool_cols, n_chunks;
-};
-
-inline Index make_index(const void* st, int st_nb, int st_cols,
-                        unsigned st_seed, const void* umeta, int ucols,
-                        const void* pool, int pool_cols, int n_chunks) {
-  Index ix;
-  ix.st = static_cast<const uint32_t*>(st);
-  ix.st_nb = st_nb;
-  ix.st_cols = st_cols;
-  ix.st_seed = st_seed;
-  ix.umeta = static_cast<const int32_t*>(umeta);
-  ix.ucols = ucols;
-  ix.pool = static_cast<const uint32_t*>(pool);
-  ix.pool_cols = pool_cols;
-  ix.n_chunks = n_chunks;
-  return ix;
-}
 
 // Mismatches between the oriented unitig of `meta` at bases
 // [ustart, ustart+win) and the read row `rrow` at [rstart, rstart+win),
@@ -104,9 +78,7 @@ __device__ __forceinline__ Junction junction_lookup(const Index& ix, bool mL,
   const uint64_t rc = rcb(cur, k1);
   const bool is_canon = cur <= rc;
   int32_t vals8[8];
-  const bool found =
-      st_lookup(ix.st, ix.st_nb, ix.st_cols, ix.st_seed, is_canon ? cur : rc,
-                vals8);
+  const bool found = junction_vals(ix, is_canon ? cur : rc, vals8);
   // LEFT wants unitigs ending with the k-mer, RIGHT unitigs beginning
   // with it; the table's 4 left / 4 right slots are per canonical form
   const bool use_right = mL ? is_canon : !is_canon;

@@ -10,8 +10,9 @@
 //  - dbg_walk_inits reads per-anchor inits precomputed by K5 (dog mode,
 //    engine/dog.py; core.py:1112-1128 for their meaning).
 //
-// Bound on the card: dependent random row reads (st_fused row, then up
-// to 4 umeta rows per junction step), i.e. memory latency; a read's
+// Bound on the card: dependent random row reads (st_fused row, or under
+// the mphf layout a level row and a jrows row, then up to 4 umeta rows
+// per junction step), i.e. memory latency; a read's
 // steps are serial.  The TPU design advanced the whole batch in
 // lockstep with staged tail compaction so that row gathers stayed
 // wide; here each thread runs its own read's state machine to the end,
@@ -254,7 +255,8 @@ __global__ void greedy_walk_kernel(
     const uint8_t* __restrict__ member1, const uint8_t* __restrict__ member2,
     const int64_t* __restrict__ bug, const int64_t* __restrict__ rcs,
     const int32_t* __restrict__ lens, const uint32_t* __restrict__ rows,
-    dbg::Index ix, int B, int Lk, int RWr, int k, int m, int E,
+    const __grid_constant__ dbg::Index ix, int B, int Lk, int RWr, int k,
+    int m, int E,
     int max_iters, int P, Out out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -279,7 +281,8 @@ __global__ void walk_inits_kernel(const int64_t* __restrict__ planes,
                                   const int32_t* __restrict__ n,
                                   const int32_t* __restrict__ lens,
                                   const uint32_t* __restrict__ rows,
-                                  dbg::Index ix, int B, int RWr, int k, int E,
+                                  const __grid_constant__ dbg::Index ix,
+                                  int B, int RWr, int k, int E,
                                   int max_iters, int P, Out out) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= B) return;
@@ -308,9 +311,8 @@ constexpr int kThreads = 128;
 extern "C" int dbg_greedy_walk(
     const void* member1, const void* member2, const void* bug,
     const void* rcs, const void* lens, const void* rows, int B, int Lk,
-    int RWr, const void* st, int st_nb, int st_cols, unsigned st_seed,
-    const void* umeta, int ucols, const void* pool, int pool_cols,
-    int n_chunks, int k, int m, int E, int max_iters, int P, void* status,
+    int RWr, const void* index, int k, int m, int E, int max_iters, int P,
+    void* status,
     void* orient, void* offset, void* llen, void* rlen, void* lbuf,
     void* rbuf, void* stream) {
   greedy_walk_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
@@ -319,27 +321,23 @@ extern "C" int dbg_greedy_walk(
       static_cast<const uint8_t*>(member2),
       static_cast<const int64_t*>(bug), static_cast<const int64_t*>(rcs),
       static_cast<const int32_t*>(lens), static_cast<const uint32_t*>(rows),
-      dbg::make_index(st, st_nb, st_cols, st_seed, umeta, ucols, pool, pool_cols,
-                 n_chunks),
-      B, Lk, RWr, k, m, E, max_iters, P,
+      *static_cast<const dbg::Index*>(index), B, Lk, RWr, k, m, E, max_iters,
+      P,
       make_out(status, orient, offset, llen, rlen, lbuf, rbuf));
   DBG_RETURN_LAUNCH_STATUS();
 }
 
 extern "C" int dbg_walk_inits(
     const void* planes, const void* n, const void* lens, const void* rows,
-    int B, int RWr, const void* st, int st_nb, int st_cols, unsigned st_seed,
-    const void* umeta, int ucols, const void* pool, int pool_cols,
-    int n_chunks, int k, int E, int max_iters, int P, void* status,
+    int B, int RWr, const void* index, int k, int E, int max_iters, int P,
+    void* status,
     void* orient, void* offset, void* llen, void* rlen, void* lbuf,
     void* rbuf, void* stream) {
   walk_inits_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(planes), static_cast<const int32_t*>(n),
       static_cast<const int32_t*>(lens), static_cast<const uint32_t*>(rows),
-      dbg::make_index(st, st_nb, st_cols, st_seed, umeta, ucols, pool, pool_cols,
-                 n_chunks),
-      B, RWr, k, E, max_iters, P,
+      *static_cast<const dbg::Index*>(index), B, RWr, k, E, max_iters, P,
       make_out(status, orient, offset, llen, rlen, lbuf, rbuf));
   DBG_RETURN_LAUNCH_STATUS();
 }

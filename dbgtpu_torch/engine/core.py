@@ -1,6 +1,7 @@
 """Batched alignment on one torch device (counterpart of
-dbgtpu/engine/core.py align_batch and align_batch_packed, the scan
-index layout), in the three modes of dbgtpu's device engines.
+dbgtpu/engine/core.py align_batch, align_batch_packed and
+align_batches_packed_compact, either index layout), in the three modes
+of dbgtpu's device engines.
 
 A batch runs through hand-written CUDA kernels on a GPU, and their
 plain torch versions on the CPU:
@@ -11,10 +12,15 @@ plain torch versions on the CPU:
   K4 pack_paths     fused [B, 2 + pmax] result rows
   K5 dog_anchors    k-mer anchor lookup + placement inits (dog mode)
   K6 exhaustive_dfs branch-and-bound DFS per read (exhaustive mode)
+  K7 mphf_slots     MPHF lookup: the check of each MPHF table at upload;
+                    its device function runs inside K2, K3, K5 and K6
+                    when the index holds an MPHF layout
+  K8 compact_result rows -> (meta, flat) for the compact result fetch
 
   greedy:     K1 -> K2 -> K3 (greedy entry) -> K4
   anchors:    K1 -> K5 -> K3 (from inits)   -> K4
   exhaustive: K1 -> K2 (exhaustive mode) -> K6 -> K4
+  every mode, in the runner's entry: -> K8
 
 The stages take and return tensors on the device of their input; no
 stage falls back to another device or to the host spec.
@@ -24,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from .compact import compact_result
 from .dog import dog_anchors
 from .exhaustive import exhaustive_dfs
 from .index import IndexTensors
@@ -71,3 +78,15 @@ def align_batch_packed(ix: IndexTensors, words, nmbits, lens, *,
                         effort=effort, L=L, partial=partial)
     return pack_paths(walks, pmax=pmax,
                       dtype=out_dtype_for(ix.umeta.shape[0], L))
+
+
+def align_batch_packed_compact(ix: IndexTensors, words, nmbits, lens, *,
+                               mode: str = "greedy", k: int, m: int,
+                               effort: int = 2, L: int, pmax: int,
+                               partial: bool = False):
+    """align_batch_packed followed by the compact result layout (K8):
+    (meta [B, 2], flat [B * pmax]); the runner fetches meta and only the
+    populated prefix of flat (engine/compact.py)."""
+    fused = align_batch_packed(ix, words, nmbits, lens, mode=mode, k=k, m=m,
+                               effort=effort, L=L, pmax=pmax, partial=partial)
+    return compact_result(fused, pmax)

@@ -1,8 +1,9 @@
 """K5 dog_anchors: the anchor stage of dog mode (-G).
 
 Counterpart of dbgtpu/engine/dog.py: the k-mer scan and canonical
-lookup of align_batch_anchors (:195-231, the scan branch of
-_anchor_lookup :59), the anchor pick (core._first_k_hits /
+lookup of align_batch_anchors (:195-231, _anchor_lookup :59 under
+either anchor layout: the fused scan table, or the MPHF slot and the
+stored-key verify in `amph_arows`), the anchor pick (core._first_k_hits /
 _last_k_hits_rc with n_mer = k) and _dog_inits (:101), whose placement
 verify is one core._window_miss.  Its output is the per-anchor walk
 inits that K3 walks from (walk.Inits).  Anchors are whole k-mers of
@@ -15,14 +16,14 @@ from __future__ import annotations
 
 import torch
 
-from dbgtpu.constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
-
+from ..constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
 from ..kernels import build
 from .index import (
     C_BEG_HI, C_BEG_LO, C_END_HI, C_END_LO, C_RCB_HI, C_RCB_LO, C_RCE_HI,
-    C_RCE_LO, C_ULEN, LOOKUP_CHUNK, IndexTensors,
+    C_RCE_LO, C_ULEN, LOOKUP_CHUNK, IndexTensors, c_index_arg,
 )
 from .kmer import M32, as_i32, le_ref, mix32_ref, rcb_ref, split_ref
+from .mphf import _signed32, mphf_rows_ref
 from .read_scan import _scan, unpack_fields
 from .walk import (
     DONE, INIT_FIELDS, LEFT, RFIRST, Inits, _anchors, _window_miss_ref,
@@ -31,8 +32,13 @@ from .walk import (
 
 def anchor_lookup_ref(ix: IndexTensors, keys: torch.Tensor):
     """Canonical k-mers [B, n] -> (member bool, uid, upos, ucanon int64)
-    from at_fused (dog._anchor_lookup, scan branch), LOOKUP_CHUNK
-    positions at a time."""
+    (dog._anchor_lookup): from the MPHF anchor rows when the index holds
+    them, else from at_fused, LOOKUP_CHUNK positions at a time."""
+    if ix.amph_meta is not None:
+        member, row = mphf_rows_ref(ix.amph_rows, ix.amph_f, ix.amph_arows,
+                                    ix.amph_meta, keys)
+        vals = _signed32(row[..., 2:5])
+        return member, vals[..., 0], vals[..., 1], vals[..., 2]
     S = ix.at_slots
     nbm = ix.at_fused.shape[0] - 1
     member = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
@@ -47,7 +53,7 @@ def anchor_lookup_ref(ix: IndexTensors, keys: torch.Tensor):
         v = row[..., 2 * S :].reshape(ok.shape + (3,)).to(torch.int64) & M32
         member[:, c0 : c0 + chunk] = ok.any(dim=-1)
         vals[:, c0 : c0 + chunk] = torch.where(ok[..., None], v, 0).sum(-2)
-    vals = torch.where(vals >= 1 << 31, vals - (1 << 32), vals)
+    vals = _signed32(vals)
     return member, vals[..., 0], vals[..., 1], vals[..., 2]
 
 
@@ -133,7 +139,7 @@ def dog_anchors(ix: IndexTensors, rows, lens, *, k: int, m: int,
                 effort: int, L: int) -> Inits:
     """K5 on the rows' device: the kernel on CUDA, the plain version on
     the CPU, an error anywhere else."""
-    if ix.at_fused.shape[0] == 0:
+    if not ix.has_anchors:
         raise ValueError("index was not built in dog mode "
                          "(anchor table is empty)")
     dev = rows.device
@@ -141,7 +147,7 @@ def dog_anchors(ix: IndexTensors, rows, lens, *, k: int, m: int,
         return dog_anchors_ref(ix, rows, lens, k=k, m=m, effort=effort, L=L)
     if dev.type != "cuda":
         raise ValueError(f"no dog_anchors kernel for device {dev}")
-    if ix.at_fused.device != dev or lens.device != dev:
+    if lens.device != dev:
         raise ValueError("index, rows and lens must share a device")
     if lens.dtype != torch.int32 or rows.dtype != torch.int32:
         raise TypeError("rows and lens must be int32")
@@ -154,11 +160,9 @@ def dog_anchors(ix: IndexTensors, rows, lens, *, k: int, m: int,
     n = torch.zeros((2, B), dtype=torch.int32, device=dev)
     if B:
         lib = build.load()
+        cix_ptr = c_index_arg(ix, dev)
         err = lib.dbg_dog_anchors(
-            rows.data_ptr(), B, RWr, lens.data_ptr(), ix.at_fused.data_ptr(),
-            ix.at_fused.shape[0], ix.at_fused.shape[1], ix.at_seed,
-            ix.umeta.data_ptr(), ix.umeta.shape[1], ix.pool_rows.data_ptr(),
-            ix.pool_rows.shape[1], ix.n_chunks, k, m, effort,
+            rows.data_ptr(), B, RWr, lens.data_ptr(), cix_ptr, k, m, effort,
             planes.data_ptr(), n.data_ptr(), build.stream_ptr(dev),
         )
         build.check(err, "dog_anchors")

@@ -22,14 +22,13 @@ from __future__ import annotations
 
 import torch
 
-from dbgtpu.constants import (
+from ..constants import (
     STATUS_ALIGNED_FWD,
     STATUS_FAILED,
     STATUS_NO_OVERLAP_FWD,
 )
-
 from ..kernels import build
-from .index import IndexTensors
+from .index import IndexTensors, c_index_arg
 from .read_scan import Scan, unpack_fields
 from .walk import BIG, Walks, junction_probe_ref
 
@@ -219,7 +218,7 @@ def exhaustive_dfs(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
                               partial=partial, L=L)
     if dev.type != "cuda":
         raise ValueError(f"no exhaustive_dfs kernel for device {dev}")
-    if ix.umeta.device != dev or lens.device != dev or inter.device != dev:
+    if lens.device != dev or inter.device != dev:
         raise ValueError("index, scan, inter and lens must share a device")
     if lens.dtype != torch.int32 or inter.dtype != torch.uint8:
         raise TypeError("lens must be int32 and inter uint8")
@@ -235,13 +234,11 @@ def exhaustive_dfs(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
     stack = torch.empty((D, FRAME_WORDS, B), dtype=torch.int32, device=dev)
     if B:
         lib = build.load()
+        cix_ptr = c_index_arg(ix, dev)
         err = lib.dbg_exhaustive_dfs(
             inter.data_ptr(), scan.bug.data_ptr(), lens.data_ptr(),
-            scan.rows.data_ptr(), B, Lk, scan.rows.shape[2],
-            ix.st_fused.data_ptr(), ix.st_fused.shape[0],
-            ix.st_fused.shape[1], ix.st_seed, ix.umeta.data_ptr(),
-            ix.umeta.shape[1], ix.pool_rows.data_ptr(),
-            ix.pool_rows.shape[1], ix.n_chunks, k, m, int(partial), D,
+            scan.rows.data_ptr(), B, Lk, scan.rows.shape[2], cix_ptr, k, m,
+            int(partial), D,
             stack.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
             out[2].data_ptr(), out[3].data_ptr(), lbuf.data_ptr(),
             rbuf.data_ptr(), build.stream_ptr(dev),

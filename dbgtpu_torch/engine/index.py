@@ -2,26 +2,33 @@
 dbgtpu/engine/core.py IndexArrays / index_to_device).
 
 This module carries the state from the numpy `DeviceIndex` built by
-dbgtpu.index.device onto a torch device.  Tables whose JAX dtype is
+index/device.py onto a torch device.  Tables whose JAX dtype is
 uint32 are held as int32 tensors with the same bits (torch has little
 uint32 support); the kernels read them as uint32 and the plain
 versions mask them back to 32-bit values in int64 lanes.
 
-Only the `scan` layouts are ported: the junction scan table and, for
-dog mode (-G), the anchor scan table.  An index that needs an MPHF
-lookup (the `mphf` junction layout, or MPHF anchors, which dbgtpu takes
-for dog keysets of ANCHOR_MPHF_MIN keys or more) is refused with
-`UnsupportedIndex`: that lookup is ROADMAP B12, not ported yet.
+Both layouts of both tables are carried: the junction table as the
+fused scan table (`st_fused`) or as an MPHF over rank-group rows plus
+the dense `mph_jrows` (`--index-layout mphf`); the dog-mode (-G) anchor
+table as `at_fused` or as an MPHF plus `amph_arows` (keysets of
+ANCHOR_MPHF_MIN keys or more, or the mphf layout).  The two choices are
+independent.  `mph_meta` / `amph_meta` hold an MPHF's static structure
+(core.py's `jl_meta` / `al_meta`) and are None under the scan layout.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import ctypes
+import functools
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from dbgtpu.index.device import ANCHOR_MPHF_MIN, PT_SLOTS, DeviceIndex
+from ..index.device import PT_SLOTS, DeviceIndex
+from ..index.mphf import _SEEDS_HI, _SEEDS_LO
+from ..kernels.build import MPHF_MAX_LEVELS, IndexC, MphfC, MphfMetaC
+from .mphf import check_mphf_table
 
 # umeta column layout (dbgtpu.index.device.build_device_index)
 C_UOFF, C_ULEN = 0, 1
@@ -31,6 +38,88 @@ META_COLS = 16          # metadata columns before the embedded sequence
 # read positions per gather in the plain fused-table lookups, so the
 # gathered rows stay [B, LOOKUP_CHUNK, row width]
 LOOKUP_CHUNK = 8
+
+
+@dataclass(frozen=True)
+class MphfMeta:
+    """Static structure of one MPHF (core._mphf_meta): per level the
+    hash seeds (taken from the host table index/mphf.py builds with,
+    never recomputed), the bit mask of the level's size and the offset
+    of its first rank-group row (= the host MPHF's sample_off); then the
+    final table's bucket count (0: none) and the key count."""
+
+    seeds_hi: tuple[int, ...]
+    seeds_lo: tuple[int, ...]
+    masks: tuple[int, ...]
+    row_offs: tuple[int, ...]
+    final_nb: int
+    n_keys: int
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.masks)
+
+    @functools.cached_property
+    def c_struct(self) -> MphfMetaC:
+        """The meta as the struct the kernels take (csrc/common.cuh
+        dbg::MphfMeta), built once."""
+        c = MphfMetaC(n_levels=self.n_levels,
+                      has_final=int(self.final_nb > 0),
+                      final_mask=max(self.final_nb - 1, 0),
+                      n_keys=self.n_keys)
+        for lvl in range(self.n_levels):
+            c.seed_hi[lvl] = self.seeds_hi[lvl]
+            c.seed_lo[lvl] = self.seeds_lo[lvl]
+            c.mask[lvl] = self.masks[lvl]
+            c.row_off[lvl] = self.row_offs[lvl]
+        return c
+
+
+def mphf_meta_of(m) -> MphfMeta:
+    """index.mphf.MPHF -> MphfMeta."""
+    n = int(m.n_levels)
+    if n > MPHF_MAX_LEVELS:
+        raise ValueError(f"MPHF has {n} levels; the kernels take at most "
+                         f"{MPHF_MAX_LEVELS}")
+    return MphfMeta(
+        seeds_hi=tuple(int(x) for x in _SEEDS_HI[:n]),
+        seeds_lo=tuple(int(x) for x in _SEEDS_LO[:n]),
+        masks=tuple(int(x) for x in m.mask[:n]),
+        row_offs=tuple(int(x) for x in m.sample_off[:n]),
+        final_nb=(int(m.final_tbl.n_buckets) if m.final_tbl is not None
+                  else 0),
+        n_keys=int(m.n_keys),
+    )
+
+
+def fuse_mphf(m) -> tuple[np.ndarray, np.ndarray]:
+    """index.mphf.MPHF -> (fused rank-group rows uint32 [ng, 5], final
+    table uint32 [nbf, 12]) (core._fuse_mphf).  Each 128-bit rank group
+    is one row: rank_base + sample, then its 4 level words, so a level
+    lookup is one row read; the row of word w of level lvl is
+    sample_off[lvl] + (w >> 2).  A final-table row is 4 key-hi, 4 key-lo
+    and 4 values."""
+    ft = m.final_tbl
+    if ft is not None:
+        nbf = ft.n_buckets
+        frows = np.concatenate(
+            [ft.khi, ft.klo, ft.vals.reshape(nbf, 4).view(np.uint32)], axis=1)
+    else:
+        frows = np.zeros((0, 12), np.uint32)
+    parts = []
+    for lvl in range(m.n_levels):
+        w = m.words[m.word_off[lvl] : m.word_off[lvl + 1]]
+        smp = m.samples[m.sample_off[lvl] : m.sample_off[lvl + 1]]
+        ng = len(smp)
+        wp = np.zeros(ng * 4, np.uint32)
+        wp[: len(w)] = w
+        r = np.zeros((ng, 5), np.uint32)
+        r[:, 0] = (smp.astype(np.int64)
+                   + int(m.rank_base[lvl])).astype(np.uint32)
+        r[:, 1:5] = wp.reshape(ng, 4)
+        parts.append(r)
+    rows = np.concatenate(parts) if parts else np.zeros((0, 5), np.uint32)
+    return rows, frows
 
 
 @dataclass
@@ -51,6 +140,58 @@ class IndexTensors:
     #                          key-hi | S key-lo | S slots x (uid, upos,
     #                          ucanon); [0, 160] when absent
     at_seed: int             # bucket-hash seed of at_fused
+    # MPHF junction layout (placeholders of 0 rows and a None meta under
+    # the scan layout; st_fused is then [0, 320])
+    mph_rows: torch.Tensor   # int32 [ng, 5] fused rank-group rows
+    mph_jrows: torch.Tensor  # int32 [n, 10]: key-hi, key-lo, 8 junction ids
+    mph_f: torch.Tensor      # int32 [nbf, 12] final table
+    mph_meta: MphfMeta | None
+    # MPHF dog anchor layout (at_fused is then [0, 160])
+    amph_rows: torch.Tensor  # int32 [ng, 5]
+    amph_arows: torch.Tensor  # int32 [n, 5]: key-hi, key-lo, uid, upos, ucanon
+    amph_f: torch.Tensor     # int32 [nbf, 12]
+    amph_meta: MphfMeta | None
+    # the tables as the struct the kernels take (csrc/common.cuh
+    # dbg::Index), built once from the fields above.  It holds raw
+    # pointers into them: keep this IndexTensors alive while a kernel that
+    # was given the struct may run.
+    c_index: IndexC = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        dev = self.umeta.device
+        for t in self.tensors():
+            if (t.device != dev or not t.is_contiguous()
+                    or t.dtype != torch.int32):
+                raise ValueError("index tables must be contiguous int32 "
+                                 "tensors on one device")
+
+        def mphf(rows, frows, vrows, meta):
+            if meta is None:
+                return MphfC()
+            return MphfC(rows=rows.data_ptr(), frows=frows.data_ptr(),
+                         vrows=vrows.data_ptr(), meta=meta.c_struct)
+
+        self.c_index = IndexC(
+            st=self.st_fused.data_ptr(), umeta=self.umeta.data_ptr(),
+            pool=self.pool_rows.data_ptr(), pt=self.pt_rows.data_ptr(),
+            at=self.at_fused.data_ptr(),
+            st_nb=self.st_fused.shape[0], st_cols=self.st_fused.shape[1],
+            st_seed=self.st_seed, ucols=self.umeta.shape[1],
+            pool_cols=self.pool_rows.shape[1], n_chunks=self.n_chunks,
+            pt_nb=self.pt_rows.shape[0], pt_cols=self.pt_rows.shape[1],
+            pt_seed=self.pt_seed, pt_slots=PT_SLOTS,
+            at_nb=self.at_fused.shape[0], at_cols=self.at_fused.shape[1],
+            at_seed=self.at_seed,
+            jl_mphf=int(self.mph_meta is not None),
+            al_mphf=int(self.amph_meta is not None),
+            jm=mphf(self.mph_rows, self.mph_f, self.mph_jrows, self.mph_meta),
+            am=mphf(self.amph_rows, self.amph_f, self.amph_arows,
+                    self.amph_meta),
+        )
+
+    @property
+    def device(self) -> torch.device:
+        return self.umeta.device
 
     @property
     def st_slots(self) -> int:
@@ -72,9 +213,21 @@ class IndexTensors:
         width, as in core._closure_member)."""
         return 4 if self.pt_rows.shape[1] == 4 * PT_SLOTS else 3
 
+    @property
+    def has_anchors(self) -> bool:
+        """The index was built in dog mode (either anchor layout)."""
+        return self.at_fused.shape[0] > 0 or self.amph_meta is not None
 
-class UnsupportedIndex(ValueError):
-    """The index needs a layout this port does not run yet."""
+    def tensors(self) -> list[torch.Tensor]:
+        return [v for v in vars(self).values() if isinstance(v, torch.Tensor)]
+
+
+def c_index_arg(ix: IndexTensors, dev) -> int:
+    """Address of the index struct for a kernel launch on `dev` (the C
+    entry point copies the struct into the kernel's parameters)."""
+    if ix.device != dev:
+        raise ValueError(f"the index lies on {ix.device}, the batch on {dev}")
+    return ctypes.addressof(ix.c_index)
 
 
 def fuse_scan_table(t) -> np.ndarray:
@@ -110,39 +263,51 @@ def index_tensors(di: DeviceIndex, device) -> IndexTensors:
     key = str(device)
     if key in memo:
         return memo[key]
-    if di.mphf_junction is not None or di.scan_tbl is None:
-        raise UnsupportedIndex(
-            "index layout 'mphf' (MPHF junction lookup, ROADMAP B12) is "
-            "not ported; dbgtpu_torch runs the 'scan' layout"
-        )
-    if di.anchor_mphf is not None:
-        raise UnsupportedIndex(
-            f"the dog-mode (-G) index holds {len(di.anchor_mphf.arows):,} "
-            f"anchors and takes the MPHF anchor layout (at least "
-            f"{ANCHOR_MPHF_MIN:,} anchors, or --index-layout mphf); its "
-            "MPHF lookup (ROADMAP B12) is not ported"
-        )
     t = di.scan_tbl
     pt = di.probe_tbl
     at = di.anchor_scan
+    if t is None and di.mphf_junction is None:
+        raise ValueError("the DeviceIndex holds no junction table")
 
     def u32(a):
         return to_device(np.asarray(a, np.uint32), device)
 
+    def empty(cols):
+        return torch.zeros((0, cols), dtype=torch.int32, device=device)
+
+    def mphf(holder, vrows, vcols):
+        """(rows, vrows, frows, meta) of an MphfJunction / MphfAnchors."""
+        if holder is None:
+            return empty(5), empty(vcols), empty(12), None
+        rows, frows = fuse_mphf(holder.mphf)
+        return u32(rows), u32(vrows), u32(frows), mphf_meta_of(holder.mphf)
+
+    mj, ma = di.mphf_junction, di.anchor_mphf
+    mph_rows, mph_jrows, mph_f, mph_meta = mphf(
+        mj, None if mj is None else mj.jrows, 10)
+    amph_rows, amph_arows, amph_f, amph_meta = mphf(
+        ma, None if ma is None else ma.arows, 5)
     ix = IndexTensors(
-        st_fused=u32(fuse_scan_table(t)),
-        st_seed=int(t.seed),
+        st_fused=u32(fuse_scan_table(t)) if t is not None else empty(320),
+        st_seed=int(t.seed) if t is not None else 0,
         umeta=to_device(np.asarray(di.umeta, np.int32), device),
         pool_rows=u32(di.pool_rows),
         n_chunks=int(di.n_chunks),
-        pt_rows=(u32(pt.rows) if pt is not None
-                 else torch.zeros((0, 32), dtype=torch.int32,
-                                  device=device)),
+        pt_rows=u32(pt.rows) if pt is not None else empty(32),
         pt_seed=int(pt.seed) if pt is not None else 0,
-        at_fused=(u32(fuse_scan_table(at)) if at is not None
-                  else torch.zeros((0, 160), dtype=torch.int32,
-                                   device=device)),
+        at_fused=u32(fuse_scan_table(at)) if at is not None else empty(160),
         at_seed=int(at.seed) if at is not None else 0,
+        mph_rows=mph_rows, mph_jrows=mph_jrows, mph_f=mph_f,
+        mph_meta=mph_meta,
+        amph_rows=amph_rows, amph_arows=amph_arows, amph_f=amph_f,
+        amph_meta=amph_meta,
     )
+    # every stored key must come back at its own row (K7, once per table
+    # and upload): a table that disagrees with the lookup would show only
+    # as reads that fail to align
+    if mph_meta is not None:
+        check_mphf_table(mph_rows, mph_f, mph_jrows, mph_meta, "junction")
+    if amph_meta is not None:
+        check_mphf_table(amph_rows, amph_f, amph_arows, amph_meta, "anchor")
     memo[key] = ix
     return ix

@@ -4,8 +4,10 @@ Counterpart of dbgtpu/engine/core.py _closure_member, _st_member /
 _st_member_positions and the choice between them (align_batch
 :1033-1051): closure probes into `pt_rows` (one probe answers W
 positions) when the batch holds no N and a probe table exists, exact
-per-position lookups of rep1 and rep2 in `st_fused` otherwise.  The
-kernel is csrc/member.cu; `member_ref` is its plain torch version.
+per-position lookups of rep1 and rep2 in the junction table otherwise
+(`st_fused`, or under the mphf layout the MPHF slot and the stored-key
+verify in `mph_jrows`; core.py:434-435, 454-456).  The kernel is
+csrc/member.cu; `member_ref` is its plain torch version.
 
 The kernel's second mode serves exhaustive mode (-b): the one mask
 `inter` of dbgtpu/engine/exhaustive.py:118-148.  Without N it is the
@@ -19,28 +21,41 @@ from __future__ import annotations
 
 import torch
 
-from dbgtpu.index.device import PT_SLOTS
-
+from ..index.device import PT_SLOTS
 from ..kernels import build
-from .index import LOOKUP_CHUNK, IndexTensors
+from .index import LOOKUP_CHUNK, IndexTensors, c_index_arg
 from .kmer import M32, as_i32, mix32_ref, rcb_ref, split_ref
+from .mphf import _signed32, mphf_rows_ref
 from .read_scan import Scan, unpack_fields
 
 
-def st_member_ref(ix: IndexTensors, keys: torch.Tensor) -> torch.Tensor:
-    """Exact membership of int64 k-mers [B, Lk] in st_fused, LOOKUP_CHUNK
-    positions at a time."""
+def junction_vals_ref(ix: IndexTensors, keys: torch.Tensor):
+    """Junction lookup of canonical int64 (k-1)-mers of any shape, under
+    the index's layout (core._junction_vals): (found bool, vals8 int64
+    [..., 8] = 4 left + 4 right id slots; meaningful where found)."""
+    if ix.mph_meta is not None:
+        found, row = mphf_rows_ref(ix.mph_rows, ix.mph_f, ix.mph_jrows,
+                                   ix.mph_meta, keys)
+        return found, _signed32(row[..., 2:10])
     S = ix.st_slots
-    nbm = ix.st_fused.shape[0] - 1
+    hi, lo = split_ref(keys)
+    row = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo)
+                      & (ix.st_fused.shape[0] - 1)]
+    ok = (row[..., :S] == as_i32(hi)[..., None]) & (
+        row[..., S : 2 * S] == as_i32(lo)[..., None])
+    vals = row[..., 2 * S :].reshape(ok.shape + (8,)).to(torch.int64) & M32
+    vals8 = torch.where(ok[..., None], vals, 0).sum(dim=-2) & M32
+    return ok.any(dim=-1), _signed32(vals8)
+
+
+def st_member_ref(ix: IndexTensors, keys: torch.Tensor) -> torch.Tensor:
+    """Exact membership of int64 k-mers [B, Lk] in the junction table,
+    LOOKUP_CHUNK positions at a time."""
     out = torch.empty(keys.shape, dtype=torch.bool, device=keys.device)
     chunk = LOOKUP_CHUNK
     for c0 in range(0, keys.shape[1], chunk):
-        hi, lo = split_ref(keys[:, c0 : c0 + chunk])
-        row = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo) & nbm]
-        ok = (row[..., :S] == as_i32(hi)[..., None]) & (
-            row[..., S : 2 * S] == as_i32(lo)[..., None]
-        )
-        out[:, c0 : c0 + chunk] = ok.any(dim=-1)
+        out[:, c0 : c0 + chunk] = junction_vals_ref(
+            ix, keys[:, c0 : c0 + chunk])[0]
     return out
 
 
@@ -139,7 +154,7 @@ def _member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
         return member_ref(ix, scan, lens, L=L, k1=k1)
     if dev.type != "cuda":
         raise ValueError(f"no member kernel for device {dev}")
-    if ix.st_fused.device != dev or lens.device != dev:
+    if lens.device != dev:
         raise ValueError("index, scan and lens must share a device")
     if lens.dtype != torch.int32:
         raise TypeError("lens must be int32")
@@ -150,14 +165,12 @@ def _member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
     m2 = None if exhaustive else torch.empty_like(m1)
     if B:
         lib = build.load()
+        cix_ptr = c_index_arg(ix, dev)
         err = lib.dbg_member(
             scan.rep1.data_ptr(), scan.le1.data_ptr(), scan.rep2.data_ptr(),
             scan.bug.data_ptr(), int(exhaustive),
             scan.rows[0].data_ptr(), scan.rows.shape[2], lens.data_ptr(), B,
-            L, k1, ix.st_fused.data_ptr(), ix.st_fused.shape[0],
-            ix.st_fused.shape[1], ix.st_seed, ix.pt_rows.data_ptr(),
-            ix.pt_rows.shape[0], ix.pt_rows.shape[1], ix.pt_seed, PT_SLOTS,
-            scan.has_n.data_ptr(), m1.data_ptr(),
+            L, k1, cix_ptr, scan.has_n.data_ptr(), m1.data_ptr(),
             None if m2 is None else m2.data_ptr(), build.stream_ptr(dev),
         )
         build.check(err, "member")

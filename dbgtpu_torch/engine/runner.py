@@ -4,30 +4,30 @@ exhaustive modes).
 
 Parsed reads are packed into batches (2-bit words + N bits, native C
 packer when available), each batch is mapped by
-core.align_batch_packed on the device, and the fused result rows are
-unpacked in input order.  Rows whose true path length exceeds the
-batch's pmax are recomputed exactly on the host by the executable spec
-of the mode (dbgtpu.model, dbgtpu.anchors, dbgtpu.exhaustive) — part
-of the output contract, as in dbgtpu.  There is
+core.align_batch_packed_compact on the device, the host fetches the
+result's meta columns and the populated prefix of its path slots
+(engine/compact.py) and unpacks them in input order.  Rows whose true
+path length exceeds the batch's pmax are recomputed exactly on the host
+by the executable spec of the mode (model.py, anchors.py,
+exhaustive.py) — part of the output contract, as in dbgtpu.  There is
 no other host fallback: a device failure raises.
 
-dbgtpu/engine/runner.py imports JAX, so the small helpers it shares
-with this module are restated here.
+dbgtpu's runner quantises the fetched prefix, fetches speculatively and
+groups dispatches, against recompiles and a slow link; none of that is
+needed here, and the prefix is sliced exactly.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from dbgtpu import native
-from dbgtpu.constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
-from dbgtpu.index.build import UnitigGraph
-from dbgtpu.index.device import DeviceIndex, build_device_index
-from dbgtpu.anchors import align_read_greedy_anchors
-from dbgtpu.exhaustive import align_read_exhaustive
-from dbgtpu.model import align_read_greedy
-
-from .core import align_batch_packed
+from .. import native
+from ..constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
+from ..index.build import UnitigGraph
+from ..index.device import DeviceIndex, build_device_index
+from ..spec import spec_for
+from .compact import compact_counts, expand_compact
+from .core import align_batch_packed_compact
 from .index import index_tensors, to_device
 
 # device-side path-slot bound (offset + signed ids) before the host
@@ -39,15 +39,14 @@ def _pmax_cap(L: int) -> int:
     return max(PMAX_CAP, L // 4)
 
 
-def get_device_index(graph: UnitigGraph) -> DeviceIndex:
-    """The graph's scan-layout DeviceIndex, built once and kept on the
-    graph (the same attribute dbgtpu's runner uses); a graph built in
-    dog mode also gets its anchor table."""
-    di = getattr(graph, "_device_index", None)
-    if di is None:
-        di = build_device_index(graph, layout="scan")
-        graph._device_index = di
-    return di
+def get_device_index(graph: UnitigGraph, layout: str = "scan") -> DeviceIndex:
+    """The graph's DeviceIndex in `layout` ("scan" or "mphf"), built once
+    per layout and kept on the graph; a graph built in dog mode also
+    gets its anchor table."""
+    memo = graph.__dict__.setdefault("_torch_device_index", {})
+    if layout not in memo:
+        memo[layout] = build_device_index(graph, layout=layout)
+    return memo[layout]
 
 
 def _bucket_len(n: int, k: int) -> int:
@@ -107,23 +106,10 @@ def pack_records(parsed, lens_all, s0: int, nb: int, L: int):
     return words, nmbits, blens.astype(np.int32)
 
 
-def spec_for(mode: str, m: int, effort: int, partial: bool):
-    """The executable spec of `mode` for one read: (graph, codes, nm) ->
-    (status, path or None) (runner.align_bulk :213-229)."""
-    if mode == "greedy":
-        return lambda g, codes, nm: align_read_greedy(g, codes, nm, m, effort)
-    if mode == "anchors":
-        return lambda g, codes, nm: align_read_greedy_anchors(
-            g, codes, nm, m, effort)
-    if mode == "exhaustive":
-        return lambda g, codes, nm: align_read_exhaustive(
-            g, codes, nm, m, partial)
-    raise ValueError(f"no device engine for mode {mode!r}")
-
-
 def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
                batch_size: int, device, mode: str = "greedy",
-               partial: bool = False, on_batch=None, xfer=None):
+               partial: bool = False, index_layout: str = "scan",
+               on_batch=None, xfer=None):
     """Mapping of every parsed record in `mode`, input order preserved.
 
     Returns (status int32 [N], path_off int64 [N+1], paths_flat int32):
@@ -132,7 +118,7 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
     called after each batch (the caller formats output there); `xfer`
     collects the batch payload bytes (h2d_bytes, d2h_bytes)."""
     spec = spec_for(mode, m, effort, partial)
-    di = get_device_index(graph)
+    di = get_device_index(graph, index_layout)
     ix = index_tensors(di, device)
     k = graph.k
     N = parsed.n
@@ -151,20 +137,21 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
         pmax = min(_pmax_for(di, L), _pmax_cap(L))
         words, nmbits, blens = pack_records(parsed, lens_all, s0, nb, L)
         xfer["h2d_bytes"] += words.nbytes + nmbits.nbytes + blens.nbytes
-        fused = align_batch_packed(
+        meta_d, flat_d = align_batch_packed_compact(
             ix, to_device(words, device), to_device(nmbits, device),
             to_device(blens, device), mode=mode, k=k, m=m, effort=effort,
             L=L, pmax=pmax, partial=partial,
         )
-        out = fused.cpu().numpy()
-        xfer["d2h_bytes"] += out.nbytes
+        meta = meta_d.cpu().numpy()
+        counts = compact_counts(meta, pmax)
+        prefix = flat_d[: int(counts.sum())].cpu().numpy()
+        xfer["d2h_bytes"] += meta.nbytes + prefix.nbytes
 
-        status = out[:, 0].astype(np.int32)
-        plen = out[:, 1].astype(np.int32)
+        status = meta[:, 0].astype(np.int32)
+        plen = meta[:, 1].astype(np.int32)
         aligned = (status == STATUS_ALIGNED_FWD) | (status == STATUS_ALIGNED_RC)
         over = aligned & (plen > pmax)
-        paths = out[:, 2:].astype(np.int32)
-        counts = np.where(aligned, np.minimum(plen, pmax), 0)
+        paths = expand_compact(meta, prefix, pmax).astype(np.int32)
         if di.id_inv is not None:
             # renumbered device ids -> file-order ids (slot 0 is the
             # offset; overflow rows are recomputed with file-order ids)

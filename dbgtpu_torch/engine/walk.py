@@ -1,8 +1,8 @@
 """K3 greedy_walk: the greedy junction walk from per-anchor inits.
 
 Counterpart of dbgtpu/engine/core.py _run_walks in its general form
-(bookkeep, junction, final flush), with _junction_probe, the scan
-branch of _junction_vals and _window_miss.  A walk starts from one
+(bookkeep, junction, final flush), with _junction_probe, _junction_vals
+(either index layout) and _window_miss.  A walk starts from one
 initial state per anchor (`Inits`, core.py:1112-1128): greedy mode is
 the special case (LEFT at the anchor, budget m, nothing preloaded) whose
 anchors are the first / last E junction hits of the scan
@@ -19,26 +19,26 @@ from typing import NamedTuple
 
 import torch
 
-from dbgtpu.constants import (
+from ..constants import (
     STATUS_ALIGNED_FWD,
     STATUS_ALIGNED_RC,
     STATUS_FAILED,
     STATUS_NO_OVERLAP_FWD,
     STATUS_RC_NO_OVERLAP,
 )
-
 from ..kernels import build
 from .index import (
     C_BEG_HI, C_BEG_LO, C_END_HI, C_END_LO, C_RCB_HI, C_RCB_LO, C_RCE_HI,
-    C_RCE_LO, C_ULEN, C_UOFF, META_COLS, IndexTensors,
+    C_RCE_LO, C_ULEN, C_UOFF, META_COLS, IndexTensors, c_index_arg,
 )
-from .kmer import M32, as_i32, mix32_ref, rcb_ref, split_ref
+from .kmer import M32, rcb_ref
+from .member import junction_vals_ref
 from .read_scan import Scan, unpack_fields
 
 # walk phases (core.py _FETCH .. _DONE)
 FETCH, LEFT, RFIRST, RCONT, DONE = 0, 1, 2, 3, 4
 BIG = 1 << 30
-CHUNK_SHIFT = 7            # log2(dbgtpu.index.device.CHUNK_BASES)
+CHUNK_SHIFT = 7            # log2(index.device.CHUNK_BASES)
 
 
 class Walks(NamedTuple):
@@ -160,18 +160,10 @@ def junction_probe_ref(ix: IndexTensors, mL, mRF, cur, pos, lens, rcodes,
     B = cur.shape[0]
     rc = rcb_ref(cur, k1)
     is_canon = cur <= rc
-    hi, lo = split_ref(torch.where(is_canon, cur, rc))
-    S = ix.st_slots
-    frow = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo)
-                       & (ix.st_fused.shape[0] - 1)]
-    ok = (frow[:, :S] == as_i32(hi)[:, None]) & (
-        frow[:, S : 2 * S] == as_i32(lo)[:, None])
-    vals = frow[:, 2 * S :].reshape(B, S, 8).to(torch.int64) & M32
-    vals8 = torch.where(ok[..., None], vals, 0).sum(dim=1) & M32
-    vals8 = torch.where(vals8 >= 1 << 31, vals8 - (1 << 32), vals8)
+    found, vals8 = junction_vals_ref(ix, torch.where(is_canon, cur, rc))
     use_right = torch.where(mL, is_canon, ~is_canon)
     cands = torch.where(use_right[:, None], vals8[:, 4:8], vals8[:, :4])
-    cands = torch.where(ok.any(dim=1)[:, None], cands, 0)
+    cands = torch.where(found[:, None], cands, 0)
     valid = cands > 0
     meta = ix.umeta[cands.clamp(min=0)].to(torch.int64)   # [B, 4, C]
 
@@ -364,7 +356,7 @@ def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
                         effort=effort, L=L)
     if dev.type != "cuda":
         raise ValueError(f"no greedy_walk kernel for device {dev}")
-    if ix.umeta.device != dev or lens.device != dev:
+    if lens.device != dev:
         raise ValueError("index, scan and lens must share a device")
     if lens.dtype != torch.int32 or member1.dtype != torch.uint8:
         raise TypeError("lens must be int32 and members uint8")
@@ -380,13 +372,11 @@ def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
     rbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
     if B:
         lib = build.load()
+        cix_ptr = c_index_arg(ix, dev)
         err = lib.dbg_greedy_walk(
             member1.data_ptr(), member2.data_ptr(), scan.bug.data_ptr(),
             scan.rcs.data_ptr(), lens.data_ptr(), scan.rows.data_ptr(), B,
-            Lk, scan.rows.shape[2], ix.st_fused.data_ptr(),
-            ix.st_fused.shape[0], ix.st_fused.shape[1], ix.st_seed,
-            ix.umeta.data_ptr(), ix.umeta.shape[1], ix.pool_rows.data_ptr(),
-            ix.pool_rows.shape[1], ix.n_chunks, k, m, effort,
+            Lk, scan.rows.shape[2], cix_ptr, k, m, effort,
             max_iters_for(effort, L), P,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
@@ -407,7 +397,7 @@ def walk_inits(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
         return walk_inits_ref(ix, rows, lens, inits, k=k, L=L)
     if dev.type != "cuda":
         raise ValueError(f"no walk_inits kernel for device {dev}")
-    if ix.umeta.device != dev or lens.device != dev:
+    if lens.device != dev:
         raise ValueError("index, rows and lens must share a device")
     if lens.dtype != torch.int32 or inits.planes.dtype != torch.int64:
         raise TypeError("lens must be int32 and the init planes int64")
@@ -424,12 +414,10 @@ def walk_inits(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
     rbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
     if B:
         lib = build.load()
+        cix_ptr = c_index_arg(ix, dev)
         err = lib.dbg_walk_inits(
             planes.data_ptr(), n.data_ptr(), lens.data_ptr(), rows.data_ptr(),
-            B, RWr, ix.st_fused.data_ptr(), ix.st_fused.shape[0],
-            ix.st_fused.shape[1], ix.st_seed, ix.umeta.data_ptr(),
-            ix.umeta.shape[1], ix.pool_rows.data_ptr(),
-            ix.pool_rows.shape[1], ix.n_chunks, k, E, max_iters_for(E, L), P,
+            B, RWr, cix_ptr, k, E, max_iters_for(E, L), P,
             out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
             out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
             rbuf.data_ptr(), build.stream_ptr(dev),

@@ -3,14 +3,22 @@
 `nvcc` compiles every `dbgtpu_torch/csrc/*.cu` for sm_90a into one
 shared library (one nvcc process per source, all started together,
 then one link) with a plain C interface under `build/dbgtpu_torch/` at
-the repository root (see `_build_dir` for an installed copy), at first use, and again whenever a source changes
-(the library name carries a hash of the sources).  The library is bound
+the repository root (see `_build_dir` for an installed copy), at first
+use, and again whenever a source changes (the library name carries a
+hash of the sources).  The library is bound
 with ctypes: pointers and the stream are passed as `c_void_p`.  Every C
 entry point returns `cudaGetLastError()` from right after its launch,
 and `check` raises when it is not 0.
 
 Each kernel has a plain-integer launch counter in `launches`; a wrapper
-adds one where it launches its kernel and nowhere else.
+adds one where it launches its kernel and nowhere else.  `mphf_slots`
+counts launches of K7's standalone kernel only (the check of each MPHF
+table at upload, engine/mphf.py check_mphf_table); the mapping kernels
+run the same device function (csrc/mphf.cuh) inline under an MPHF
+layout and count as themselves.
+The device index goes to the kernels as one struct (`IndexC`, csrc/common.cuh
+`dbg::Index`), passed by pointer to the C entry point and by value to
+the kernel; `load` checks that both sides agree on its size.
 
 Nothing here runs at import time: the CPU tests import every module,
 and a machine without the CUDA toolkit has no `nvcc`.
@@ -48,33 +56,72 @@ NVCC_FLAGS = [
 ]
 
 KERNELS = ("read_scan", "member", "greedy_walk", "walk_inits", "pack_paths",
-           "dog_anchors", "exhaustive_dfs")
+           "dog_anchors", "exhaustive_dfs", "mphf_slots", "compact_result")
 launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_LL = ctypes.c_longlong
 _ARGTYPES = {
     "dbg_read_scan": [_P, _I, _P, _I, _P, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _P, _P],
     "dbg_member": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
-                   _P, _I, _I, _U, _P, _I, _I, _U, _I,
-                   _P, _P, _P, _P],
+                   _P, _P, _P, _P, _P],
     "dbg_greedy_walk": [_P, _P, _P, _P, _P, _P, _I, _I, _I,
-                        _P, _I, _I, _U, _P, _I, _P, _I, _I,
-                        _I, _I, _I, _I, _I,
+                        _P, _I, _I, _I, _I, _I,
                         _P, _P, _P, _P, _P, _P, _P, _P],
     "dbg_walk_inits": [_P, _P, _P, _P, _I, _I,
-                       _P, _I, _I, _U, _P, _I, _P, _I, _I,
-                       _I, _I, _I, _I,
+                       _P, _I, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P],
     "dbg_pack_paths": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
-    "dbg_dog_anchors": [_P, _I, _I, _P, _P, _I, _I, _U,
-                        _P, _I, _P, _I, _I, _I, _I, _I,
-                        _P, _P, _P],
+    "dbg_dog_anchors": [_P, _I, _I, _P, _P, _I, _I, _I, _P, _P, _P],
     "dbg_exhaustive_dfs": [_P, _P, _P, _P, _I, _I, _I,
-                           _P, _I, _I, _U, _P, _I, _P, _I, _I,
-                           _I, _I, _I, _I,
+                           _P, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P],
+    "dbg_mphf_slots": [_P, _P, _P, _P, _LL, _P, _P],
+    "dbg_compact_result": [_P, _I, _I, _I, _P, _P, _P, _P],
 }
+
+MPHF_MAX_LEVELS = 25    # csrc/common.cuh; index/mphf.py build_mphf's cap
+COMPACT_TILE = 256      # csrc/compact.cu kTile: rows per block
+
+
+class MphfMetaC(ctypes.Structure):
+    """csrc/common.cuh dbg::MphfMeta."""
+    _fields_ = [
+        ("n_levels", ctypes.c_int32),
+        ("has_final", ctypes.c_int32),
+        ("final_mask", ctypes.c_uint32),
+        ("n_keys", ctypes.c_int32),
+        ("seed_hi", ctypes.c_uint32 * MPHF_MAX_LEVELS),
+        ("seed_lo", ctypes.c_uint32 * MPHF_MAX_LEVELS),
+        ("mask", ctypes.c_uint32 * MPHF_MAX_LEVELS),
+        ("row_off", ctypes.c_int32 * MPHF_MAX_LEVELS),
+    ]
+
+
+class MphfC(ctypes.Structure):
+    """csrc/common.cuh dbg::Mphf."""
+    _fields_ = [
+        ("rows", _P), ("frows", _P), ("vrows", _P), ("meta", MphfMetaC),
+    ]
+
+
+class IndexC(ctypes.Structure):
+    """csrc/common.cuh dbg::Index."""
+    _fields_ = [
+        ("st", _P), ("umeta", _P), ("pool", _P), ("pt", _P), ("at", _P),
+        ("st_nb", ctypes.c_int32), ("st_cols", ctypes.c_int32),
+        ("st_seed", ctypes.c_uint32),
+        ("ucols", ctypes.c_int32),
+        ("pool_cols", ctypes.c_int32), ("n_chunks", ctypes.c_int32),
+        ("pt_nb", ctypes.c_int32), ("pt_cols", ctypes.c_int32),
+        ("pt_seed", ctypes.c_uint32), ("pt_slots", ctypes.c_int32),
+        ("at_nb", ctypes.c_int32), ("at_cols", ctypes.c_int32),
+        ("at_seed", ctypes.c_uint32),
+        ("jl_mphf", ctypes.c_int32), ("al_mphf", ctypes.c_int32),
+        ("jm", MphfC), ("am", MphfC),
+    ]
+
 
 _lib: ctypes.CDLL | None = None
 _lock = threading.Lock()
@@ -172,6 +219,17 @@ def load() -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             lib.dbg_error_string.argtypes = [ctypes.c_int]
             lib.dbg_error_string.restype = ctypes.c_char_p
+            for fn, ours in ((lib.dbg_sizeof_index, IndexC),
+                             (lib.dbg_sizeof_mphf_meta, MphfMetaC)):
+                fn.argtypes, fn.restype = [], ctypes.c_int
+                if fn() != ctypes.sizeof(ours):
+                    raise RuntimeError(
+                        f"{ours.__name__} is {ctypes.sizeof(ours)} bytes "
+                        f"here and {fn()} in the kernel library")
+            lib.dbg_compact_tile.argtypes = []
+            lib.dbg_compact_tile.restype = ctypes.c_int
+            if lib.dbg_compact_tile() != COMPACT_TILE:
+                raise RuntimeError("COMPACT_TILE differs from csrc/compact.cu")
             _lib = lib
         return _lib
 

@@ -1,11 +1,12 @@
 """End-to-end mapping on one torch device: parse -> align -> format
 (counterpart of dbgtpu/pipeline.py run_pipeline and _run_file_bulk for
-the greedy, anchor (-G) and exhaustive (-b, -i) modes and the scan
-index layout).
+the greedy, anchor (-G) and exhaustive (-b, -i) modes and both index
+layouts).
 
-Parsing, graph build and output formatting are dbgtpu's own (native C
-where available); only the alignment runs in this package.  Output
-bytes equal dbgtpu's `run_pipeline` with `impl="python"` or `"jax"`.
+Parsing, graph build and output formatting are this package's copies
+of dbgtpu's host modules (native C where available).  Output bytes
+equal dbgtpu's `run_pipeline` with `impl="python"` or `"jax"`, and this
+package's own spec pipeline (spec.py).
 """
 
 from __future__ import annotations
@@ -16,19 +17,18 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from dbgtpu import native
-from dbgtpu.constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
-from dbgtpu.index.build import UnitigGraph, build_graph
-from dbgtpu.index.device import hbm_report
-from dbgtpu.pipeline import _CHARS, RunStats, _count_stats, _format_outputs
-
+from . import native
+from .constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
 from .engine.index import index_tensors
 from .engine.runner import align_bulk, get_device_index
+from .index.build import UnitigGraph, build_graph
+from .index.device import hbm_report
+from .spec import _CHARS, RunStats, _count_stats, _format_outputs
 
 
 @dataclass
 class TorchRunStats(RunStats):
-    """dbgtpu's RunStats plus the port's phase split.  The phases below
+    """RunStats plus the port's phase split.  The phases below
     lie inside map_seconds, as the device index build and upload do in
     dbgtpu."""
 
@@ -56,7 +56,7 @@ def _sync(device: torch.device) -> None:
 
 
 def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
-              mode, partial, stats, paths_out, na_out):
+              mode, partial, index_layout, stats, paths_out, na_out):
     t = time.monotonic()
     parsed = native.parse_reads(rf, graph.k, fastq)
     stats.parse_seconds += time.monotonic() - t
@@ -95,7 +95,8 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
     t = time.monotonic()
     status, path_off, flat = align_bulk(
         graph, parsed, m, effort, batch_size=batch_size, device=device,
-        mode=mode, partial=partial, on_batch=on_batch, xfer=xfer,
+        mode=mode, partial=partial, index_layout=index_layout,
+        on_batch=on_batch, xfer=xfer,
     )
     stats.align_seconds += time.monotonic() - t
     stats.payload_h2d_bytes += xfer["h2d_bytes"]
@@ -125,14 +126,17 @@ def run_pipeline(
     device="cuda",
     mode: str = "greedy",
     partial: bool = False,
+    index_layout: str = "scan",
 ):
     """Returns (paths_bytes, not_aligned_bytes, TorchRunStats).
 
     `device` is where the kernels run: a CUDA device, or "cpu" for the
     plain torch versions of the kernels (tests and small runs).  `mode`
     is "greedy", "anchors" (-G) or "exhaustive" (-b); `partial` (-i)
-    applies to exhaustive mode.  A graph passed in for anchor mode must
-    be built with dog_mode=True."""
+    applies to exhaustive mode.  `index_layout` is "scan" or "mphf"
+    (the compact MPHF junction table, and MPHF dog anchors at any size).
+    A graph passed in for anchor mode must be built with
+    dog_mode=True."""
     device = torch.device(device)
     stats = TorchRunStats(device=str(device))
     t0 = time.monotonic()
@@ -141,7 +145,7 @@ def run_pipeline(
     stats.index_seconds = time.monotonic() - t0
 
     t1 = time.monotonic()
-    di = get_device_index(graph)
+    di = get_device_index(graph, index_layout)
     stats.device_index_seconds = time.monotonic() - t1
     t = time.monotonic()
     index_tensors(di, device)
@@ -153,6 +157,7 @@ def run_pipeline(
     na_out: list[bytes] = []
     for rf in reads_files:
         _run_file(graph, rf, m, effort, fastq, correction, batch_size,
-                  device, mode, partial, stats, paths_out, na_out)
+                  device, mode, partial, index_layout, stats, paths_out,
+                  na_out)
     stats.map_seconds = time.monotonic() - t1
     return b"".join(paths_out), b"".join(na_out), stats

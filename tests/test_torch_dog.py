@@ -8,6 +8,10 @@ compile of dog.align_batch_anchors.  k = 32 makes whole 64-bit k-mers,
 whose int64 may be negative (engine/kmer.py)."""
 
 import functools
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -38,10 +42,11 @@ from .torch_parity import (
 _JAX_FIELD = dict(cur0=("cur_hi0", "cur_lo0"), ra=("ra_hi", "ra_lo"))
 
 
-@functools.partial(jax.jit, static_argnames=("k", "m", "E"))
-def _jax_anchor_stage(ix, codes, nmask, lens, *, k, m, E):
-    """align_batch_anchors up to the walk: scan branch of the lookup,
-    first / last E hits, per-anchor inits."""
+@functools.partial(jax.jit, static_argnames=("k", "m", "E", "al_meta"))
+def _jax_anchor_stage(ix, codes, nmask, lens, *, k, m, E, al_meta=None):
+    """align_batch_anchors up to the walk: the lookup (its scan branch,
+    or with `al_meta` its MPHF branch), first / last E hits, per-anchor
+    inits."""
     B, L = codes.shape
     Lw = (L + 15) // 16
     _, _, rwf, rwr, nmw = core._read_images(codes, nmask, lens, 2 * Lw + 1)
@@ -49,7 +54,7 @@ def _jax_anchor_stage(ix, codes, nmask, lens, *, k, m, E):
     rhi, rlo = rcb_pair(fhi, flo, k)
     le_f = pair_le(fhi, flo, rhi, rlo)
     keys = (jnp.where(le_f, fhi, rhi), jnp.where(le_f, flo, rlo))
-    lookup = dog._anchor_lookup(ix, *keys)
+    lookup = dog._anchor_lookup(ix, *keys, al_meta)
     member, uid, upos, ucan = lookup
     col = jnp.arange(L - k + 1, dtype=jnp.int32)[None, :]
     member = member & (col <= (lens - k)[:, None])
@@ -66,14 +71,11 @@ def _jax_anchor_stage(ix, codes, nmask, lens, *, k, m, E):
     return keys, lookup, (ini_f, ini_r), (n_f, n_r)
 
 
-@pytest.mark.parametrize("seed,k,m,effort,n_frac,variant,kw", [
-    (61, 15, 0, 2, 0.0, "embedded", dict(min_unitig=15, max_unitig=60)),
-    (62, 21, 1, 3, 0.2, "embedded", {}),
-    (63, 31, 2, 2, 0.1, "pool", {}),
-    (64, 32, 2, 2, 0.1, "embedded", {}),
-])
-def test_plain_k5_and_anchor_batch_match_jax(seed, k, m, effort, n_frac,
-                                             variant, kw):
+def check_k5_and_anchor_batch_match_jax(seed, k, m, effort, n_frac, variant,
+                                        kw):
+    """dog_anchors_ref and align_batch(mode="anchors") against the JAX
+    anchor stage and dog.align_batch_anchors on one dataset, under the
+    index `variant`; the MPHF variants pass core's jl_meta / al_meta."""
     graph, reads = dataset(seed=seed, k=k, n_reads=48, n_frac=n_frac,
                            genome_len=8000, dog_mode=True, **kw)
     rng = np.random.default_rng(seed)
@@ -83,14 +85,18 @@ def test_plain_k5_and_anchor_batch_match_jax(seed, k, m, effort, n_frac,
     di = device_index(graph, variant)
     ix = index_tensors(di, "cpu")
     jx = core.index_to_device(di)
+    jl_meta, al_meta = core.jl_meta_of(di), core.al_meta_of(di)
+    assert (al_meta is not None) == (ix.amph_meta is not None)
+    assert (jl_meta is not None) == (ix.mph_meta is not None)
     L = 112
     codes, nm, lens, words, nmbits = batch(reads, L)
     scan = read_scan_ref(t32(words), t32(nmbits), t32(lens), L=L, k1=k - 1)
     j_keys, j_lookup, j_inits, j_n = _jax_anchor_stage(
         jx, jnp.asarray(codes), jnp.asarray(nm), jnp.asarray(lens), k=k, m=m,
-        E=effort)
+        E=effort, al_meta=al_meta)
 
-    # the lookup (dog._anchor_lookup, scan branch) on every read k-mer
+    # the lookup (dog._anchor_lookup, the index's branch) on every read
+    # k-mer
     keys = join(*j_keys)
     member, uid, upos, ucan = anchor_lookup_ref(ix, torch.from_numpy(keys))
     f = _scan(torch.from_numpy(codes.astype(np.int64)), k)
@@ -129,10 +135,79 @@ def test_plain_k5_and_anchor_batch_match_jax(seed, k, m, effort, n_frac,
                       k=k, m=m, effort=effort, L=L)
     want = dog.align_batch_anchors(
         jx, jnp.asarray(codes), jnp.asarray(nm), jnp.asarray(lens), k=k,
-        m=m, effort=effort, pmax=0)
+        m=m, effort=effort, pmax=0, jl_meta=jl_meta, al_meta=al_meta)
     assert_walks_equal(got, want)
     status = got.status.numpy()
     assert (status == 1).any() and (status == 3).any()
+
+
+@pytest.mark.parametrize("seed,k,m,effort,n_frac,variant,kw", [
+    (61, 15, 0, 2, 0.0, "embedded", dict(min_unitig=15, max_unitig=60)),
+    (62, 21, 1, 3, 0.2, "embedded", {}),
+    (63, 31, 2, 2, 0.1, "pool", {}),
+    (64, 32, 2, 2, 0.1, "embedded", {}),
+])
+def test_plain_k5_and_anchor_batch_match_jax(seed, k, m, effort, n_frac,
+                                             variant, kw):
+    check_k5_and_anchor_batch_match_jax(seed, k, m, effort, n_frac, variant,
+                                        kw)
+
+
+@pytest.mark.parametrize("variant", ["mphf", "anchor_mphf"])
+def test_plain_k5_mphf_anchor_layout_matches_jax(variant):
+    """K5's plain version and the anchors batch on an index with MPHF
+    anchors, against dog._anchor_lookup / _dog_inits / align_batch_anchors
+    called with al_meta_of(di) (and jl_meta_of(di) under the mphf junction
+    layout).  In a process of its own: compiling the dog-mphf program
+    inside a long suite process crashes XLA's CPU backend
+    (tests/test_modes.py test_dog_mphf_anchor_layout_byte_parity)."""
+    root = Path(__file__).resolve().parents[1]
+    code = ("from tests.test_torch_dog import "
+            "check_k5_and_anchor_batch_match_jax as check; "
+            f"check(67, 21, 1, 3, 0.2, {variant!r}, {{}}); "
+            f"check(68, 32, 2, 2, 0.1, {variant!r}, {{}}); print('equal')")
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=root, capture_output=True,
+        text=True, timeout=900,
+        env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=str(root)))
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip().endswith("equal")
+
+
+@pytest.mark.parametrize("variant", ["mphf", "anchor_mphf"])
+@pytest.mark.parametrize("seed,k,n_frac", [(62, 21, 0.2), (64, 32, 0.1)])
+def test_plain_k5_mphf_anchor_layout_matches_scan(variant, seed, k, n_frac):
+    """The MPHF anchor layout (under the mphf junction layout, and beside
+    a scan junction table) gives the inits and walks of the scan layout,
+    which the test above holds against JAX; the MPHF lookup itself is
+    held against dog._anchor_lookup(al_meta) in test_torch_mphf.py, and
+    the whole -G run against `--impl jax` in test_torch_slice.py."""
+    graph, reads = dataset(seed=seed, k=k, n_reads=48, n_frac=n_frac,
+                           genome_len=8000, dog_mode=True)
+    reads = [r if i % 5 else r[: k + 3] for i, r in enumerate(reads)]
+    L, m, effort = 112, 2, 3
+    _, _, lens, words, nmbits = batch(reads, L)
+    scan = read_scan_ref(t32(words), t32(nmbits), t32(lens), L=L, k1=k - 1)
+    ix_scan = index_tensors(device_index(graph, "embedded"), "cpu")
+    ix = index_tensors(device_index(graph, variant), "cpu")
+    assert ix_scan.amph_meta is None and ix.amph_meta is not None
+    assert (ix.mph_meta is not None) == (variant == "mphf")
+    assert tuple(ix.at_fused.shape) == (0, 160) and ix.has_anchors
+    kw = dict(k=k, m=m, effort=effort, L=L)
+    want = dog_anchors_ref(ix_scan, scan.rows, t32(lens), **kw)
+    got = dog_anchors(ix, scan.rows, t32(lens), **kw)
+    assert torch.equal(got.n_f, want.n_f) and torch.equal(got.n_r, want.n_r)
+    for o, n in enumerate((want.n_f, want.n_r)):
+        used = torch.arange(effort)[None, :] < n[:, None]
+        assert torch.equal(got.planes[:, o][:, used],
+                           want.planes[:, o][:, used])
+    assert (want.n_f > 0).any()
+    args = (t32(words), t32(nmbits), t32(lens))
+    w_got = align_batch(ix, *args, mode="anchors", **kw)
+    w_want = align_batch(ix_scan, *args, mode="anchors", **kw)
+    assert_walks_equal(w_got, {f: getattr(w_want, f).numpy()
+                               for f in w_want._fields})
+    assert (w_got.status == 1).any()
 
 
 def test_k5_refuses_an_index_without_anchors():

@@ -1,6 +1,6 @@
 """K2's exhaustive mode and K6 exhaustive_dfs (-b, -i): the port's plain
 versions against dbgtpu's JAX engine on the CPU and its python spec,
-exact.
+exact, under the scan and the mphf junction layouts.
 
 Per case one jitted composition of the JAX `inter` mask
 (exhaustive.py:109-148) and one compile of align_batch_exhaustive.
@@ -30,8 +30,8 @@ from . import synth
 from .torch_parity import assert_walks_equal, batch, dataset, device_index, t32
 
 
-@functools.partial(jax.jit, static_argnames=("k",))
-def _jax_inter(ix, codes, nmask, lens, *, k):
+@functools.partial(jax.jit, static_argnames=("k", "jl_meta"))
+def _jax_inter(ix, codes, nmask, lens, *, k, jl_meta=None):
     """The interesting-anchor mask of align_batch_exhaustive."""
     B, L = codes.shape
     k1 = k - 1
@@ -54,7 +54,7 @@ def _jax_inter(ix, codes, nmask, lens, *, k):
         rbh, rbl = rcb_pair(bug_hi, bug_lo, k1)
         le = pair_le(bug_hi, bug_lo, rbh, rbl)
         return core._st_member_positions(ix, jnp.where(le, bug_hi, rbh),
-                                         jnp.where(le, bug_lo, rbl))
+                                         jnp.where(le, bug_lo, rbl), jl_meta)
 
     if ix.pt_rows.shape[0] > 0:
         def _fast():
@@ -95,6 +95,10 @@ def _n_on_junctions(ix, reads, k: int, L: int) -> list[bytes]:
     (83, 31, 2, 0.0, "embedded", False, {}),
     (84, 21, 2, 0.1, "probeless", True, {}),
     (85, 15, 1, 0.0, "pool", False, dict(min_unitig=15, max_unitig=60)),
+    # the mphf junction layout: the mask's per-position MPHF branch (N)
+    # and the DFS's junction probes through the MPHF
+    (87, 21, 2, 0.2, "mphf", False, {}),
+    (88, 21, 1, 0.1, "mphf_probeless", True, {}),
 ])
 def test_plain_k6_and_exhaustive_batch_match_jax(seed, k, m, n_frac, variant,
                                                  partial, kw):
@@ -107,6 +111,8 @@ def test_plain_k6_and_exhaustive_batch_match_jax(seed, k, m, n_frac, variant,
     di = device_index(graph, variant)
     ix = index_tensors(di, "cpu")
     jx = core.index_to_device(di)
+    jl = core.jl_meta_of(di)
+    assert (ix.mph_meta is not None) == variant.startswith("mphf")
     L = 112
     k1 = k - 1
     if n_frac:
@@ -119,7 +125,8 @@ def test_plain_k6_and_exhaustive_batch_match_jax(seed, k, m, n_frac, variant,
     # K2's exhaustive mode
     mask = inter_ref(ix, scan, t32(lens), L=L, k1=k1)
     want_mask = np.asarray(_jax_inter(jx, jnp.asarray(codes),
-                                      jnp.asarray(nm), jnp.asarray(lens), k=k))
+                                      jnp.asarray(nm), jnp.asarray(lens), k=k,
+                                      jl_meta=jl))
     np.testing.assert_array_equal(mask.numpy().astype(bool), want_mask)
     assert torch.equal(inter(ix, scan, t32(lens), L=L, k1=k1), mask)
     if n_frac:
@@ -135,7 +142,7 @@ def test_plain_k6_and_exhaustive_batch_match_jax(seed, k, m, n_frac, variant,
     assert got.lbuf.shape == (len(reads), depth_for(L, k))
     want = exhaustive.align_batch_exhaustive(
         jx, jnp.asarray(codes), jnp.asarray(nm), jnp.asarray(lens), k=k, m=m,
-        partial=partial, pmax=0)
+        partial=partial, pmax=0, jl_meta=jl)
     assert_walks_equal(got, want)
     again = exhaustive_dfs(ix, scan, mask, t32(lens), k=k, m=m,
                            partial=partial, L=L)

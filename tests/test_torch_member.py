@@ -1,6 +1,6 @@
 """K2 member: the port's plain version against the JAX engine's
-_closure_member (window 4 and window 3) and _st_member_positions, on
-the CPU, exact."""
+_closure_member (window 4 and window 3) and _st_member_positions (scan
+and mphf junction layouts), on the CPU, exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -31,7 +31,8 @@ def _setup(seed, k, n_frac, variant, L=112):
 
 
 @pytest.mark.parametrize("variant,window", [("embedded", 3),
-                                            ("window4", 4)])
+                                            ("window4", 4),
+                                            ("mphf", 3)])
 @pytest.mark.parametrize("k", [21, 31])
 def test_closure_member_matches_jax(variant, window, k):
     di, codes, lens, scan, valid = _setup(30 + k, k, 0.0, variant)
@@ -54,16 +55,22 @@ def test_closure_member_matches_jax(variant, window, k):
 
 @pytest.mark.parametrize("variant,n_frac", [("embedded", 0.3),
                                             ("probeless", 0.3),
-                                            ("probeless", 0.0)])
+                                            ("probeless", 0.0),
+                                            ("mphf", 0.3),
+                                            ("mphf_probeless", 0.3),
+                                            ("mphf_probeless", 0.0)])
 def test_exact_member_matches_jax(variant, n_frac):
     k = 21
     di, _, lens, scan, valid = _setup(40, k, n_frac, variant)
     ix = index_tensors(di, "cpu")
     assert bool(scan.has_n.item()) == bool(n_frac)
+    assert (ix.mph_meta is not None) == variant.startswith("mphf")
     m1, m2 = member_ref(ix, scan, lens, L=112, k1=k - 1)
     jx = core.index_to_device(di)
-    want1 = np.asarray(core._st_member_positions(jx, *_split(scan.rep1)))
-    want2 = np.asarray(core._st_member_positions(jx, *_split(scan.rep2)))
+    jl = core.jl_meta_of(di)
+    want1 = np.asarray(core._st_member_positions(jx, *_split(scan.rep1), jl))
+    want2 = np.asarray(core._st_member_positions(jx, *_split(scan.rep2), jl))
+    assert want1.any()
     np.testing.assert_array_equal(m1.numpy().astype(bool), want1 & valid)
     np.testing.assert_array_equal(m2.numpy().astype(bool), want2 & valid)
     # the rolled-in-N quirk makes rep1 differ from the std canonical

@@ -1,8 +1,12 @@
 """The dbgtpu_torch slice end to end on the CPU (the kernels' plain
-versions): output bytes against dbgtpu's python spec and JAX engine,
-the CLI, the refused flags, and that the port runs without JAX."""
+versions): output bytes against dbgtpu's python spec and JAX engine
+under both index layouts, the CLI, the refused flags, and that the port
+runs without JAX and without dbgtpu."""
 
+import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -113,11 +117,16 @@ def test_cli_writes_dbgtpu_outputs(tmp_path, monkeypatch, capsys):
     # dbgtpu's precedence: -b wins over -G, -i affects only -b
     (["-G", "-b", "-i"], "exhaustive", True),
     (["-i"], "greedy", False),
+    (["--index-layout", "mphf"], "greedy", False),
+    (["-G", "--index-layout", "mphf"], "anchors", False),
+    (["-b", "--index-layout", "mphf"], "exhaustive", False),
+    (["-b", "-i", "--index-layout", "mphf"], "exhaustive", True),
 ])
 def test_cli_runs_anchor_and_exhaustive_modes(tmp_path, monkeypatch, flags,
                                               mode, partial):
-    """-G, -b and -b -i through cli.main on the CPU: bytes equal to
-    dbgtpu's spec in the same mode."""
+    """-G, -b and -b -i through cli.main on the CPU, under the scan and
+    the mphf index layout: bytes equal to dbgtpu's spec in the same
+    mode."""
     rf, uf = _files(tmp_path, 76, 21, 64, n_frac=0.1)
     monkeypatch.chdir(tmp_path)
     assert cli.main(["-r", rf, "-k", "21", "-g", uf, "-m", "2",
@@ -129,23 +138,68 @@ def test_cli_runs_anchor_and_exhaustive_modes(tmp_path, monkeypatch, flags,
     assert want[2].aligned > 0
 
 
-def test_cli_refuses_an_mphf_anchor_index(tmp_path, monkeypatch, capsys):
-    """-G on a dog keyset that takes the MPHF anchor layout exits 2 and
-    names the layout and the anchor count."""
-    from dbgtpu.index import device as device_mod
+def test_cli_runs_an_mphf_anchor_index(tmp_path, monkeypatch):
+    """-G on a dog keyset that takes the MPHF anchor layout beside a scan
+    junction table (the input the port used to refuse with exit 2) runs
+    and writes dbgtpu's spec bytes."""
+    from dbgtpu_torch.engine.runner import get_device_index
+    from dbgtpu_torch.index import device as device_mod
+    from dbgtpu_torch.index.build import build_graph
 
-    rf, uf = _files(tmp_path, 77, 21, 8)
+    rf, uf = _files(tmp_path, 77, 21, 64, n_frac=0.1)
     monkeypatch.chdir(tmp_path)
     monkeypatch.setattr(device_mod, "ANCHOR_MPHF_MIN", 0)
     assert cli.main(["-r", rf, "-k", "21", "-g", uf, "-G",
-                     "--device", "cpu"]) == 2
-    err = capsys.readouterr().err
-    assert "MPHF anchor layout" in err and "anchors" in err and "B12" in err
-    assert not (tmp_path / "paths").exists()
+                     "--device", "cpu"]) == 0
+    want = dbgtpu_pipeline([rf], uf, k=21, impl="python", mode="anchors")
+    assert (tmp_path / "paths").read_bytes() == want[0]
+    assert (tmp_path / "notAligned.fa").read_bytes() == want[1]
+    assert want[2].aligned > 0
+    di = get_device_index(build_graph(uf, 21, dog_mode=True))
+    assert di.anchor_mphf is not None and di.anchor_scan is None
+    assert di.scan_tbl is not None and di.mphf_junction is None
+
+
+@pytest.mark.parametrize("flags,mode,env_extra", [
+    (["--index-layout", "mphf"], "greedy", {}),
+    (["-G", "--index-layout", "mphf"], "anchors", {}),
+    (["-b", "--index-layout", "mphf"], "exhaustive", {}),
+    # scan junction table, MPHF anchors
+    (["-G"], "anchors", {"DBGTPU_ANCHOR_MPHF_MIN": "1"}),
+])
+def test_cli_mphf_layouts_equal_spec_and_jax_engine(tmp_path, flags, mode,
+                                                    env_extra):
+    """`python -m dbgtpu_torch --device cpu` and `python -m dbgtpu --impl
+    jax` with the same flags and environment, each in a process of its
+    own (the JAX programs of the MPHF layouts are compiled outside the
+    suite's process, as tests/test_modes.py does): both write the bytes
+    of dbgtpu's python spec."""
+    rf, uf = _files(tmp_path, 78, 21, 96, n_frac=0.1)
+    want = dbgtpu_pipeline([rf], uf, k=21, m=2, impl="python", mode=mode)
+    assert want[2].aligned > 0 and want[2].aligned < want[2].read_number
+    env = dict(os.environ, PYTHONPATH=str(ROOT), JAX_PLATFORMS="cpu",
+               CUDA_VISIBLE_DEVICES="", **env_extra)
+    common = ["-r", rf, "-k", "21", "-g", uf, "-m", "2"] + flags
+    for tag, cmd in (
+        ("port", ["-m", "dbgtpu_torch", "--device", "cpu", "--json-summary",
+                  "port.json"]),
+        ("jax", ["-m", "dbgtpu", "--impl", "jax"]),
+    ):
+        res = subprocess.run(
+            [sys.executable, *cmd, *common, "-f", f"p_{tag}", "-a",
+             f"n_{tag}"], env=env, cwd=tmp_path, capture_output=True,
+            text=True, timeout=600)
+        assert res.returncode == 0, (tag, res.stderr[-2000:])
+        assert (tmp_path / f"p_{tag}").read_bytes() == want[0], tag
+        assert (tmp_path / f"n_{tag}").read_bytes() == want[1], tag
+    hbm = json.loads((tmp_path / "port.json").read_text())["index_hbm_bytes"]
+    if mode == "anchors":
+        # MPHF anchors are several times smaller than the scan table's
+        assert 0 < hbm["anchor_table"] < 60 * want[2].read_number * 100
 
 
 @pytest.mark.parametrize("flags", [
-    ["-p"], ["-b", "-p"], ["--index-layout", "mphf"],
+    ["-p"], ["-b", "-p"],
     ["--mesh", "2"], ["--shard-index"], ["--num-processes", "2"],
     ["--coordinator", "localhost:1"], ["--merge-shards", "2"],
     ["--save-index", "x.npz"], ["--load-index", "x.npz"], ["--resume"],
@@ -167,40 +221,68 @@ def test_cli_without_gpu_stops(tmp_path, monkeypatch, capsys):
     assert not (tmp_path / "paths").exists()
 
 
-def test_port_runs_without_jax(tmp_path):
-    """In a process where `import jax` fails, the port imports and maps
-    a small file on the CPU; `python -m dbgtpu_torch` without a GPU
-    exits non-zero."""
+def test_port_runs_without_jax_and_without_dbgtpu(tmp_path):
+    """In a process where `import jax` and `import dbgtpu` fail, the port
+    imports and maps a small file on the CPU under both layouts, and
+    `python -m dbgtpu_torch --device cpu` writes its outputs from a copy
+    of the package alone (no dbgtpu/ directory beside it); without a GPU
+    and without --device cpu it exits non-zero."""
     rf, uf = _files(tmp_path, 75, 21, 16)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['dbgtpu'] = None\n"
         "import dbgtpu_torch, dbgtpu_torch.cli, dbgtpu_torch.pipeline\n"
         "import dbgtpu_torch.engine.core, dbgtpu_torch.kernels.build\n"
+        "import dbgtpu_torch.spec, dbgtpu_torch.native\n"
         "from dbgtpu_torch.pipeline import run_pipeline\n"
-        f"p, n, s = run_pipeline([{rf!r}], {uf!r}, k=21, device='cpu')\n"
-        "assert s.read_number == 16 and len(p) > 0\n"
-        "print('NO-JAX-OK')\n"
+        "for layout in ('scan', 'mphf'):\n"
+        f"    p, n, s = run_pipeline([{rf!r}], {uf!r}, k=21, device='cpu',\n"
+        "                           index_layout=layout)\n"
+        "    assert s.read_number == 16 and len(p) > 0\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'dbgtpu') and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ALONE-OK')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
     res = subprocess.run([sys.executable, "-c", code], env=env, cwd=tmp_path,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert "NO-JAX-OK" in res.stdout
-    res = subprocess.run(
-        [sys.executable, "-m", "dbgtpu_torch", "-r", rf, "-k", "21", "-g",
-         uf], env=env, cwd=tmp_path, capture_output=True, text=True,
-        timeout=300)
-    assert res.returncode != 0
-    assert not (tmp_path / "paths").exists()
+    assert "ALONE-OK" in res.stdout
+    # the package alone, copied out of the repository
+    alone = tmp_path / "alone"
+    shutil.copytree(ROOT / "dbgtpu_torch", alone / "dbgtpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    env = dict(env, PYTHONPATH=str(alone),
+               DBGTPU_NATIVE_CACHE=str(tmp_path / "native"))
+    for extra, ok in (([], False),
+                      (["--device", "cpu", "--index-layout", "mphf", "-G"],
+                       True)):
+        res = subprocess.run(
+            [sys.executable, "-m", "dbgtpu_torch", "-r", rf, "-k", "21", "-g",
+             uf] + extra, env=env, cwd=alone, capture_output=True, text=True,
+            timeout=300)
+        assert (res.returncode == 0) == ok, res.stderr
+        assert (alone / "paths").exists() == ok
+    want = dbgtpu_pipeline([rf], uf, k=21, impl="python", mode="anchors")
+    assert (alone / "paths").read_bytes() == want[0]
 
 
-def test_port_sources_never_import_jax():
+_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax|jaxlib|dbgtpu)(?:[.\s]|$)", re.M)
+
+
+def test_port_sources_never_import_jax_or_dbgtpu():
     paths = [*(ROOT / "dbgtpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
              ROOT / "torch_profile.py"]
+    assert len(paths) > 25
     for path in paths:
-        text = path.read_text()
-        assert "import jax" not in text and "from jax" not in text, path
+        found = _IMPORT.search(path.read_text())
+        assert found is None, (path, found.group(0))
+    assert _IMPORT.search("    from dbgtpu.seq import encode")
+    assert _IMPORT.search("import jax")
+    assert not _IMPORT.search("from dbgtpu_torch.seq import encode")
 
 
 def test_kernel_build_recipe(monkeypatch):
@@ -211,7 +293,8 @@ def test_kernel_build_recipe(monkeypatch):
 
     names = {p.name for p in build.sources()}
     assert {"read_scan.cu", "member.cu", "walk.cu", "pack.cu", "dog.cu",
-            "exhaustive.cu", "common.cuh", "junction.cuh"} <= names
+            "exhaustive.cu", "mphf.cu", "compact.cu", "common.cuh",
+            "junction.cuh", "mphf.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     so = build.library_path()
     assert so.parent == ROOT / "build" / "dbgtpu_torch"

@@ -1,7 +1,8 @@
 """K3 greedy_walk: the port's plain version (read_scan_ref -> member_ref
 -> walk_ref) against the JAX engine's align_batch(..., pmax=0) on the
-CPU, exact.  Only lbuf[:llen] and rbuf[:rlen] are meaningful (buffer
-tails are stale after a failed anchor), so only those are compared.
+CPU, exact, under the scan and the mphf junction layouts.  Only
+lbuf[:llen] and rbuf[:rlen] are meaningful (buffer tails are stale
+after a failed anchor), so only those are compared.
 One JAX compile per case."""
 
 import jax.numpy as jnp
@@ -23,6 +24,10 @@ from .torch_parity import batch, dataset, device_index, t32
     (52, 21, 1, 3, 0.3, "embedded", {}),
     (53, 15, 0, 2, 0.0, "pool", dict(min_unitig=15, max_unitig=40)),
     (54, 21, 2, 2, 0.2, "probeless", {}),
+    # the mphf junction layout: closure probes (no N), and the
+    # per-position MPHF branch (N, no probe table)
+    (55, 31, 2, 2, 0.0, "mphf", {}),
+    (56, 21, 1, 3, 0.2, "mphf_probeless", {}),
 ])
 def test_walk_ref_matches_jax_align_batch(seed, k, m, effort, n_frac,
                                           variant, kw):
@@ -36,6 +41,7 @@ def test_walk_ref_matches_jax_align_batch(seed, k, m, effort, n_frac,
     codes, nm, lens, words, nmbits = batch(reads, L)
     k1 = k - 1
     ix = index_tensors(di, "cpu")
+    assert (ix.mph_meta is not None) == variant.startswith("mphf")
     scan = read_scan_ref(t32(words), t32(nmbits), t32(lens), L=L, k1=k1)
     m1, m2 = member_ref(ix, scan, t32(lens), L=L, k1=k1)
     got = walk_ref(ix, scan, m1, m2, t32(lens), k=k, m=m, effort=effort,
@@ -43,6 +49,7 @@ def test_walk_ref_matches_jax_align_batch(seed, k, m, effort, n_frac,
     want = core.align_batch(
         core.index_to_device(di), jnp.asarray(codes), jnp.asarray(nm),
         jnp.asarray(lens), k=k, m=m, effort=effort, pmax=0,
+        jl_meta=core.jl_meta_of(di),
     )
     for f in ("status", "orient", "offset", "llen", "rlen"):
         np.testing.assert_array_equal(getattr(got, f).numpy(),

@@ -54,7 +54,11 @@ def assert_walks_equal(got, want: dict) -> None:
 def device_index(graph, variant: str = "embedded") -> D.DeviceIndex:
     """DeviceIndex variants: "embedded" (unitig sequence in the umeta
     rows, window-3 probe table), "pool" (sequence in pool chunk rows),
-    "probeless" (no closure probe table), "window4" (window-4 probes)."""
+    "probeless" (no closure probe table), "window4" (window-4 probes),
+    "mphf" (the MPHF junction layout, and MPHF anchors for a dog-mode
+    graph), "mphf_probeless" (the same without a probe table) and
+    "anchor_mphf" (scan junction table, MPHF anchors: what a dog keyset
+    of ANCHOR_MPHF_MIN keys or more gets)."""
     if variant == "pool":
         cap = D.EMBED_CAP_BASES
         D.EMBED_CAP_BASES = 8
@@ -63,6 +67,23 @@ def device_index(graph, variant: str = "embedded") -> D.DeviceIndex:
         finally:
             D.EMBED_CAP_BASES = cap
         assert di.umeta.shape[1] == 16
+        return di
+    if variant == "anchor_mphf":
+        floor = D.ANCHOR_MPHF_MIN
+        D.ANCHOR_MPHF_MIN = 1
+        try:
+            di = D.build_device_index(graph)
+        finally:
+            D.ANCHOR_MPHF_MIN = floor
+        assert di.anchor_mphf is not None and di.scan_tbl is not None
+        return di
+    if variant.startswith("mphf"):
+        di = D.build_device_index(graph, layout="mphf")
+        assert di.mphf_junction is not None and di.scan_tbl is None
+        if variant == "mphf_probeless":
+            di.probe_tbl = None
+        else:
+            assert variant == "mphf", variant
         return di
     di = D.build_device_index(graph)
     if variant == "probeless":

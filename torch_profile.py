@@ -1,36 +1,48 @@
 #!/usr/bin/env python3
 """Where the time goes in dbgtpu_torch on one NVIDIA GPU.
 
-    python3 torch_profile.py [--cells survey,scale1M] [--reps 3]
+    python3 torch_profile.py [--cells survey:scan,survey:mphf,...]
+                             [--modes greedy,anchors,exhaustive] [--reps 3]
 
-For each cell it builds the graph, the device index and the index
-tensors (timed; a dog-mode graph with its anchor table for -G), then,
-in each mode the cell runs, maps the cell's 131,072 reads warm with
-`dbgtpu_torch.pipeline.run_pipeline` `--reps` times, splitting the
-align phase into host pack, H2D, the mode's kernels (synchronized) and
-native formatting.  One more warm run goes under torch.profiler: the
-device busy share is the summed duration of the device-side events
-(kernels, copies, memsets) over that run's host wall.  Then each kernel
-of the mode is timed against its plain version on the first
-32,768-read batch, and the first reads are checked byte for byte
-against dbgtpu's python spec in that mode.
+First it measures the card's memory rate with a plain device-to-device
+copy of 1 GiB (bytes read plus bytes written over the copy's time).
+Then, for each cell (a workload under one index layout), it builds the
+graph, the device index and the index tensors (timed; a dog-mode graph
+with its anchor table for -G) and, in each mode, maps the cell's 131,072
+reads warm with `dbgtpu_torch.pipeline.run_pipeline` `--reps` times,
+splitting the align phase into host pack, H2D, the mode's kernels
+(synchronized), the host rebuild of the compact result and native
+formatting; the payload bytes of the compact result fetch are printed
+beside what padded rows would have taken.  One more warm run goes under
+torch.profiler: the device busy share is the summed duration of the
+device-side events (kernels, copies, memsets) over that run's host wall.
+Then each kernel of the mode is timed against its plain version on the
+first 32,768-read batch with its bound (chip_smoke.compare_kernels: the
+published memory rate; here also the bound at the measured rate; in an
+mphf cell also K2's per-position branch on the index without its probe
+table), K7 mphf_slots alone on the stored keys of the cell's junction
+MPHF (the shape the check of a table at upload gives it; the warm runs
+reuse the uploaded index, so they launch it no more), and the first
+reads are checked byte for byte against the port's python spec in that
+mode.
 
-Cells:
-  survey   bench.build_workload(): 2 Mbp genome, ~30.7k unitigs of
-           40-150 bp, 131,072 reads of 100 bp, k=31, m=2, e=2; greedy,
-           -G and -b.
-  scale1M  the workload of scripts/bench_scale.py: seed 404, 65 Mbp
-           genome, ~1M unitigs of 40-150 bp, 131,072 reads of 100 bp;
-           greedy and -b (its ~34M dog anchors take the MPHF anchor
-           layout, which the port does not run yet).
+Workloads:
+  survey   2 Mbp genome, ~30.7k unitigs of 40-150 bp, 131,072 reads of
+           100 bp, k=31, m=2, e=2 (chip_smoke.survey_workload).
+  scale1M  seed 404, 65 Mbp genome, ~1M unitigs of 40-150 bp, 131,072
+           reads of 100 bp.  Its ~34M dog anchors take the MPHF anchor
+           layout under either junction layout; building them is host
+           work of minutes.
+Cells are `workload:layout` with layout scan or mphf.
 
 Prints one line per measurement and, last, one JSON object per cell.
-Needs a CUDA device; imports no JAX.
+Needs a CUDA device; imports neither JAX nor dbgtpu.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -41,18 +53,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SCRATCH = ROOT / "build" / "torch_profile"
 K, M, EFFORT, BATCH = 31, 2, 2, 32768
+MODES = ("greedy", "anchors", "exhaustive")
+DEFAULT_CELLS = "survey:scan,survey:mphf,scale1M:scan,scale1M:mphf"
 
 
 def survey():
-    import bench
+    import chip_smoke as cs
 
-    return bench.build_workload()
+    return cs.survey_workload()
 
 
 def scale1m():
     import numpy as np
 
-    from dbgtpu.seq import encode
+    from dbgtpu_torch.seq import encode
     from tests import synth
 
     rng = np.random.default_rng(404)
@@ -62,11 +76,8 @@ def scale1m():
     return unitigs, np.stack([encode(r) for r in reads])
 
 
-# name: (workload, reads checked against the spec, modes)
-CELLS = {
-    "survey": (survey, 4096, ("greedy", "anchors", "exhaustive")),
-    "scale1M": (scale1m, 2048, ("greedy", "exhaustive")),
-}
+# name: (workload, reads checked against the spec)
+WORKLOADS = {"survey": (survey, 4096), "scale1M": (scale1m, 2048)}
 
 
 class StageTimer:
@@ -92,7 +103,9 @@ class StageTimer:
 
 
 def device_busy(prof, wall_s: float):
-    """(summed device-event ms, busy share, per-name device ms)."""
+    """(summed device-event ms, busy share, per-name (device ms, event
+    count)).  The counts show a trace that lost events: every kernel of
+    a mode's path runs once per batch."""
     from torch.autograd import DeviceType
 
     total_us, by_name = 0.0, {}
@@ -101,25 +114,43 @@ def device_busy(prof, wall_s: float):
             continue
         us = e.time_range.elapsed_us()
         total_us += us
-        by_name[e.name] = by_name.get(e.name, 0.0) + us
-    ms = {n: v / 1e3 for n, v in sorted(by_name.items(), key=lambda x: -x[1])}
-    return total_us / 1e3, total_us / 1e3 / (wall_s * 1e3), ms
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + us / 1e3, n + 1)
+    by_name = dict(sorted(by_name.items(), key=lambda x: -x[1][0]))
+    return total_us / 1e3, total_us / 1e3 / (wall_s * 1e3), by_name
 
 
-def run_cell(name, reps, device, card):
+def measure_copy_rate(device) -> float:
+    """Bytes per second of a device-to-device copy of 1 GiB: bytes read
+    plus bytes written over the median time of 10 copies."""
+    import torch
+
+    import chip_smoke as cs
+
+    n = 1 << 30
+    src = torch.zeros(n, dtype=torch.uint8, device=device)
+    dst = torch.empty_like(src)
+    ms = cs.cuda_ms(lambda: dst.copy_(src), 10)
+    return 2 * n / (ms / 1e3)
+
+
+def run_workload(name, layouts, modes, reps, device, card, copy_rate):
+    """One JSON-ready dict per (workload, layout) cell; the workload and
+    its graphs are made once and shared by the layouts."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
-    from dbgtpu.index.build import build_graph
     from dbgtpu_torch.engine import runner
     from dbgtpu_torch.engine.index import index_tensors
+    from dbgtpu_torch.index.build import build_graph
+    from dbgtpu_torch.index.device import hbm_report
+    from dbgtpu_torch.kernels import build
 
-    make, n_spec, modes = CELLS[name]
-    out = {"cell": name, "card": card}
+    make, n_spec = WORKLOADS[name]
     t0 = time.monotonic()
     unitigs, codes_all = make()
-    out["workload_s"] = time.monotonic() - t0
+    workload_s = time.monotonic() - t0
     chars = np.frombuffer(b"ACGT", np.uint8)
     td = Path(tempfile.mkdtemp(dir=SCRATCH))
     uf, rf = td / "unitig.fa", td / "reads.fa"
@@ -127,78 +158,117 @@ def run_cell(name, reps, device, card):
     cs.write_fasta(rf, (chars[r].tobytes() for r in codes_all))
     cs.write_fasta(td / "prefix.fa", (chars[r].tobytes()
                                       for r in codes_all[:n_spec]))
-    out["unitigs"] = len(unitigs)
-    graphs = {}
+    graphs, graph_s = {}, {}
     for dog in sorted({m == "anchors" for m in modes}):
         t0 = time.monotonic()
-        graph = build_graph(str(uf), K, dog_mode=dog)
-        ib = {"graph_s": time.monotonic() - t0}
-        t0 = time.monotonic()
-        di = runner.get_device_index(graph)
-        ib["device_index_s"] = time.monotonic() - t0
-        t0 = time.monotonic()
-        ix = index_tensors(di, device)
-        torch.cuda.synchronize()
-        ib["upload_s"] = time.monotonic() - t0
-        ib["index_bytes"] = sum(t.numel() * t.element_size() for t in (
-            ix.st_fused, ix.umeta, ix.pool_rows, ix.pt_rows, ix.at_fused))
-        graphs[dog] = (graph, di, ix)
-        out["dog_index" if dog else "index"] = ib
+        graphs[dog] = build_graph(str(uf), K, dog_mode=dog)
+        graph_s[dog] = time.monotonic() - t0
         cs.log(f"[{name}] {len(unitigs)} unitigs{' (dog mode)' * dog}: "
-               f"graph {ib['graph_s']:.3f} s, device index "
-               f"{ib['device_index_s']:.3f} s, upload {ib['upload_s']:.3f} "
-               f"s, index tensors {ib['index_bytes']} B")
-    out["modes"] = {
-        mode: run_mode(name, mode, reps, device, codes_all, rf, uf, td,
-                       n_spec, *graphs[mode == "anchors"])
-        for mode in modes}
-    return out
+               f"graph {graph_s[dog]:.3f} s"
+               + (f", {len(graphs[dog].anchors)} anchors" if dog else ""))
+    cells = []
+    for layout in layouts:
+        out = {"cell": f"{name}:{layout}", "card": card,
+               "copy_bytes_per_s": copy_rate, "workload_s": workload_s,
+               "unitigs": len(unitigs), "modes": {}}
+        built = {}
+        for dog, graph in graphs.items():
+            ib = {"graph_s": graph_s[dog]}
+            t0 = time.monotonic()
+            di = runner.get_device_index(graph, layout)
+            ib["device_index_s"] = time.monotonic() - t0
+            build.reset_launches()
+            t0 = time.monotonic()
+            ix = index_tensors(di, device)
+            torch.cuda.synchronize()
+            ib["upload_s"] = time.monotonic() - t0
+            # K7's launches: the check of each MPHF table at upload
+            ib["upload_mphf_slots_launches"] = build.launches["mphf_slots"]
+            ib["index_bytes"] = cs.nbytes(*ix.tensors())
+            ib["hbm_report"] = hbm_report(di)
+            built[dog] = (graph, di, ix)
+            out["dog_index" if dog else "index"] = ib
+            cs.log(f"[{name}:{layout}]{' (dog mode)' * dog} device index "
+                   f"{ib['device_index_s']:.3f} s, upload "
+                   f"{ib['upload_s']:.3f} s with "
+                   f"{ib['upload_mphf_slots_launches']} mphf_slots launches "
+                   f"(the table check), index tensors "
+                   f"{ib['index_bytes']} B, hbm_report {ib['hbm_report']}")
+        for mode in modes:
+            out["modes"][mode] = run_mode(
+                f"{name}:{layout}", mode, layout, reps, device, codes_all, rf,
+                uf, td, n_spec, copy_rate, *built[mode == "anchors"])
+        cells.append(out)
+        # the next layout's tables take this one's place on the card
+        for graph, di, _ in built.values():
+            di._torch_ix.clear()
+        del built
+        torch.cuda.empty_cache()
+    return cells
 
 
-def run_mode(name, mode, reps, device, codes_all, rf, uf, td, n_spec, graph,
-             di, ix):
+def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
+             copy_rate, graph, di, ix):
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     import chip_smoke as cs
-    from dbgtpu import native
-    from dbgtpu.pipeline import run_pipeline as spec_pipeline
+    from dbgtpu_torch import native
     from dbgtpu_torch.engine import runner
+    from dbgtpu_torch.engine.pack import out_dtype_for
+    from dbgtpu_torch.kernels import build
     from dbgtpu_torch.pipeline import run_pipeline
+    from dbgtpu_torch.spec import run_pipeline as spec_pipeline
 
-    tag = f"[{name} {mode}]"
+    tag = f"[{cell} {mode}]"
     out = {}
 
     def mapped():
         return run_pipeline([str(rf)], str(uf), k=K, m=M, effort=EFFORT,
                             batch_size=BATCH, graph=graph, device=device,
-                            mode=mode)
+                            mode=mode, index_layout=layout)
 
+    n_reads, read_len = codes_all.shape
+    B, L = min(BATCH, n_reads), runner._bucket_len(read_len, K)
+    pmax = min(runner._pmax_for(di, L), runner._pmax_cap(L))
     st = StageTimer()
     saved = [(runner, "pack_records"), (runner, "to_device"),
-             (runner, "align_batch_packed"), (native, "format_paths_native"),
+             (runner, "align_batch_packed_compact"),
+             (runner, "expand_compact"), (native, "format_paths_native"),
              (native, "format_notaligned_native")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr in saved]
     st.wrap(runner, "pack_records", "pack")
     st.wrap(runner, "to_device", "h2d", sync=True)
-    st.wrap(runner, "align_batch_packed", "kernels", sync=True)
+    st.wrap(runner, "align_batch_packed_compact", "kernels", sync=True)
+    st.wrap(runner, "expand_compact", "expand")
     st.wrap(native, "format_paths_native", "format")
     st.wrap(native, "format_notaligned_native", "format")
     out["warm"] = []
     try:
         for rep in range(reps):
             st.t.clear()
+            build.reset_launches()
             t0 = time.monotonic()
             _, _, stats = mapped()
             wall = time.monotonic() - t0
             row = dict(wall_s=wall, reads_per_s=stats.read_number / wall,
-                       parse_s=stats.parse_seconds,
+                       aligned=stats.aligned, parse_s=stats.parse_seconds,
                        align_s=stats.align_seconds,
                        **{f"{k}_s": v for k, v in st.t.items()})
             out["warm"].append(row)
             cs.log(f"{tag} warm {rep}: " + ", ".join(
                 f"{k} {v:.4f}" for k, v in row.items()))
+        out["launches"] = dict(build.launches)
+        item = torch.empty(0, dtype=out_dtype_for(
+            ix.umeta.shape[0], L)).element_size()
+        out["d2h_bytes"] = stats.payload_d2h_bytes
+        out["d2h_padded_bytes"] = n_reads * (2 + pmax) * item
+        out["h2d_bytes"] = stats.payload_h2d_bytes
+        cs.log(f"{tag} launches {out['launches']}; payload H2D "
+               f"{out['h2d_bytes']} B, D2H {out['d2h_bytes']} B compact "
+               f"(padded rows of {item}-byte slots: "
+               f"{out['d2h_padded_bytes']} B)")
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.monotonic()
@@ -213,28 +283,43 @@ def run_mode(name, mode, reps, device, codes_all, rf, uf, td, n_spec, graph,
                device_ms_by_name={n[:80]: v for n, v in by_name.items()})
     cs.log(f"{tag} profiled warm run: {dev_ms:.3f} ms of device events "
            f"in {wall * 1e3:.1f} ms wall, busy share {share:.4f}")
-    for n, v in list(by_name.items())[:10]:
-        cs.log(f"{tag}   {v:.3f} ms  {n[:100]}")
+    for n, (v, count) in list(by_name.items())[:10]:
+        cs.log(f"{tag}   {v:.3f} ms in {count} events  {n[:100]}")
 
-    n_reads, read_len = codes_all.shape
-    B, L = min(BATCH, n_reads), runner._bucket_len(read_len, K)
     codes = np.zeros((B, L), np.uint8)
     codes[:, :read_len] = codes_all[:B]
     words, nmbits = cs.batch_tensors(codes, np.zeros((B, L), bool), device)
     lens = torch.full((B,), read_len, dtype=torch.int32, device=device)
-    pmax = min(runner._pmax_for(di, L), runner._pmax_cap(L))
+    perpos = (dataclasses.replace(ix, pt_rows=ix.pt_rows[:0])
+              if layout == "mphf" and mode != "anchors" else None)
     res = cs.compare_kernels(ix, words, nmbits, lens, mode=mode, k=K, m=M,
-                             effort=EFFORT, L=L, pmax=pmax, timed=True)
-    out["kernels"] = {n: dict(max_abs_err=e, ms=ms, plain_ms=pms)
-                      for n, (e, ms, pms) in res.items()}
-    for n, (e, ms, pms) in res.items():
-        cs.log(f"{tag} kernel {n}: == plain (err {e}), {ms:.4f} ms, "
-               f"plain {pms:.4f} ms per {B}-read batch")
+                             effort=EFFORT, L=L, pmax=pmax, timed=True,
+                             perpos_ix=perpos)
+    if layout == "mphf" and mode == "greedy":
+        jrows = di.mphf_junction.jrows
+        res["mphf_slots"] = cs.compare_mphf(
+            f"{cell}: the junction MPHF, its {len(jrows)} stored keys",
+            di.mphf_junction.mphf, device,
+            (jrows[:, 0].astype(np.uint64) << np.uint64(32))
+            | jrows[:, 1].astype(np.uint64), True)
+    for r in res.values():
+        r["bound_at_copy_rate_ms"] = 1e3 * max(
+            r["bound_bytes"] / copy_rate, r["bound_ops"] / cs.INT_OPS_PER_S)
+    out["kernels"] = res
+    for n, r in res.items():
+        lib = ("none" if r["library_ms"] is None
+               else f"{r['library_ms']:.4f} ms")
+        cs.log(f"{tag} kernel {n}: == plain (err {r['max_abs_err']}), "
+               f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+               f"call {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+               f"{r['bound_at_copy_rate_ms']:.4f} ms at the measured copy "
+               f"rate) per {B}-read batch")
 
     got = run_pipeline([str(td / "prefix.fa")], str(uf), k=K, m=M,
-                       graph=graph, device=device, mode=mode)
+                       graph=graph, device=device, mode=mode,
+                       index_layout=layout)
     want = spec_pipeline([str(td / "prefix.fa")], str(uf), k=K, m=M,
-                         impl="python", graph=graph, mode=mode)
+                         graph=graph, mode=mode)
     if got[0] != want[0] or got[1] != want[1]:
         raise AssertionError(f"{tag} output differs from the spec")
     out["spec_equal_reads"] = n_spec
@@ -246,27 +331,46 @@ def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--cells", default="survey,scale1M")
+    ap.add_argument("--cells", default=DEFAULT_CELLS)
+    ap.add_argument("--modes", default=",".join(MODES))
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
+    modes = tuple(args.modes.split(","))
+    cells: dict[str, list[str]] = {}
+    for c in args.cells.split(","):
+        name, _, layout = c.partition(":")
+        if (name not in WORKLOADS or layout not in ("scan", "mphf")
+                or not set(modes) <= set(MODES)):
+            ap.error(f"unknown cell {c!r} or mode in {args.modes!r}")
+        cells.setdefault(name, []).append(layout)
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    SCRATCH.mkdir(parents=True, exist_ok=True)
-    os.environ["DBGTPU_BENCH_CACHE"] = str(SCRATCH / "workload.npz")
-    os.environ["DBGTPU_NATIVE_CACHE"] = str(SCRATCH / "native")
-
     import chip_smoke as cs
-    from dbgtpu import native
+
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    cs.SCRATCH.mkdir(parents=True, exist_ok=True)   # the survey's cache
+    os.environ["DBGTPU_NATIVE_CACHE"] = str(SCRATCH / "native")
+    cs.block_reference_packages()
+    from dbgtpu_torch import native
     from dbgtpu_torch.kernels import build
 
+    device = torch.device("cuda", 0)
     card = cs.card_line()
     cs.log(f"[card] {card}")
     build.load()
-    native.available()
-    results = [run_cell(c, args.reps, torch.device("cuda", 0), card)
-               for c in args.cells.split(",")]
+    if not native.available():
+        raise AssertionError("the native parser / formatter did not build")
+    copy_rate = measure_copy_rate(device)
+    cs.log(f"[card] device-to-device copy of 1 GiB: {copy_rate / 1e12:.4f} "
+           f"TB/s read + written (published memory rate "
+           f"{cs.HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    results = []
+    for name, layouts in cells.items():
+        results += run_workload(name, layouts, modes, args.reps, device, card,
+                                copy_rate)
+    cs.assert_reference_packages_unused()
     cs.log(f"[card] {cs.card_line()}")
     for r in results:
         print(json.dumps(r))
