@@ -26,7 +26,17 @@ its own kernel), then:
      tight-gamma MPHF that uses the final table, each with keys of the
      set, keys outside it and the all-ones key, and on an empty MPHF;
      it is timed on the stored keys of each survey table, the shape the
-     main path gives it (the check of a table at upload);
+     main path gives it (the check of a table at upload), through its
+     wrapper and alone (back-to-back launches through the C entry point).
+     The gather kernels K9 gather_rows (G=1 and G=8), K10 gather_rowsum,
+     K11 gather_rows_sum and K12 gather_take_sum against their plain
+     versions at the full geometries of the experiment scripts
+     (dbgtpu_torch/tools/exp_gather.py "scripts"), each timed alone
+     (back-to-back launches through its C entry point) and through its
+     wrapper, beside the one PyTorch gather that computes the same
+     function; then
+     `tools.exp_gather.main()` itself, the entry point that runs them
+     (counts set to 0 just before, each of the four launched > 0 times);
   3. maps the survey workload (2 Mbp genome, ~30.7k unitigs of 40-150
      bp, 131,072 reads of 100 bp, k=31, m=2, e=2, batch 32,768) through
      `dbgtpu_torch.cli.main` in greedy mode, with -G and with -b, under
@@ -35,7 +45,13 @@ its own kernel), then:
      > 0 times in its own run and no other kernel launched (counts set
      to 0 just before each run).  mphf_slots counts only launches of the
      standalone K7 kernel: one per MPHF table of the run's index (per
-     4,194,304 stored keys of it), none under the scan layout;
+     4,194,304 stored keys of it), none under the scan layout.  Then
+     `--save-index` followed by `--load-index` in greedy/scan, -G/mphf
+     and -b/scan:
+     bytes equal to the built run, the mode's kernels launched,
+     mphf_slots still once per MPHF table, the loaded run's index seconds
+     printed beside the built run's; and one `--resume` run killed after
+     its first segment and resumed, bytes equal;
   4. requires byte equality with the port's executable spec
      (dbgtpu_torch.spec.run_pipeline) and each kernel of the mode equal
      to its plain version on each of these files: scan layout as before
@@ -43,12 +59,15 @@ its own kernel), then:
      300-bp reads, pmax overflow); mphf layout: the survey prefix in
      every mode, k=21 with N in every mode, probe-less, k=32 -G; and -G
      on a scan-layout index whose dog keyset takes the MPHF anchor
-     layout (ANCHOR_MPHF_MIN lowered);
+     layout (ANCHOR_MPHF_MIN lowered); `-p` and `-p -b` on the first 512
+     survey reads against the spec (host only: no kernel may launch), and
+     a run sharded over 2 processes and merged against the single run;
   5. prints the kernels' JSON line and, last, the result line.  The
      line holds each kernel once with the launches of its scan-layout
      run and that run's batch timings, and `<kernel>@mphf` entries for
      K2, K3, walk_inits, K5 and K6 with the launches of the
-     `--index-layout mphf` runs and the timings on the mphf index.
+     `--index-layout mphf` runs and the timings on the mphf index; K9-K12
+     carry the launches of the `tools.exp_gather.main()` run.
 Any failure raises, and the script exits non-zero without a result.
 
 Bounds.  `bound_ms` is the larger of bytes / 3.35e12 B/s (the H100's
@@ -62,20 +81,30 @@ paths, a lower bound.  K1's outputs are the tensors it hands to K2-K6
 (four int64 k-mer planes, a byte plane, the packed rows); its bound
 from the packed batch in and the packed rows out alone is printed
 beside it.  Operations are counted from the kernel bodies, per position,
-slot, step or key: the OPS_* constants and ops_* functions below.
+slot, step or key: the OPS_* constants and ops_* functions below.  For
+the gathers K9-K12 they are what the function needs whatever the
+kernel's layout (tools/exp_gather.py): no operation for K9's copy, one
+add per table word summed for K10-K12.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import json
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
+
+# the timer and the bound convention, shared with torch_profile.py and
+# dbgtpu_torch/tools/exp_gather.py
+from dbgtpu_torch.kernels.measure import (  # noqa: F401
+    HBM_BYTES_PER_S, INT_OPS_PER_S, cuda_ms,
+)
+from dbgtpu_torch.kernels.measure import bound_ms as bound_of
 
 ROOT = Path(__file__).resolve().parent
 SCRATCH = ROOT / "build" / "chip_smoke"
@@ -84,9 +113,6 @@ SCRATCH = ROOT / "build" / "chip_smoke"
 # package's benchmark, so both map the same reads
 SEED, GENOME_LEN, K, M, EFFORT, READ_LEN = 20260817, 2_000_000, 31, 2, 2, 100
 BATCH, N_BATCHES = 32768, 4
-
-HBM_BYTES_PER_S = 3.35e12
-INT_OPS_PER_S = 67e12 / 4
 
 # Integer operations per unit of work, counted from the kernel bodies in
 # dbgtpu_torch/csrc.  A shift, mask, add, compare, select, multiply,
@@ -195,6 +221,18 @@ KERNELS = (
     ("compact_result", "dbgtpu_torch/csrc/compact.cu",
      "dbgtpu/engine/core.py:1529"),
 )
+# K9-K12: the Pallas kernels of the gather experiments, launched by
+# dbgtpu_torch/tools/exp_gather.py and by no mapping run
+GATHER_KERNELS = (
+    ("gather_rows", "dbgtpu_torch/csrc/gather.cu",
+     "scripts/exp_r5_pallas.py:93"),
+    ("gather_rowsum", "dbgtpu_torch/csrc/gather.cu",
+     "scripts/exp_r5_pallas.py:138"),
+    ("gather_rows_sum", "dbgtpu_torch/csrc/gather.cu",
+     "scripts/archive/exp_pallas_gather.py:40"),
+    ("gather_take_sum", "dbgtpu_torch/csrc/gather.cu",
+     "scripts/archive/exp_pallas_gather.py:81"),
+)
 # the kernels each mode's path launches under the scan layout (an index
 # with MPHF tables adds mphf_slots: one launch of K7's kernel per table
 # at upload; the lookups of K2-K6 run its device function inline), and
@@ -286,25 +324,6 @@ def survey_workload():
     return unitigs, codes
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of `fn` over `reps` timed runs (CUDA events,
-    after one warm-up run)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
 def _max_abs_err(got, want) -> int:
     import torch
 
@@ -319,16 +338,6 @@ def _max_abs_err(got, want) -> int:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
-
-
-def bound_of(stream_bytes: int, touched: int, table: int, ops: int):
-    """(bound_ms, bound_by) of a kernel that streams `stream_bytes`,
-    touches `touched` bytes of rows in tables of `table` bytes and does
-    `ops` integer operations."""
-    t_bytes = (stream_bytes + min(touched, table)) / HBM_BYTES_PER_S
-    t_ops = ops / INT_OPS_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def walks_pairs(wk, wr):
@@ -613,17 +622,59 @@ def compare_mphf(label, mphf, device, extra_keys, timed: bool):
     res["bound_bytes"] = n * 12 + min(n * 20, nbytes(rows, frows))
     res["bound_ops"] = ops
     if timed and n:
-        res["ms"] = cuda_ms(lambda: mphf_slots(rows, frows, meta, keys), 20)
+        # the kernel alone: back-to-back launches through the C entry
+        # point into one output (one call's wrapper outlasts the kernel)
+        lib = build.load()
+        alone = torch.empty_like(got)
+        args = (rows.data_ptr(), frows.data_ptr(),
+                ctypes.addressof(meta.c_struct), keys.data_ptr(), n,
+                alone.data_ptr(), build.stream_ptr(device))
+
+        def launch():
+            build.check(lib.dbg_mphf_slots(*args), "mphf_slots")
+
+        res["ms"] = cuda_ms(launch, 5, launches=200)
+        if not torch.equal(alone, got):
+            raise AssertionError(f"{label}: K7 through its C entry point "
+                                 "differs from K7 through its wrapper")
+        res["wrapper_ms"] = cuda_ms(
+            lambda: mphf_slots(rows, frows, meta, keys), 20)
         res["plain_ms"] = cuda_ms(
             lambda: mphf_slot_ref(rows, frows, meta, keys), 3)
     log(f"[kernel] mphf_slots on {label}: {n} keys ({int(found.sum())} of "
         f"the set), {meta.n_levels} levels, final table "
         f"{meta.final_nb} buckets: == plain version and host lookup "
         f"(max abs err {err}, tolerance 0)"
-        + (f"; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
+        + (f"; kernel alone {res['ms']:.4f} ms (200 back-to-back launches "
+           f"through the C entry point), one launch through the wrapper "
+           f"{res['wrapper_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
            f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
            if res["ms"] is not None else ""))
     return res
+
+
+def compare_gathers(device):
+    """K9-K12 against their plain versions at the experiment scripts'
+    full geometries (exact), each timed alone beside its plain version
+    and the one PyTorch gather computing the same function
+    (tools/exp_gather.py run).  Returns {kernel name: result dict}; K9's
+    entry is its G=1 run."""
+    from dbgtpu_torch.tools import exp_gather
+
+    out = {}
+    for r in exp_gather.run("scripts", device, timed=True):
+        log(f"[kernel] {r['label']}: == plain version (max abs err "
+            f"{r['max_abs_err']}, tolerance 0) and == the library call; "
+            f"kernel alone {r['ms']:.4f} ms (50 back-to-back launches "
+            f"through the C entry point, {r['rows'] / r['ms'] / 1e3:.0f}M "
+            f"rows/s), one launch through the wrapper "
+            f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+            f"library call {r['library_ms']:.4f} ms "
+            f"({r['library_ms'] / r['ms']:.2f}x the kernel's time), bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bound_bytes']} B, "
+            f"{r['bound_ops']} operations)")
+        out.setdefault(r["name"], r)
+    return out
 
 
 def batch_tensors(codes, nmask, device):
@@ -837,6 +888,27 @@ def main() -> int:
     compare_mphf("the survey anchor MPHF, its stored keys", ma.mphf, device,
                  table_keys(ma.arows), True)
 
+    # K9-K12 at the experiment scripts' geometries, then the entry point
+    # that runs them, with its launches
+    from dbgtpu_torch.tools import exp_gather
+
+    gather_results = compare_gathers(device)
+    build.reset_launches()
+    t0 = time.monotonic()
+    rc = exp_gather.main([])
+    gather_launches = dict(build.launches)
+    if rc != 0:
+        raise AssertionError(f"tools.exp_gather.main exited {rc}")
+    log(f"[gather] python -m dbgtpu_torch.tools.exp_gather: "
+        f"{time.monotonic() - t0:.1f} s, launches {gather_launches}")
+    for name, _, _ in GATHER_KERNELS:
+        if gather_launches[name] <= 0:
+            raise AssertionError(f"exp_gather did not launch {name}")
+    others = [n for n, c in gather_launches.items()
+              if c and n not in gather_results]
+    if others:
+        raise AssertionError(f"exp_gather launched mapping kernels: {others}")
+
     # ---- phase 3: each mode's path at real size through the CLI ----
     with tempfile.TemporaryDirectory(dir=SCRATCH) as td:
         td = Path(td)
@@ -844,85 +916,167 @@ def main() -> int:
         write_fasta(uf, unitigs)
         chars = np.frombuffer(b"ACGT", np.uint8)
         write_fasta(rf, (chars[r].tobytes() for r in codes_all))
-        launches, outputs = {}, {}
+        launches, outputs, summaries = {}, {}, {}
+
+        def cli_run(layout, mode, extra=(), reads=rf, batch=B, suffix=""):
+            """One `cli.main` run of `mode` under `layout` with the counts
+            set to 0 just before it: (paths bytes, notAligned bytes,
+            summary, launches); `suffix` is what the run appends to its
+            output files' names (a shard).  Fails unless the run's output
+            matches its stats, each kernel of the mode's path was launched,
+            mphf_slots once per CHECK_CHUNK stored keys of each MPHF
+            table of the run's index, and no other kernel."""
+            flags = MODE_FLAGS[mode] + ["--index-layout", layout, *extra]
+            js = td / "summary.json"
+            argv = ["-r", str(reads), "-k", str(k), "-g", str(uf),
+                    "-m", str(m), "-e", str(effort),
+                    "--batch-size", str(batch), "-f", str(td / "paths"),
+                    "-a", str(td / "notAligned.fa"),
+                    "--json-summary", str(js)] + flags
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launches()
+            t0 = time.monotonic()
+            rc = cli.main(argv)
+            wall = time.monotonic() - t0
+            peak = torch.cuda.max_memory_allocated()
+            counts = dict(build.launches)
+            if rc != 0:
+                raise AssertionError(f"cli.main {flags} exited {rc}")
+            summ = json.loads(js.read_text())
+            paths_b = (td / f"paths{suffix}").read_bytes()
+            na_b = (td / f"notAligned.fa{suffix}").read_bytes()
+            n_paths = paths_b.count(b"\n") // 2
+            tag = f"[slice {' '.join(flags)}]"
+            log(f"{tag} python -m dbgtpu_torch {' '.join(argv)}")
+            log(f"{tag} index {summ['index_seconds']} s (graph build, or "
+                f"the index file's load) + "
+                f"{summ['device_index_seconds']} s (device index); "
+                f"upload {summ['upload_seconds']} s; parse "
+                f"{summ['parse_seconds']} s; mapping "
+                f"{summ['reads'] / summ['align_seconds']:.1f} reads/s "
+                f"({summ['align_seconds']} s for pack + kernels + "
+                f"unpack + format of {summ['reads']} reads); end-to-end "
+                f"{summ['reads'] / wall:.1f} reads/s ({wall:.2f} s "
+                f"wall, map_seconds {summ['map_seconds']}); "
+                f"max_memory_allocated {peak} B, of which "
+                f"{peak - held} B above the {held} B the script held "
+                f"before the run")
+            log(f"{tag} {summ['aligned']} aligned, {summ['no_overlap']} "
+                f"no overlap, {summ['not_aligned']} not aligned; "
+                f"launches {counts}; hbm_report "
+                f"{summ['index_hbm_bytes']}; payload H2D "
+                f"{summ['payload_h2d_bytes']} B, D2H "
+                f"{summ['payload_d2h_bytes']} B (padded rows would be "
+                f"{summ['reads'] * (2 + pmax) * 2} B)")
+            if n_paths != summ["aligned"]:
+                raise AssertionError(f"{tag} output does not match its stats")
+            if not summ["aligned"]:
+                raise AssertionError(f"{tag} aligned no read")
+            want = PATH_KERNELS[mode] + (
+                ("mphf_slots",) if layout == "mphf" else ())
+            # one K7 launch per CHECK_CHUNK stored keys of each MPHF
+            # table of the run's index, at its upload
+            ix = ixs[layout, mode == "anchors"]
+            checks = sum(
+                -(-meta.n_keys // CHECK_CHUNK)
+                for meta in (ix.mph_meta, ix.amph_meta)
+                if meta is not None)
+            if counts["mphf_slots"] != checks:
+                raise AssertionError(
+                    f"{tag} mphf_slots launched {counts['mphf_slots']} "
+                    f"times, its index's tables need {checks}")
+            missing = [n for n in want if counts[n] <= 0]
+            if missing:
+                raise AssertionError(f"{tag} kernels not launched: {missing}")
+            other = [n for n, c in counts.items() if c and n not in want]
+            if other:
+                raise AssertionError(f"{tag} kernels of another path "
+                                     f"launched: {other}")
+            return paths_b, na_b, summ, counts
+
         for layout in ("scan", "mphf"):
-            for mode, flags in MODE_FLAGS.items():
-                flags = flags + ["--index-layout", layout]
-                js = td / "summary.json"
-                argv = ["-r", str(rf), "-k", str(k), "-g", str(uf),
-                        "-m", str(m), "-e", str(effort),
-                        "--batch-size", str(B), "-f", str(td / "paths"),
-                        "-a", str(td / "notAligned.fa"),
-                        "--json-summary", str(js)] + flags
-                held = torch.cuda.memory_allocated()
-                torch.cuda.reset_peak_memory_stats()
-                build.reset_launches()
-                t0 = time.monotonic()
-                rc = cli.main(argv)
-                wall = time.monotonic() - t0
-                peak = torch.cuda.max_memory_allocated()
-                launches[layout, mode] = dict(build.launches)
-                if rc != 0:
-                    raise AssertionError(f"cli.main {flags} exited {rc}")
-                summ = json.loads(js.read_text())
-                paths_b = (td / "paths").read_bytes()
-                na_b = (td / "notAligned.fa").read_bytes()
+            for mode in MODE_FLAGS:
+                paths_b, na_b, summ, counts = cli_run(layout, mode)
+                if summ["reads"] != n_reads:
+                    raise AssertionError(f"{layout} {mode}: {summ['reads']} "
+                                         f"reads mapped of {n_reads}")
                 outputs[layout, mode] = (paths_b, na_b)
-                n_paths = paths_b.count(b"\n") // 2
-                tag = f"[slice {' '.join(flags)}]"
-                log(f"{tag} python -m dbgtpu_torch {' '.join(argv)}")
-                log(f"{tag} index build {summ['index_seconds']} s (graph) + "
-                    f"{summ['device_index_seconds']} s (device index); "
-                    f"upload {summ['upload_seconds']} s; parse "
-                    f"{summ['parse_seconds']} s; mapping "
-                    f"{summ['reads'] / summ['align_seconds']:.1f} reads/s "
-                    f"({summ['align_seconds']} s for pack + kernels + "
-                    f"unpack + format of {summ['reads']} reads); end-to-end "
-                    f"{summ['reads'] / wall:.1f} reads/s ({wall:.2f} s "
-                    f"wall, map_seconds {summ['map_seconds']}); "
-                    f"max_memory_allocated {peak} B, of which "
-                    f"{peak - held} B above the {held} B the script held "
-                    f"before the run")
-                log(f"{tag} {summ['aligned']} aligned, {summ['no_overlap']} "
-                    f"no overlap, {summ['not_aligned']} not aligned; "
-                    f"launches {launches[layout, mode]}; hbm_report "
-                    f"{summ['index_hbm_bytes']}; payload H2D "
-                    f"{summ['payload_h2d_bytes']} B, D2H "
-                    f"{summ['payload_d2h_bytes']} B (padded rows would be "
-                    f"{n_reads * (2 + pmax) * 2} B)")
-                if summ["reads"] != n_reads or n_paths != summ["aligned"]:
-                    raise AssertionError(
-                        f"{tag} output does not match its stats")
-                if not summ["aligned"]:
-                    raise AssertionError(f"{tag} aligned no read")
-                want = PATH_KERNELS[mode] + (
-                    ("mphf_slots",) if layout == "mphf" else ())
-                # one K7 launch per CHECK_CHUNK stored keys of each MPHF
-                # table of the run's index, at its upload
-                ix = ixs[layout, mode == "anchors"]
-                checks = sum(
-                    -(-meta.n_keys // CHECK_CHUNK)
-                    for meta in (ix.mph_meta, ix.amph_meta)
-                    if meta is not None)
-                if launches[layout, mode]["mphf_slots"] != checks:
-                    raise AssertionError(
-                        f"{tag} mphf_slots launched "
-                        f"{launches[layout, mode]['mphf_slots']} times, "
-                        f"its index's tables need {checks}")
-                missing = [n for n in want if launches[layout, mode][n] <= 0]
-                if missing:
-                    raise AssertionError(
-                        f"{tag} kernels not launched: {missing}")
-                extra = [n for n, c in launches[layout, mode].items()
-                         if c and n not in want]
-                if extra:
-                    raise AssertionError(f"{tag} kernels of another path "
-                                         f"launched: {extra}")
+                launches[layout, mode] = counts
+                summaries[layout, mode] = summ
         for mode in MODE_FLAGS:
             if outputs["scan", mode] != outputs["mphf", mode]:
                 raise AssertionError(f"{mode}: the mphf layout's bytes "
                                      "differ from the scan layout's")
         log("[slice] every mode: --index-layout mphf bytes == scan bytes")
+
+        # a persisted index: built and saved, then loaded
+        for layout, mode in (("scan", "greedy"), ("mphf", "anchors"),
+                             ("scan", "exhaustive")):
+            npz = td / f"index_{layout}_{mode}.npz"
+            built = summaries[layout, mode]
+            runs = [("--save-index", cli_run(
+                layout, mode, ["--save-index", str(npz)]))]
+            t0 = time.monotonic()
+            with open(npz, "rb") as f:
+                while f.read(1 << 24):
+                    pass
+            read_s = time.monotonic() - t0
+            runs.append(("--load-index", cli_run(
+                layout, mode, ["--load-index", str(npz)])))
+            for what, (paths_b, na_b, summ, _) in runs:
+                if (paths_b, na_b) != outputs[layout, mode]:
+                    raise AssertionError(
+                        f"{layout} {mode} {what}: bytes differ from the "
+                        "built run's")
+                for f in ("reads", "aligned", "not_aligned", "no_overlap"):
+                    if summ[f] != built[f]:
+                        raise AssertionError(
+                            f"{layout} {mode} {what}: stats {f} differs")
+                log(f"[persist {layout} {mode}] {what}: bytes == the built "
+                    f"run's; index_seconds {summ['index_seconds']} + "
+                    f"device_index_seconds {summ['device_index_seconds']} + "
+                    f"upload_seconds {summ['upload_seconds']} (built run: "
+                    f"{built['index_seconds']} + "
+                    f"{built['device_index_seconds']} + "
+                    f"{built['upload_seconds']}); file "
+                    f"{npz.stat().st_size} B, read alone in {read_s:.3f} s")
+            npz.unlink()
+
+        # a journaled run killed after its first segment, then resumed
+        # (4 segments of 4 batches of 8,192 reads)
+        from dbgtpu_torch import pipeline as pipeline_mod
+
+        real_align, calls = pipeline_mod.align_bulk, []
+
+        def dying(*a, **kw):
+            calls.append(1)
+            if len(calls) == 2:
+                raise KeyboardInterrupt("killed in the second segment")
+            return real_align(*a, **kw)
+
+        for name in ("paths", "notAligned.fa"):
+            (td / name).unlink()
+        pipeline_mod.align_bulk = dying
+        try:
+            cli_run("scan", "greedy", ["--resume"], batch=B // 4)
+        except KeyboardInterrupt:
+            pass
+        finally:
+            pipeline_mod.align_bulk = real_align
+        journal = json.loads((td / "paths.resume.json").read_text())
+        if journal["record_off"] != B or len(calls) != 2:
+            raise AssertionError(f"the killed run journaled {journal}")
+        paths_b, na_b, summ, _ = cli_run("scan", "greedy", ["--resume"],
+                                         batch=B // 4)
+        if ((paths_b, na_b) != outputs["scan", "greedy"]
+                or summ["reads"] != n_reads
+                or (td / "paths.resume.json").exists()):
+            raise AssertionError("--resume: the resumed run's bytes differ "
+                                 "from the uninterrupted run's")
+        log(f"[resume] killed after {journal['record_off']} of {n_reads} "
+            f"reads ({journal['paths_bytes']} B of paths journaled), "
+            f"resumed: bytes == the uninterrupted run's, journal removed")
 
         # ---- phase 4: bytes against the spec ----
         def probe_present(ix_):
@@ -1024,6 +1178,57 @@ def main() -> int:
             spec_bytes_equal("1,500 k=21 reads with N, probe-less index", br,
                              bu, 21, 1, probeless_graph(bu, 21), device,
                              probe_less, mode="exhaustive", partial=partial)
+        # path modes: host spec only, no kernel may launch
+        from dbgtpu_torch.spec import run_pipeline as spec_pipeline
+
+        n5 = 512
+        write_fasta(td / "r512.fa", (chars[r].tobytes()
+                                     for r in codes_all[:n5]))
+        for flags, mode in ((["-p"], "paths"),
+                            (["-p", "-b"], "paths-exhaustive")):
+            js = td / "summary.json"
+            build.reset_launches()
+            t0 = time.monotonic()
+            rc = cli.main(["-r", str(td / "r512.fa"), "-k", str(k), "-g",
+                           str(uf), "-m", str(m), "-f", str(td / "paths"),
+                           "-a", str(td / "notAligned.fa"),
+                           "--json-summary", str(js)] + flags)
+            wall = time.monotonic() - t0
+            summ = json.loads(js.read_text())
+            want = spec_pipeline([str(td / "r512.fa")], str(uf), k=k, m=m,
+                                 graph=graph, mode=mode)
+            if (rc != 0 or any(build.launches.values())
+                    or summ["device"] != "host-spec"
+                    or (td / "paths").read_bytes() != want[0]
+                    or (td / "notAligned.fa").read_bytes() != want[1]
+                    or not summ["aligned"]):
+                raise AssertionError(
+                    f"{' '.join(flags)}: rc {rc}, launches "
+                    f"{build.launches}, device {summ['device']}, or bytes "
+                    "differ from the spec")
+            log(f"[bytes] first {n5} survey reads [{' '.join(flags)}]: "
+                f"{summ['aligned']} aligned, byte-identical to the spec, "
+                f"device {summ['device']}, no kernel launched "
+                f"({wall:.2f} s)")
+
+        # 2 processes, each its record range of the file, merged
+        single = cli_run("scan", "greedy", reads=td / "r4096.fa")
+        shard_launches = [
+            cli_run("scan", "greedy",
+                    ["--num-processes", "2", "--process-id", str(pid)],
+                    reads=td / "r4096.fa", suffix=f".shard{pid}")[3]
+            for pid in (0, 1)]
+        if cli.main(["-r", str(td / "r4096.fa"), "-f", str(td / "paths"),
+                     "-a", str(td / "notAligned.fa"),
+                     "--merge-shards", "2"]) != 0:
+            raise AssertionError("--merge-shards failed")
+        if ((td / "paths").read_bytes(),
+                (td / "notAligned.fa").read_bytes()) != single[:2]:
+            raise AssertionError("the merged shards differ from the single "
+                                 "run")
+        log(f"[shards] {n4} reads over 2 processes, merged: bytes == the "
+            f"single run's; launches {shard_launches}")
+
         # 64-bit k-mers with 300-bp reads (L=512): k-1 = 31 in greedy
         # mode, whole 32-mers in dog mode (through the anchor MPHF too);
         # and stride-1 unitigs whose paths overflow pmax (host recompute)
@@ -1062,6 +1267,12 @@ def main() -> int:
         kernels.append(dict(name=f"{name}@mphf", route="cuda",
                             source=sources[name], replaces=replaces,
                             launches=launches["mphf", mode][name],
+                            **{key: r[key] for key in KERNEL_KEYS}))
+    for name, source, replaces in GATHER_KERNELS:
+        r = gather_results[name]
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=gather_launches[name],
                             **{key: r[key] for key in KERNEL_KEYS}))
     log(card_line())        # the card's name and power limit, as printed
     print(json.dumps({"kernels": kernels}))

@@ -4,33 +4,34 @@ Takes dbgtpu's flags for mapping on one device:
   -r reads (comma-separated), -k k, -g unitigs, -m mismatches,
   -t threads (accepted; batching replaces it), -e effort, -f paths
   file, -a notAligned file, -q fastq, -c correction, -G anchor (dog)
-  mode, -b exhaustive mode, -i partial (with -b), --batch-size,
-  --json-summary, --index-layout scan|mphf, and --device (where the
-  kernels run; default cuda).
-As in dbgtpu, -b wins over -G, and -i affects only -b.  The flags of
-features outside the port (path modes, meshes, persistence, ...) are
-recognised and refused with exit code 2, naming the flag.  Without a
-GPU the command stops unless `--device cpu` asks for the plain torch
-versions of the kernels.
+  mode, -b exhaustive mode, -i partial (with -b), -p path mode (with -b:
+  exhaustive path mode), --batch-size, --json-summary, --index-layout
+  scan|mphf, --save-index / --load-index (a persisted index; -g and -k
+  are then ignored), --resume (journaled run), --progress N,
+  --num-processes / --process-id (this process maps its share of every
+  input file and writes <out>.shard<id>), --merge-shards N, and --device
+  (where the kernels run; default cuda).
+As in dbgtpu, -p wins over -b, -b over -G, and -i affects only -b and -p.
+The path modes have no device engine: they run on the host spec, launch
+no kernel and report `"device": "host-spec"` in --json-summary.  The
+flags of features outside the port (--mesh, --shard-index,
+--coordinator, --profile-dir) are recognised and refused with exit code
+2, naming the flag.  Without a GPU the command stops unless `--device
+cpu` asks for the plain torch versions of the kernels.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 # dbgtpu flags whose engines lie outside this port: (option strings,
 # argparse keywords)
 _REFUSED = (
-    (("-p",), dict(action="store_true")),
     (("--mesh",), dict()),
     (("--shard-index",), dict(action="store_true")),
-    (("--num-processes",), dict()),
     (("--coordinator",), dict()),
-    (("--merge-shards",), dict()),
-    (("--save-index",), dict()),
-    (("--load-index",), dict()),
-    (("--resume",), dict(action="store_true")),
     (("--profile-dir",), dict()),
 )
 
@@ -40,7 +41,8 @@ def make_parser() -> argparse.ArgumentParser:
         prog="dbgtpu_torch",
         description="de Bruijn graph read mapper (BGREAT-compatible), "
         "PyTorch and CUDA port of dbgtpu: greedy, anchor (-G) and "
-        "exhaustive (-b) modes, scan and mphf index layouts, one device",
+        "exhaustive (-b) modes on one device, path modes (-p) on the "
+        "host, scan and mphf index layouts, persisted and resumable runs",
     )
     p.add_argument("-r", dest="reads", required=True,
                    help="read file(s), comma separated")
@@ -68,8 +70,36 @@ def make_parser() -> argparse.ArgumentParser:
                    help="exhaustive (branch-and-bound) mode")
     p.add_argument("-i", dest="partial", action="store_true",
                    help="with -b: accept partial alignments")
+    p.add_argument("-p", dest="paths_mode", action="store_true",
+                   help="simple-path mode (with -b: exhaustive path "
+                        "mode); runs on the host spec, no kernel")
     p.add_argument("--batch-size", type=int, default=32768,
                    help="reads per device batch (32768)")
+    p.add_argument("--save-index", metavar="FILE",
+                   help="persist the built index (npz) and continue")
+    p.add_argument("--load-index", metavar="FILE",
+                   help="load a persisted index instead of rebuilding "
+                        "(-g/-k are then ignored)")
+    p.add_argument("--num-processes", type=int, default=1,
+                   help="total processes of a sharded run; this process "
+                        "maps a contiguous record range of every input "
+                        "file and writes <out>.shard<process-id>")
+    p.add_argument("--process-id", type=int, default=0,
+                   help="this process's id in a sharded run")
+    p.add_argument("--merge-shards", type=int, default=0, metavar="N",
+                   help="merge <paths>.shard0..N-1 and "
+                        "<notAligned>.shard0..N-1 written by a sharded "
+                        "run, then exit")
+    p.add_argument("--progress", type=int, default=0, metavar="N",
+                   help="print a stats line to stderr every N completed "
+                        "device batches (reads done, aligned count/%%, "
+                        "reads/s), and the index-build phase log")
+    p.add_argument("--resume", action="store_true",
+                   help="journaled run: append output per segment and "
+                        "record (file, read offset) in "
+                        "<paths>.resume.json; the same command with "
+                        "--resume after a crash continues mid-file and "
+                        "writes the bytes of an uninterrupted run")
     p.add_argument("--json-summary", metavar="FILE",
                    help="write a structured run summary (JSON)")
     p.add_argument("--index-layout", choices=["scan", "mphf"],
@@ -87,48 +117,7 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def main(argv: list[str] | None = None) -> int:
-    parser = make_parser()
-    args = parser.parse_args(argv)
-    for flags, _ in _REFUSED:
-        val = getattr(args, "refused_" + flags[0].lstrip("-")
-                      .replace("-", "_"))
-        if val not in (None, False):
-            print(f"dbgtpu_torch: {flags[0]} needs an engine outside this "
-                  "port (greedy, -G and -b modes, one device); "
-                  "use dbgtpu", file=sys.stderr)
-            return 2
-    if not 2 <= args.k <= 32:
-        parser.error(
-            f"-k {args.k} is out of range: supported k is 2..32 "
-            "(kmers are 64-bit, as in the reference)"
-        )
-
-    import torch
-
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        print("dbgtpu_torch: no CUDA device is available; pass "
-              "--device cpu to run the plain torch kernels on the CPU",
-              file=sys.stderr)
-        return 1
-
-    from .pipeline import run_pipeline
-
-    reads_files = args.reads.split(",")
-    mode = ("exhaustive" if args.exhaustive
-            else "anchors" if args.dog_mode else "greedy")
-    paths, na, stats = run_pipeline(
-        reads_files, args.unitigs, k=args.k, m=args.mismatches,
-        effort=args.effort, fastq=args.fastq,
-        correction=args.correction, batch_size=args.batch_size,
-        device=device, mode=mode, partial=args.partial,
-        index_layout=args.index_layout,
-    )
-    with open(args.paths_file, "wb") as f:
-        f.write(paths)
-    with open(args.not_aligned_file, "wb") as f:
-        f.write(na)
+def _finish(args, reads_files, stats) -> int:
     print(f"Indexing in seconds : {int(stats.index_seconds)}")
     for rf in reads_files:
         print(rf)
@@ -140,6 +129,111 @@ def main(argv: list[str] | None = None) -> int:
             json.dump(stats.as_dict(), f, indent=2)
             f.write("\n")
     return 0
+
+
+def main(argv: list[str] | None = None) -> int:
+    parser = make_parser()
+    args = parser.parse_args(argv)
+    for flags, _ in _REFUSED:
+        val = getattr(args, "refused_" + flags[0].lstrip("-")
+                      .replace("-", "_"))
+        if val not in (None, False):
+            print(f"dbgtpu_torch: {flags[0]} needs an engine outside this "
+                  "port (one device; no mesh, sharded index, coordinator "
+                  "or profiler trace); use dbgtpu", file=sys.stderr)
+            return 2
+    if args.load_index is None and not 2 <= args.k <= 32:
+        parser.error(
+            f"-k {args.k} is out of range: supported k is 2..32 "
+            "(kmers are 64-bit, as in the reference)"
+        )
+    if args.progress:
+        # --progress also shows the index-build phase log on stderr
+        import logging
+
+        logging.basicConfig(stream=sys.stderr)
+        logging.getLogger("dbgtpu_torch").setLevel(logging.INFO)
+
+    if args.merge_shards:
+        from .dist.multihost import merge_shards
+
+        merge_shards(args.paths_file, args.merge_shards)
+        merge_shards(args.not_aligned_file, args.merge_shards)
+        return 0
+
+    mode = (
+        ("paths-exhaustive" if args.exhaustive else "paths")
+        if args.paths_mode
+        else "exhaustive" if args.exhaustive
+        else "anchors" if args.dog_mode
+        else "greedy"
+    )
+    if args.resume:
+        if args.paths_mode:
+            print("--resume takes a device mode; -p runs on the host spec",
+                  file=sys.stderr)
+            return 2
+        if args.num_processes > 1:
+            print("--resume does not combine with multi-process runs "
+                  "(each process journals its own shard files instead)",
+                  file=sys.stderr)
+            return 2
+
+    import torch
+
+    device = torch.device(args.device)
+    if (device.type == "cuda" and not args.paths_mode
+            and not torch.cuda.is_available()):
+        print("dbgtpu_torch: no CUDA device is available; pass "
+              "--device cpu to run the plain torch kernels on the CPU",
+              file=sys.stderr)
+        return 1
+
+    if args.paths_mode and device.type == "cuda":
+        print("dbgtpu_torch: path modes (-p) run on the host spec; "
+              f"--device {args.device} is not used", file=sys.stderr)
+
+    from .pipeline import run_pipeline, run_pipeline_resumable
+
+    graph = None
+    t0 = time.monotonic()
+    if args.load_index:
+        from .index.persist import load_index
+
+        graph = load_index(args.load_index)
+        args.k = graph.k
+    load_seconds = time.monotonic() - t0
+
+    reads_files = args.reads.split(",")
+    common = dict(
+        k=args.k, m=args.mismatches, effort=args.effort, fastq=args.fastq,
+        correction=args.correction, batch_size=args.batch_size, graph=graph,
+        device=device, mode=mode, partial=args.partial,
+        index_layout=args.index_layout, progress_every=args.progress,
+    )
+    if args.resume:
+        stats = run_pipeline_resumable(
+            reads_files, args.unitigs, paths_file=args.paths_file,
+            na_file=args.not_aligned_file, **common)
+        stats.index_seconds += load_seconds
+        return _finish(args, reads_files, stats)
+
+    paths, na, stats = run_pipeline(
+        reads_files, args.unitigs, save_index=args.save_index,
+        process_id=args.process_id, num_processes=args.num_processes,
+        **common)
+    stats.index_seconds += load_seconds
+    paths_file, na_file = args.paths_file, args.not_aligned_file
+    if args.num_processes > 1:
+        from .dist.multihost import shard_path
+
+        paths_file = shard_path(paths_file, args.process_id)
+        na_file = shard_path(na_file, args.process_id)
+    with open(paths_file, "wb") as f:
+        f.write(paths)
+    with open(na_file, "wb") as f:
+        f.write(na)
+    return _finish(args, reads_files, stats)
 
 
 if __name__ == "__main__":

@@ -25,6 +25,7 @@ from .. import native
 from ..constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
 from ..index.build import UnitigGraph
 from ..index.device import DeviceIndex, build_device_index
+from ..index.persist import device_index_memo
 from ..spec import spec_for
 from .compact import compact_counts, expand_compact
 from .core import align_batch_packed_compact
@@ -43,7 +44,7 @@ def get_device_index(graph: UnitigGraph, layout: str = "scan") -> DeviceIndex:
     """The graph's DeviceIndex in `layout` ("scan" or "mphf"), built once
     per layout and kept on the graph; a graph built in dog mode also
     gets its anchor table."""
-    memo = graph.__dict__.setdefault("_torch_device_index", {})
+    memo = device_index_memo(graph)
     if layout not in memo:
         memo[layout] = build_device_index(graph, layout=layout)
     return memo[layout]
@@ -109,14 +110,16 @@ def pack_records(parsed, lens_all, s0: int, nb: int, L: int):
 def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
                batch_size: int, device, mode: str = "greedy",
                partial: bool = False, index_layout: str = "scan",
-               on_batch=None, xfer=None):
+               on_batch=None, xfer=None, progress=None):
     """Mapping of every parsed record in `mode`, input order preserved.
 
     Returns (status int32 [N], path_off int64 [N+1], paths_flat int32):
     aligned reads' spans hold [offset, signed ids...], other reads have
     empty spans.  `on_batch(slot, s0, nb, status, counts, flat)` is
     called after each batch (the caller formats output there); `xfer`
-    collects the batch payload bytes (h2d_bytes, d2h_bytes)."""
+    collects the batch payload bytes (h2d_bytes, d2h_bytes);
+    `progress(done, total, aligned)` is called after each batch with the
+    records done and aligned so far in this call."""
     spec = spec_for(mode, m, effort, partial)
     di = get_device_index(graph, index_layout)
     ix = index_tensors(di, device)
@@ -126,6 +129,7 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
     status_all = np.zeros(N, np.int32)
     counts_all = np.zeros(N, np.int64)
     flat_parts: list[np.ndarray] = []
+    n_aligned = 0
     if xfer is None:
         xfer = {}
     xfer.setdefault("h2d_bytes", 0)
@@ -186,6 +190,9 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
         flat_parts.append(flat)
         if on_batch is not None:
             on_batch(slot, s0, nb, status, counts, flat)
+        if progress is not None:
+            n_aligned += int(aligned.sum())
+            progress(s0 + nb, N, n_aligned)
 
     path_off = np.zeros(N + 1, np.int64)
     np.cumsum(counts_all, out=path_off[1:])

@@ -15,7 +15,9 @@ adds one where it launches its kernel and nowhere else.  `mphf_slots`
 counts launches of K7's standalone kernel only (the check of each MPHF
 table at upload, engine/mphf.py check_mphf_table); the mapping kernels
 run the same device function (csrc/mphf.cuh) inline under an MPHF
-layout and count as themselves.
+layout and count as themselves.  The gather kernels K9-K12
+(csrc/gather.cu, engine/gather.py) are launched by tools/exp_gather.py
+and by no mapping run.
 The device index goes to the kernels as one struct (`IndexC`, csrc/common.cuh
 `dbg::Index`), passed by pointer to the C entry point and by value to
 the kernel; `load` checks that both sides agree on its size.
@@ -56,7 +58,9 @@ NVCC_FLAGS = [
 ]
 
 KERNELS = ("read_scan", "member", "greedy_walk", "walk_inits", "pack_paths",
-           "dog_anchors", "exhaustive_dfs", "mphf_slots", "compact_result")
+           "dog_anchors", "exhaustive_dfs", "mphf_slots", "compact_result",
+           "gather_rows", "gather_rowsum", "gather_rows_sum",
+           "gather_take_sum")
 launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -79,6 +83,10 @@ _ARGTYPES = {
                            _P, _P, _P, _P, _P, _P, _P, _P],
     "dbg_mphf_slots": [_P, _P, _P, _P, _LL, _P, _P],
     "dbg_compact_result": [_P, _I, _I, _I, _P, _P, _P, _P],
+    "dbg_gather_rows": [_P, _P, _LL, _I, _I, _P, _P],
+    "dbg_gather_rowsum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "dbg_gather_rows_sum": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
 }
 
 MPHF_MAX_LEVELS = 25    # csrc/common.cuh; index/mphf.py build_mphf's cap

@@ -1,16 +1,23 @@
 """End-to-end mapping on one torch device: parse -> align -> format
-(counterpart of dbgtpu/pipeline.py run_pipeline and _run_file_bulk for
-the greedy, anchor (-G) and exhaustive (-b, -i) modes and both index
-layouts).
+(counterpart of dbgtpu/pipeline.py run_pipeline, _run_file_bulk and
+run_pipeline_resumable for the greedy, anchor (-G) and exhaustive (-b,
+-i) modes and both index layouts; a persisted index, a progress line,
+record sharding over processes, and journaled runs that resume).
 
 Parsing, graph build and output formatting are this package's copies
 of dbgtpu's host modules (native C where available).  Output bytes
 equal dbgtpu's `run_pipeline` with `impl="python"` or `"jax"`, and this
-package's own spec pipeline (spec.py).
+package's own spec pipeline (spec.py).  The path modes (-p) have no
+device engine in dbgtpu, which runs them on its python spec whatever
+`--impl` says; here they run on spec.py likewise and launch no kernel.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
+import os
+import sys
 import time
 from dataclasses import dataclass
 
@@ -19,11 +26,20 @@ import torch
 
 from . import native
 from .constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
+from .dist.multihost import shard_ranges
 from .engine.index import index_tensors
 from .engine.runner import align_bulk, get_device_index
 from .index.build import UnitigGraph, build_graph
 from .index.device import hbm_report
-from .spec import _CHARS, RunStats, _count_stats, _format_outputs
+from .index.persist import save_index as persist_index
+from .spec import (
+    _CHARS, RunStats, _count_stats, _format_outputs,
+    run_pipeline as spec_pipeline,
+)
+
+DEVICE_MODES = ("greedy", "anchors", "exhaustive")
+PATH_MODES = ("paths", "paths-exhaustive")     # host spec only
+HOST_SPEC = "host-spec"     # `device` of a run that launched no kernel
 
 
 @dataclass
@@ -55,10 +71,58 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def make_progress_printer(every_batches: int):
+    """Periodic in-run stats line (the reference prints a stats block
+    every 10 read-batches, alignerExhaustive.cpp:306-316).  Returns an
+    align_bulk `progress` callback printing to stderr every
+    `every_batches` completed batches (and on the final batch), or None
+    when disabled (copy of dbgtpu/pipeline.py make_progress_printer)."""
+    if not every_batches:
+        return None
+
+    t0 = time.monotonic()
+    # `done`/`total`/`aligned` reset on every align_bulk call (one call
+    # per file / per resumable segment) while t0 spans the whole run;
+    # callers mark call boundaries via progress.segment() so the line
+    # reports cumulative counts against the cumulative elapsed time
+    seen = {"n": 0, "done": 0, "total": 0, "aligned": 0,
+            "prev": (0, 0, 0)}
+
+    def segment():
+        d, t, a = seen["prev"]
+        seen["done"] += d
+        seen["total"] += t
+        seen["aligned"] += a
+        seen["prev"] = (0, 0, 0)
+
+    def progress(done, total, aligned):
+        seen["n"] += 1
+        seen["prev"] = (done, total, aligned)
+        if seen["n"] % every_batches and done < total:
+            return
+        d = seen["done"] + done
+        t = seen["total"] + total
+        a = seen["aligned"] + aligned
+        dt = max(time.monotonic() - t0, 1e-9)
+        pct = 100.0 * a / max(d, 1)
+        print(
+            f"[progress] reads {d}/{t} | aligned {a} "
+            f"({pct:.1f}%) | {d / dt:,.0f} reads/s",
+            file=sys.stderr, flush=True,
+        )
+
+    progress.segment = segment
+    return progress
+
+
 def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
-              mode, partial, index_layout, stats, paths_out, na_out):
+              mode, partial, index_layout, stats, paths_out, na_out,
+              rec_range=None, progress=None):
     t = time.monotonic()
     parsed = native.parse_reads(rf, graph.k, fastq)
+    if rec_range is not None:
+        s, e = rec_range(parsed.n)
+        parsed = parsed.slice_records(s, e)
     stats.parse_seconds += time.monotonic() - t
     on_batch = None
     parts_p: dict = {}
@@ -96,7 +160,7 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
     status, path_off, flat = align_bulk(
         graph, parsed, m, effort, batch_size=batch_size, device=device,
         mode=mode, partial=partial, index_layout=index_layout,
-        on_batch=on_batch, xfer=xfer,
+        on_batch=on_batch, xfer=xfer, progress=progress,
     )
     stats.align_seconds += time.monotonic() - t
     stats.payload_h2d_bytes += xfer["h2d_bytes"]
@@ -113,6 +177,19 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
         na_out.append(nab)
 
 
+def _upload_index(graph, index_layout, device, stats) -> None:
+    """The graph's device index in `index_layout`, built unless the graph
+    carries it, and its tensors on `device` (memoized per device)."""
+    t = time.monotonic()
+    di = get_device_index(graph, index_layout)
+    stats.device_index_seconds = time.monotonic() - t
+    t = time.monotonic()
+    index_tensors(di, device)
+    _sync(device)
+    stats.upload_seconds = time.monotonic() - t
+    stats.index_hbm = hbm_report(di)
+
+
 def run_pipeline(
     reads_files: list[str],
     unitig_file: str,
@@ -127,37 +204,221 @@ def run_pipeline(
     mode: str = "greedy",
     partial: bool = False,
     index_layout: str = "scan",
+    save_index: str | None = None,
+    process_id: int = 0,
+    num_processes: int = 1,
+    progress_every: int = 0,
 ):
     """Returns (paths_bytes, not_aligned_bytes, TorchRunStats).
 
     `device` is where the kernels run: a CUDA device, or "cpu" for the
     plain torch versions of the kernels (tests and small runs).  `mode`
     is "greedy", "anchors" (-G) or "exhaustive" (-b); `partial` (-i)
-    applies to exhaustive mode.  `index_layout` is "scan" or "mphf"
-    (the compact MPHF junction table, and MPHF dog anchors at any size).
-    A graph passed in for anchor mode must be built with
-    dog_mode=True."""
+    applies to exhaustive mode.  "paths" and "paths-exhaustive" (-p) run
+    on the host spec and launch no kernel: their stats say `device` =
+    "host-spec".  `index_layout` is "scan" or "mphf" (the compact MPHF
+    junction table, and MPHF dog anchors at any size).  A graph passed in
+    (a loaded index) for anchor mode must be built with dog_mode=True.
+    `save_index` persists the graph with its device index in
+    `index_layout` (inside index_seconds).  With `num_processes` > 1 this
+    process maps a contiguous record range of every input file; the
+    caller merges the processes' outputs in order
+    (dist.multihost.merge_shards) for the bytes of a single run.
+    `progress_every` prints a stats line every that many batches."""
+    if mode not in DEVICE_MODES + PATH_MODES:
+        raise ValueError(f"unknown mode {mode!r}")
     device = torch.device(device)
     stats = TorchRunStats(device=str(device))
     t0 = time.monotonic()
     if graph is None:
         graph = build_graph(unitig_file, k, dog_mode=(mode == "anchors"))
+    if save_index:
+        persist_index(graph, save_index, layout=index_layout)
     stats.index_seconds = time.monotonic() - t0
 
-    t1 = time.monotonic()
-    di = get_device_index(graph, index_layout)
-    stats.device_index_seconds = time.monotonic() - t1
-    t = time.monotonic()
-    index_tensors(di, device)
-    _sync(device)
-    stats.upload_seconds = time.monotonic() - t
-    stats.index_hbm = hbm_report(di)
+    rec_range = None
+    if num_processes > 1:
+        def rec_range(n):
+            return shard_ranges(n, num_processes)[process_id]
 
+    if mode in PATH_MODES:
+        stats.device = HOST_SPEC
+        paths, na, host = spec_pipeline(
+            reads_files, unitig_file, k, m=m, effort=effort, fastq=fastq,
+            correction=correction, graph=graph, mode=mode, partial=partial,
+            rec_range=rec_range)
+        for name in ("read_number", "aligned", "not_aligned", "no_overlap",
+                     "map_seconds"):
+            setattr(stats, name, getattr(host, name))
+        return paths, na, stats
+
+    t1 = time.monotonic()
+    _upload_index(graph, index_layout, device, stats)
+    progress = make_progress_printer(progress_every)
     paths_out: list[bytes] = []
     na_out: list[bytes] = []
     for rf in reads_files:
+        if progress is not None:
+            progress.segment()
         _run_file(graph, rf, m, effort, fastq, correction, batch_size,
                   device, mode, partial, index_layout, stats, paths_out,
-                  na_out)
+                  na_out, rec_range=rec_range, progress=progress)
     stats.map_seconds = time.monotonic() - t1
     return b"".join(paths_out), b"".join(na_out), stats
+
+
+def _journal_fingerprint(reads_files, unitig_file, k, m, effort, mode,
+                         fastq, correction, partial) -> str:
+    """Every parameter that affects the output must be in this blob:
+    --resume is right only if the fingerprint rejects a resume whose
+    records would be computed differently from the journaled ones (a
+    run killed without -i and resumed with -i would mix partial and
+    non-partial alignments).  The blob is dbgtpu's."""
+    blob = repr((list(reads_files), unitig_file, k, m, effort, mode,
+                 bool(fastq), bool(correction), bool(partial))).encode()
+    return hashlib.sha256(blob).hexdigest()[:16]
+
+
+def run_pipeline_resumable(
+    reads_files: list[str],
+    unitig_file: str,
+    k: int,
+    paths_file: str,
+    na_file: str,
+    m: int = 2,
+    effort: int = 2,
+    fastq: bool = False,
+    correction: bool = False,
+    batch_size: int = 32768,
+    graph: UnitigGraph | None = None,
+    device="cuda",
+    mode: str = "greedy",
+    partial: bool = False,
+    index_layout: str = "scan",
+    segment_records: int = 0,
+    progress_every: int = 0,
+) -> TorchRunStats:
+    """Crash-resumable mapping run (counterpart of dbgtpu/pipeline.py
+    run_pipeline_resumable; same journal, so either package resumes the
+    other's run).
+
+    Output is written per segment of `segment_records` reads and
+    progress is journaled to `<paths_file>.resume.json`: append outputs
+    -> flush+fsync -> atomically replace the journal (tmp + rename) with
+    the new (file index, record offset, output byte offsets, running
+    stats).  A killed run restarts with the same command + --resume:
+    outputs are truncated to the journaled byte offsets (dropping any
+    torn tail past the last fsync) and mapping continues at the
+    journaled record offset, so the final bytes equal a single
+    uninterrupted run's.  The journal is removed on completion."""
+    if mode not in DEVICE_MODES:
+        raise ValueError(f"a resumable run takes a device mode, not {mode!r}")
+    device = torch.device(device)
+    stats = TorchRunStats(device=str(device))
+    t_ix = time.monotonic()
+    if graph is None:
+        graph = build_graph(unitig_file, k, dog_mode=(mode == "anchors"))
+    t_ix = time.monotonic() - t_ix
+    if not segment_records:
+        segment_records = 4 * batch_size
+    segment_records = max(segment_records, batch_size)
+
+    journal_file = paths_file + ".resume.json"
+    fp = _journal_fingerprint(
+        reads_files, unitig_file, k, m, effort, mode, fastq, correction,
+        partial,
+    )
+    state = {
+        "version": 1, "fingerprint": fp, "file_idx": 0, "record_off": 0,
+        "paths_bytes": 0, "na_bytes": 0,
+        "stats": dict(read_number=0, aligned=0, not_aligned=0,
+                      no_overlap=0),
+    }
+    if os.path.exists(journal_file):
+        with open(journal_file) as f:
+            prev = json.load(f)
+        if prev.get("fingerprint") != fp:
+            raise ValueError(
+                f"--resume journal {journal_file} was written by a run "
+                "with different inputs/parameters; delete it to start "
+                "fresh"
+            )
+        state = prev
+
+    # truncate any torn tail beyond the last journaled fsync, then
+    # append from there
+    for path, off in ((paths_file, state["paths_bytes"]),
+                      (na_file, state["na_bytes"])):
+        if os.path.exists(path):
+            with open(path, "r+b") as f:
+                f.truncate(off)
+        elif off:
+            raise ValueError(
+                f"--resume journal expects {off} bytes in {path}, "
+                "but the file is missing; delete the journal to start "
+                "fresh"
+            )
+    for name, val in state["stats"].items():
+        setattr(stats, name, val)
+    stats.index_seconds = t_ix
+    t1 = time.monotonic()
+    _upload_index(graph, index_layout, device, stats)
+    progress = make_progress_printer(progress_every)
+
+    with open(paths_file, "ab") as pf, open(na_file, "ab") as naf:
+        for fi, rf in enumerate(reads_files):
+            if fi < state["file_idx"]:
+                continue
+            t = time.monotonic()
+            parsed_all = native.parse_reads(rf, graph.k, fastq)
+            stats.parse_seconds += time.monotonic() - t
+            start = state["record_off"] if fi == state["file_idx"] else 0
+            for s0 in range(start, parsed_all.n, segment_records):
+                e0 = min(s0 + segment_records, parsed_all.n)
+                parsed = parsed_all.slice_records(s0, e0)
+                if progress is not None:
+                    progress.segment()
+                xfer: dict = {}
+                t = time.monotonic()
+                status, path_off, flat = align_bulk(
+                    graph, parsed, m, effort, batch_size=batch_size,
+                    device=device, mode=mode, partial=partial,
+                    index_layout=index_layout, progress=progress, xfer=xfer,
+                )
+                aligned = _count_stats(stats, status)
+                pb, nab = _format_outputs(
+                    graph, parsed, status, path_off, flat, correction,
+                    aligned,
+                )
+                stats.align_seconds += time.monotonic() - t
+                stats.payload_h2d_bytes += xfer["h2d_bytes"]
+                stats.payload_d2h_bytes += xfer["d2h_bytes"]
+                pf.write(pb)
+                pf.flush()
+                os.fsync(pf.fileno())
+                naf.write(nab)
+                naf.flush()
+                os.fsync(naf.fileno())
+                state.update(
+                    file_idx=fi, record_off=e0,
+                    paths_bytes=state["paths_bytes"] + len(pb),
+                    na_bytes=state["na_bytes"] + len(nab),
+                    stats=dict(
+                        read_number=stats.read_number,
+                        aligned=stats.aligned,
+                        not_aligned=stats.not_aligned,
+                        no_overlap=stats.no_overlap,
+                    ),
+                )
+                tmp = journal_file + ".tmp"
+                with open(tmp, "w") as jf:
+                    json.dump(state, jf)
+                    jf.flush()
+                    os.fsync(jf.fileno())
+                os.replace(tmp, journal_file)
+            state["file_idx"] = fi + 1
+            state["record_off"] = 0
+    stats.map_seconds = time.monotonic() - t1
+    if os.path.exists(journal_file):
+        os.remove(journal_file)
+    return stats

@@ -3,10 +3,12 @@ with it: parse -> align one read at a time on the host -> format.
 
 Copy of the module-level helpers of dbgtpu/pipeline.py (`RunStats`,
 `_count_stats`, `_format_outputs`, `_CHARS`) and of the `impl="python"`
-branch of its `run_pipeline`, for the three modes the port runs
-(greedy, anchors, exhaustive).  `run_pipeline` here is the reference
-the device pipeline (dbgtpu_torch/pipeline.py) must equal byte for
-byte; it shares no code with the kernels or their plain versions.
+branch of its `run_pipeline`, for the three modes the port runs on the
+device (greedy, anchors, exhaustive) and the two path modes (-p), which
+have no device engine in either package and run here.  `run_pipeline`
+here is the reference the device pipeline (dbgtpu_torch/pipeline.py)
+must equal byte for byte; it shares no code with the kernels or their
+plain versions.
 """
 
 from __future__ import annotations
@@ -188,6 +190,16 @@ def spec_for(mode: str, m: int, effort: int, partial: bool):
     if mode == "exhaustive":
         return lambda g, codes, nm: align_read_exhaustive(
             g, codes, nm, m, partial)
+    if mode == "paths":
+        from .paths_mode import align_read_greedy_path
+
+        return lambda g, codes, nm: align_read_greedy_path(
+            g, codes, nm, m, effort, partial)
+    if mode == "paths-exhaustive":
+        from .paths_mode import align_read_exhaustive_path
+
+        return lambda g, codes, nm: align_read_exhaustive_path(
+            g, codes, nm, m, partial)
     raise ValueError(f"unknown mode {mode!r}")
 
 
@@ -202,9 +214,13 @@ def run_pipeline(
     graph: UnitigGraph | None = None,
     mode: str = "greedy",
     partial: bool = False,
+    rec_range=None,
 ):
     """Returns (paths_bytes, not_aligned_bytes, RunStats), every read
-    aligned on the host by the executable spec of `mode`."""
+    aligned on the host by the executable spec of `mode` ("greedy",
+    "anchors", "exhaustive", "paths" or "paths-exhaustive").
+    `rec_range(n) -> (start, end)` keeps that record range of every
+    input file (process sharding)."""
     stats = RunStats()
     t0 = time.monotonic()
     if graph is None:
@@ -216,7 +232,12 @@ def run_pipeline(
     na_out: list[bytes] = []
     t1 = time.monotonic()
     for rf in reads_files:
-        for header, seq in iter_reads(rf, k, fastq):
+        records = iter_reads(rf, k, fastq)
+        if rec_range is not None:
+            records = list(records)
+            s, e = rec_range(len(records))
+            records = records[s:e]
+        for header, seq in records:
             status, path = align(graph, encode(seq), n_mask(seq))
             stats.read_number += 1
             if status in (STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC):

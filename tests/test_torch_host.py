@@ -1,36 +1,47 @@
 """The host modules dbgtpu_torch keeps as its own copies (constants, seq,
-io.fasta, index.hash32 / build / device / mphf, native, the executable
-spec model / anchors / exhaustive, and spec.py's output helpers) against
-the dbgtpu originals on seeded inputs: same arrays, same bytes
-(tolerance 0).  The port never imports dbgtpu; only these tests hold
-both packages side by side."""
+io.fasta, index.hash32 / build / device / mphf / persist, native, the
+executable spec model / anchors / exhaustive / paths_mode, spec.py's
+output helpers, the dist.multihost helpers and tools/) against the
+dbgtpu originals on seeded inputs: same arrays, same bytes (tolerance
+0).  The port never imports dbgtpu; only these tests hold both packages
+side by side."""
 
+import ast
 import dataclasses
+import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
 
 import dbgtpu.anchors
 import dbgtpu.constants
+import dbgtpu.dist.multihost
 import dbgtpu.exhaustive
 import dbgtpu.index.build
 import dbgtpu.index.device
 import dbgtpu.index.mphf
+import dbgtpu.index.persist
 import dbgtpu.io.fasta
 import dbgtpu.model
 import dbgtpu.native
+import dbgtpu.paths_mode
 import dbgtpu.pipeline
 import dbgtpu.seq
 import dbgtpu_torch.anchors
 import dbgtpu_torch.constants
+import dbgtpu_torch.dist.multihost
 import dbgtpu_torch.exhaustive
 import dbgtpu_torch.index.build
 import dbgtpu_torch.index.device
 import dbgtpu_torch.index.hash32
 import dbgtpu_torch.index.mphf
+import dbgtpu_torch.index.persist
 import dbgtpu_torch.io.fasta
 import dbgtpu_torch.model
 import dbgtpu_torch.native
+import dbgtpu_torch.paths_mode
+import dbgtpu_torch.pipeline
 import dbgtpu_torch.seq
 import dbgtpu_torch.spec
 from dbgtpu.engine import kmer32
@@ -330,3 +341,116 @@ def test_spec_pipeline_equal(tmp_path, mode, partial):
               if "seconds" not in f.name]
     for f in fields:
         assert getattr(got[2], f) == getattr(want[2], f), f
+
+
+@pytest.mark.parametrize("mode,partial", [("paths", False), ("paths", True),
+                                          ("paths-exhaustive", False)])
+def test_spec_pipeline_path_modes_equal(tmp_path, mode, partial):
+    """spec.run_pipeline in the path modes is dbgtpu's run_pipeline, whose
+    path modes run on the python spec under either impl; a record range
+    keeps the same reads."""
+    rf, uf = _dataset(tmp_path, 151, 21, n_frac=0.1)
+    got = dbgtpu_torch.spec.run_pipeline([rf], uf, k=21, m=2, mode=mode,
+                                         partial=partial)
+    want = dbgtpu.pipeline.run_pipeline([rf], uf, k=21, m=2, impl="jax",
+                                        mode=mode, partial=partial)
+    assert got[:2] == want[:2] and got[0]
+    got = dbgtpu_torch.spec.run_pipeline(
+        [rf], uf, k=21, m=2, mode=mode, partial=partial,
+        rec_range=lambda n: dbgtpu.dist.multihost.shard_ranges(n, 3)[1])
+    want = dbgtpu.pipeline.run_pipeline(
+        [rf], uf, k=21, m=2, impl="python", mode=mode, partial=partial,
+        process_id=1, num_processes=3)
+    assert got[:2] == want[:2] and got[2].read_number == want[2].read_number
+
+
+@pytest.mark.parametrize("name", ["shard_files", "shard_ranges",
+                                  "shard_path", "merge_shards"])
+def test_multihost_helpers_equal(tmp_path, name):
+    own, ref = dbgtpu_torch.dist.multihost, dbgtpu.dist.multihost
+    assert inspect.getsource(getattr(own, name)) == inspect.getsource(
+        getattr(ref, name))
+    assert not hasattr(own, "init_distributed")
+    files = [f"f{i}" for i in range(7)]
+    for n in (1, 2, 3, 8):
+        for total in (0, 1, 7, 100):
+            assert own.shard_ranges(total, n) == ref.shard_ranges(total, n)
+        for pid in range(n):
+            assert own.shard_files(files, pid, n) == ref.shard_files(
+                files, pid, n)
+            assert own.shard_path("out", pid) == ref.shard_path("out", pid)
+    for mod, base in ((own, tmp_path / "own"), (ref, tmp_path / "ref")):
+        for i in range(3):
+            Path(mod.shard_path(str(base), i)).write_bytes(
+                bytes([65 + i]) * (1 << 20 | i))
+        mod.merge_shards(str(base), 3)
+        assert not Path(mod.shard_path(str(base), 0)).exists()
+        with pytest.raises(FileNotFoundError):
+            mod.merge_shards(str(base), 3)
+    assert (tmp_path / "own").read_bytes() == (tmp_path / "ref").read_bytes()
+
+
+@pytest.mark.parametrize("name", [
+    "tools/convert_one_line.py", "tools/no_n.py",
+    "tools/get_large_unitigs.py", "tools/dbg_construction.py",
+])
+def test_tool_copies_are_verbatim(name):
+    root = Path(dbgtpu.__file__).resolve().parents[1]
+    assert (root / "dbgtpu_torch" / name).read_bytes() == (
+        root / "dbgtpu" / name).read_bytes()
+
+
+@pytest.mark.parametrize("name", [
+    "align_read_exhaustive_path", "align_read_greedy_path",
+])
+def test_paths_mode_functions_are_verbatim(name):
+    """paths_mode.py differs from its original in the module docstring
+    only."""
+    own, ref = dbgtpu_torch.paths_mode, dbgtpu.paths_mode
+    assert inspect.getsource(getattr(own, name)) == inspect.getsource(
+        getattr(ref, name))
+    body = [inspect.getsource(m).split('"""', 2)[2] for m in (own, ref)]
+    assert body[0] == body[1]
+
+
+@pytest.mark.parametrize("name", [
+    "_anchor_arrays", "_load_anchors", "_load_v1", "_dict_to_arrays",
+    "_arrays_to_dict", "save_graph", "load_graph",
+])
+def test_persist_helpers_are_verbatim(name):
+    """The v1 reader and writer and the anchor helpers of index/persist.py
+    are dbgtpu's, comments aside (tests/test_torch_persist.py holds
+    save_index and load_index to dbgtpu's files)."""
+    def code(mod):
+        """The function's syntax tree without docstrings and local
+        imports (the port imports at module level)."""
+        tree = ast.parse(inspect.getsource(getattr(mod, name)))
+        for node in ast.walk(tree):
+            body = getattr(node, "body", None)
+            if isinstance(body, list):
+                node.body = [
+                    n for n in body
+                    if not isinstance(n, (ast.Import, ast.ImportFrom))
+                    and not (isinstance(n, ast.Expr)
+                             and isinstance(n.value, ast.Constant)
+                             and isinstance(n.value.value, str))]
+        return ast.dump(tree)
+
+    assert code(dbgtpu_torch.index.persist) == code(dbgtpu.index.persist)
+
+
+def test_progress_printer_is_dbgtpus(capsys):
+    """make_progress_printer prints dbgtpu's line for the same calls."""
+    outs = []
+    for mod in (dbgtpu.pipeline, dbgtpu_torch.pipeline):
+        progress = mod.make_progress_printer(2)
+        progress.segment()
+        for done in (10, 20, 30):
+            progress(done, 30, done // 2)
+        progress.segment()
+        progress(5, 5, 5)
+        err = capsys.readouterr().err
+        outs.append([ln.rsplit("|", 1)[0] for ln in err.splitlines()])
+        assert mod.make_progress_printer(0) is None
+    assert outs[0] == outs[1] and len(outs[1]) == 3
+    assert outs[1][-1].startswith("[progress] reads 35/35 | aligned 20 ")

@@ -1,7 +1,8 @@
 """The dbgtpu_torch slice end to end on the CPU (the kernels' plain
 versions): output bytes against dbgtpu's python spec and JAX engine
-under both index layouts, the CLI, the refused flags, and that the port
-runs without JAX and without dbgtpu."""
+under both index layouts, the CLI, the refused flags and the flags that
+were refused once, and that the port runs without JAX and without
+dbgtpu."""
 
 import json
 import os
@@ -205,11 +206,39 @@ def test_cli_mphf_layouts_equal_spec_and_jax_engine(tmp_path, flags, mode,
     ["--save-index", "x.npz"], ["--load-index", "x.npz"], ["--resume"],
     ["--profile-dir", "prof"],
 ])
-def test_cli_refuses_flags_outside_the_slice(flags, capsys):
-    assert cli.main(["-r", "reads.fa", "-k", "21", "--device", "cpu"]
-                    + flags) == 2
-    refused = "-p" if "-p" in flags else flags[0]
-    assert refused in capsys.readouterr().err
+def test_cli_refuses_flags_outside_the_slice(tmp_path, monkeypatch, flags,
+                                             capsys):
+    """The flags that need more than one card or a profiler exit 2 naming
+    the flag.  The flags the port used to refuse (path modes, persistence,
+    --resume, process sharding) now run: the same inputs give dbgtpu's
+    bytes."""
+    if flags[0] in ("--mesh", "--shard-index", "--coordinator",
+                    "--profile-dir"):
+        assert cli.main(["-r", "reads.fa", "-k", "21", "--device", "cpu"]
+                        + flags) == 2
+        assert flags[0] in capsys.readouterr().err
+        return
+    rf, uf = _files(tmp_path, 79, 21, 48, n_frac=0.1)
+    monkeypatch.chdir(tmp_path)
+    base = ["-r", rf, "-k", "21", "-g", uf, "--device", "cpu"]
+    mode = ("paths-exhaustive" if flags == ["-b", "-p"]
+            else "paths" if flags == ["-p"] else "greedy")
+    want = dbgtpu_pipeline([rf], uf, k=21, impl="python", mode=mode)
+    if flags[0] == "--load-index":
+        assert cli.main(base + ["--save-index", "x.npz"]) == 0
+    if flags[0] in ("--num-processes", "--merge-shards"):
+        for pid in (0, 1):
+            assert cli.main(base + ["--num-processes", "2", "--process-id",
+                                    str(pid)]) == 0
+        assert not (tmp_path / "paths").exists()
+        assert cli.main(["-r", rf, "--merge-shards", "2"]) == 0
+    else:
+        assert cli.main(base + flags) == 0
+    assert (tmp_path / "paths").read_bytes() == want[0]
+    assert (tmp_path / "notAligned.fa").read_bytes() == want[1]
+    assert want[2].aligned > 0
+    if flags[0] == "--save-index":
+        assert (tmp_path / "x.npz").exists()
 
 
 def test_cli_without_gpu_stops(tmp_path, monkeypatch, capsys):
@@ -234,12 +263,26 @@ def test_port_runs_without_jax_and_without_dbgtpu(tmp_path):
         "sys.modules['dbgtpu'] = None\n"
         "import dbgtpu_torch, dbgtpu_torch.cli, dbgtpu_torch.pipeline\n"
         "import dbgtpu_torch.engine.core, dbgtpu_torch.kernels.build\n"
+        "import dbgtpu_torch.kernels.measure\n"
         "import dbgtpu_torch.spec, dbgtpu_torch.native\n"
+        "import dbgtpu_torch.index.persist, dbgtpu_torch.paths_mode\n"
+        "import dbgtpu_torch.dist.multihost, dbgtpu_torch.engine.gather\n"
+        "import dbgtpu_torch.tools.exp_gather, dbgtpu_torch.tools.ggmap\n"
+        "import dbgtpu_torch.tools.convert_one_line, dbgtpu_torch.tools.no_n\n"
+        "import dbgtpu_torch.tools.get_large_unitigs\n"
+        "import dbgtpu_torch.tools.dbg_construction\n"
         "from dbgtpu_torch.pipeline import run_pipeline\n"
         "for layout in ('scan', 'mphf'):\n"
         f"    p, n, s = run_pipeline([{rf!r}], {uf!r}, k=21, device='cpu',\n"
         "                           index_layout=layout)\n"
         "    assert s.read_number == 16 and len(p) > 0\n"
+        f"p, n, s = run_pipeline([{rf!r}], {uf!r}, k=21, mode='paths',\n"
+        "                       save_index='alone.npz')\n"
+        "assert s.device == 'host-spec' and len(p) > 0\n"
+        "from dbgtpu_torch.index.persist import load_index\n"
+        "g = load_index('alone.npz')\n"
+        f"assert run_pipeline([{rf!r}], '', k=21, graph=g, device='cpu',\n"
+        "                    mode='paths')[0] == p\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'dbgtpu') and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
@@ -267,6 +310,13 @@ def test_port_runs_without_jax_and_without_dbgtpu(tmp_path):
         assert (alone / "paths").exists() == ok
     want = dbgtpu_pipeline([rf], uf, k=21, impl="python", mode="anchors")
     assert (alone / "paths").read_bytes() == want[0]
+    # the gather experiment from the copy alone: plain versions on the CPU
+    res = subprocess.run(
+        [sys.executable, "-m", "dbgtpu_torch.tools.exp_gather", "--device",
+         "cpu"], env=env, cwd=alone, capture_output=True, text=True,
+        timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.count("== plain version (exact)") == 5
 
 
 _IMPORT = re.compile(
@@ -276,7 +326,12 @@ _IMPORT = re.compile(
 def test_port_sources_never_import_jax_or_dbgtpu():
     paths = [*(ROOT / "dbgtpu_torch").rglob("*.py"), ROOT / "chip_smoke.py",
              ROOT / "torch_profile.py"]
-    assert len(paths) > 25
+    assert len(paths) > 40
+    names = {str(p.relative_to(ROOT)) for p in paths}
+    assert {"dbgtpu_torch/index/persist.py", "dbgtpu_torch/paths_mode.py",
+            "dbgtpu_torch/dist/multihost.py", "dbgtpu_torch/engine/gather.py",
+            "dbgtpu_torch/tools/exp_gather.py",
+            "dbgtpu_torch/tools/ggmap.py"} <= names
     for path in paths:
         found = _IMPORT.search(path.read_text())
         assert found is None, (path, found.group(0))
@@ -293,8 +348,8 @@ def test_kernel_build_recipe(monkeypatch):
 
     names = {p.name for p in build.sources()}
     assert {"read_scan.cu", "member.cu", "walk.cu", "pack.cu", "dog.cu",
-            "exhaustive.cu", "mphf.cu", "compact.cu", "common.cuh",
-            "junction.cuh", "mphf.cuh"} <= names
+            "exhaustive.cu", "mphf.cu", "compact.cu", "gather.cu",
+            "common.cuh", "junction.cuh", "mphf.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     so = build.library_path()
     assert so.parent == ROOT / "build" / "dbgtpu_torch"

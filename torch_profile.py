@@ -16,6 +16,12 @@ formatting; the payload bytes of the compact result fetch are printed
 beside what padded rows would have taken.  One more warm run goes under
 torch.profiler: the device busy share is the summed duration of the
 device-side events (kernels, copies, memsets) over that run's host wall.
+Each built index also goes through `--load-index`'s path (the
+`--load-index` leg): it is saved (dbgtpu_torch.index.persist.save_index),
+its file read alone, loaded to host arrays
+(dbgtpu_torch.index.persist.load_index) and uploaded, timed until the
+index tensors are on the card, beside the seconds the build took; the
+loaded tensors must equal the built ones.
 Then each kernel of the mode is timed against its plain version on the
 first 32,768-read batch with its bound (chip_smoke.compare_kernels: the
 published memory rate; here also the bound at the measured rate; in an
@@ -134,6 +140,51 @@ def measure_copy_rate(device) -> float:
     return 2 * n / (ms / 1e3)
 
 
+def load_leg(tag, graph, layout, built_ix, device, td) -> dict:
+    """The `--load-index` leg of one built index: seconds to save it, to
+    read its file alone, to load it to host arrays and to upload them;
+    the tensors that arrive must equal `built_ix`'s."""
+    import torch
+
+    import chip_smoke as cs
+    from dbgtpu_torch.engine.index import index_tensors
+    from dbgtpu_torch.engine.runner import get_device_index
+    from dbgtpu_torch.index.persist import load_index, save_index
+
+    path = td / f"index_{layout}_{int(graph.dog_mode)}.npz"
+    out = {}
+    t0 = time.monotonic()
+    save_index(graph, str(path), layout=layout)
+    out["save_s"] = time.monotonic() - t0
+    out["file_bytes"] = path.stat().st_size
+    t0 = time.monotonic()
+    with open(path, "rb") as f:
+        while f.read(1 << 24):
+            pass
+    out["read_s"] = time.monotonic() - t0
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    g = load_index(str(path))
+    out["load_s"] = time.monotonic() - t0
+    ix = index_tensors(get_device_index(g, layout), device)
+    torch.cuda.synchronize()
+    out["ready_s"] = time.monotonic() - t0
+    for a, b in zip(ix.tensors(), built_ix.tensors()):
+        if a.shape != b.shape or not torch.equal(a, b):
+            raise AssertionError(f"{tag} the loaded index tensors differ "
+                                 "from the built ones")
+    del ix, g
+    torch.cuda.empty_cache()
+    path.unlink()
+    cs.log(f"{tag} --load-index leg: file {out['file_bytes']} B saved in "
+           f"{out['save_s']:.3f} s, read alone in {out['read_s']:.3f} s; "
+           f"host load {out['load_s']:.3f} s, tensors on the card after "
+           f"{out['ready_s']:.3f} s (upload "
+           f"{out['ready_s'] - out['load_s']:.3f} s); loaded tensors == "
+           f"built tensors")
+    return out
+
+
 def run_workload(name, layouts, modes, reps, device, card, copy_rate):
     """One JSON-ready dict per (workload, layout) cell; the workload and
     its graphs are made once and shared by the layouts."""
@@ -188,12 +239,16 @@ def run_workload(name, layouts, modes, reps, device, card, copy_rate):
             ib["hbm_report"] = hbm_report(di)
             built[dog] = (graph, di, ix)
             out["dog_index" if dog else "index"] = ib
-            cs.log(f"[{name}:{layout}]{' (dog mode)' * dog} device index "
+            cs.log(f"[{name}:{layout}]{' (dog mode)' * dog} graph "
+                   f"{ib['graph_s']:.3f} s, device index "
                    f"{ib['device_index_s']:.3f} s, upload "
                    f"{ib['upload_s']:.3f} s with "
                    f"{ib['upload_mphf_slots_launches']} mphf_slots launches "
                    f"(the table check), index tensors "
                    f"{ib['index_bytes']} B, hbm_report {ib['hbm_report']}")
+            ib["load"] = load_leg(
+                f"[{name}:{layout}]{' (dog mode)' * dog}", graph, layout, ix,
+                device, td)
         for mode in modes:
             out["modes"][mode] = run_mode(
                 f"{name}:{layout}", mode, layout, reps, device, codes_all, rf,
