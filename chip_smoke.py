@@ -11,17 +11,27 @@ its own kernel), then:
      the native parser / formatter must build too;
   2. runs the kernels of each mode's path and their plain torch versions
      on the same CUDA inputs (the first 32,768-read batch of the survey
-     workload) and requires exactly equal integer outputs; prints both
-     times and each kernel's bound.  Greedy: K1 read_scan, K2 member, K3
-     greedy_walk, K4 pack_paths, K8 compact_result (int16 and int32);
-     anchors (-G): K5 dog_anchors, K3 walk_inits (the walk from K5's
-     inits); exhaustive (-b): K2's exhaustive mode, K6 exhaustive_dfs.
-     The same again on the mphf index as the main path holds it (with
-     its probe table, so K2 takes the closure-probe branch on this batch;
-     K3, walk_inits, K5 and K6 run K7's device function inline), and K2
-     once more on that index without the probe table (its per-position
-     MPHF branch, which batches with N take; no main-path launch count
-     goes with that row).  K7 mphf_slots itself against its plain
+     workload) and requires exactly equal integer outputs; prints each
+     kernel's time alone (back-to-back launches of its C entry point
+     into outputs allocated once and checked equal to the wrapper's:
+     `alone_ms`), through its wrapper (`ms`), its plain version's and its
+     bound.  With `--baseline-csrc DIR` the kernels built from DIR (an
+     older tree's dbgtpu_torch/csrc) are timed alone beside these in
+     turns (baseline, this, this, baseline).  Greedy: K1 read_scan, K2
+     member, K3 greedy_walk, K4 pack_paths, K8 compact_result (int16 and
+     int32); anchors (-G): K5 dog_anchors, K3 walk_inits (the walk from
+     K5's inits); exhaustive (-b): K2's exhaustive mode, K6
+     exhaustive_dfs.  The same again on the mphf index as the main path
+     holds it (with its probe table, so K2 takes the closure-probe
+     branch on this batch; K3, walk_inits, K5 and K6 run K7's device
+     function inline).  Under each layout K2 once more on the index
+     without its probe table (its per-position branch, which batches
+     with N take; no main-path launch count goes with that row).  K2
+     (greedy and exhaustive mode, both branches, scan and mphf) and K5
+     (scan and MPHF anchors, efforts 1, 2 and 5) against their plain
+     versions on the edge batch (dbgtpu_torch/kernels/edge_batch.py:
+     lane-group, window and chunk edges).  K7 mphf_slots itself against
+     its plain
      version on the survey junction MPHF, the survey anchor MPHF and a
      tight-gamma MPHF that uses the final table, each with keys of the
      set, keys outside it and the all-ones key, and on an empty MPHF;
@@ -121,6 +131,9 @@ BATCH, N_BATCHES = 32768, 4
 # depends on the data the count is the least a unit can do (one level of
 # an MPHF, one candidate and one window word of a junction step), so the
 # operation time is a lower bound like the byte time.
+# the least a device memory read moves (one sector), for a table row
+# of which the function needs one slot's word
+SECTOR_BYTES = 32
 OPS_MIX32 = 10      # common.cuh mix32: mul, xor, 3 x (shift, xor), 2 mul
 OPS_BASE_AT = 5     # base_at: i >> 4, i & 15, * 2, shift, and
 OPS_NM_BIT = 4      # read_scan.cu nm_bit: i >> 5, i & 31, shift, and
@@ -172,14 +185,16 @@ def ops_read_scan(B: int, Lk: int, Lw: int, k1: int) -> int:
     return B * (Lk * per_pos + Lw * per_word)
 
 
-def ops_member_probe(n: int, pt_slots: int, window: int) -> int:
-    """member.cu closure-probe branch, n positions: the window's probe
-    position (5), split (2), seed xor, mix32, bucket mask, row address
-    (2); per slot two compares, an and and window - 2 adds; orientation
-    (1), the neighbour-bit index (clamp, base_at, 3 of arithmetic), the
-    bit (3) and the valid test (3)."""
-    return n * (5 + 2 + 1 + OPS_MIX32 + 1 + 2 + pt_slots * (3 + window - 2)
-                + 1 + (2 + OPS_BASE_AT + 3) + 3 + 3)
+def ops_member_probe(windows: int, positions: int, pt_slots: int,
+                     window: int) -> int:
+    """member.cu closure-probe branch as the function needs it.  Per
+    window of `window` positions one probe: split (2), seed xor, mix32,
+    bucket mask, row address (2); per slot two compares, an and and
+    window - 2 adds.  Per valid position the bit pick: the window's probe
+    position (5), orientation (1), the neighbour-bit index (clamp,
+    base_at, 3 of arithmetic), the bit (3) and the valid test (3)."""
+    return (windows * (2 + 1 + OPS_MIX32 + 1 + 2 + pt_slots * (3 + window - 2))
+            + positions * (5 + 1 + (2 + OPS_BASE_AT + 3) + 3 + 3))
 
 
 def ops_junction_step(j_lookup: int) -> int:
@@ -265,8 +280,8 @@ MPHF_ENTRIES = {
 MODE_FLAGS = {"greedy": [], "anchors": ["-G"], "exhaustive": ["-b"]}
 # what the kernels' JSON line states of a kernel besides its name, route,
 # source, the stage it replaces and its launches
-KERNEL_KEYS = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-               "library_ms")
+KERNEL_KEYS = ("max_abs_err", "ms", "alone_ms", "plain_ms", "bound_ms",
+               "bound_by", "library_ms")
 
 
 def log(msg: str) -> None:
@@ -353,6 +368,49 @@ def walks_pairs(wk, wr):
     return pairs + [(wk.lbuf[lm], wr.lbuf[lm]), (wk.rbuf[rm], wr.rbuf[rm])]
 
 
+# another tree's kernels, timed alone beside this tree's in turns when
+# chip_smoke.py / torch_profile.py get --baseline-csrc (build.load_from)
+BASELINE = {"lib": None}
+ALONE_LAUNCHES, ALONE_REPS = 50, 5
+
+
+def time_alone(name, prep, pairs_of) -> dict:
+    """Kernel `name` alone: ALONE_LAUNCHES back-to-back launches of its C
+    entry point into outputs allocated once (`prep()` gives the launch
+    and those outputs), the median of ALONE_REPS runs; its outputs must
+    then equal the wrapper's (`pairs_of(outputs)` pairs them).
+    With a baseline library, the baseline and this tree's kernel in
+    turns (baseline, this, this, baseline) on the same inputs, and the
+    baseline's outputs must equal the wrapper's too."""
+    import torch
+
+    launch, outputs = prep()
+
+    def timed(lib):
+        return cuda_ms(lambda: launch(lib), ALONE_REPS,
+                       launches=ALONE_LAUNCHES)
+
+    def check(who):
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(g, w) for g, w in pairs_of(outputs))
+        if err:
+            raise AssertionError(f"{name}: {who} alone != the wrapper's "
+                                 f"result (max abs err {err})")
+
+    base = BASELINE["lib"]
+    if base is None:
+        alone_ms = timed(None)
+        check("the kernel")
+        return dict(alone_ms=alone_ms)
+    turns = [timed(base), timed(None), timed(None), timed(base)]
+    check("the kernel")
+    launch(base)
+    check("the baseline kernel")
+    return dict(alone_ms=(turns[1] + turns[2]) / 2,
+                baseline_alone_ms=(turns[0] + turns[3]) / 2,
+                alone_turns_ms=turns)
+
+
 def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                     timed: bool, partial: bool = False, perpos_ix=None):
     """Each kernel of `mode`'s path against its plain version on the same
@@ -365,19 +423,28 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     "member (per-position)" / "member (inter, per-position)"."""
     import torch
 
-    from dbgtpu_torch.engine.compact import compact_ref, compact_result
-    from dbgtpu_torch.engine.dog import (
-        anchor_lookup_ref, dog_anchors, dog_anchors_ref,
+    from dbgtpu_torch.engine.compact import (
+        compact_ref, compact_result, compact_result_launch,
     )
-    from dbgtpu_torch.engine.exhaustive import exhaustive_dfs, exhaustive_ref
+    from dbgtpu_torch.engine.dog import (
+        anchor_lookup_ref, dog_anchors, dog_anchors_launch, dog_anchors_ref,
+    )
+    from dbgtpu_torch.engine.exhaustive import (
+        exhaustive_dfs, exhaustive_dfs_launch, exhaustive_ref,
+    )
     from dbgtpu_torch.engine.kmer import le_ref, rcb_ref
-    from dbgtpu_torch.engine.member import inter, inter_ref, member, member_ref
-    from dbgtpu_torch.engine.pack import out_dtype_for, pack_paths, pack_ref
+    from dbgtpu_torch.engine.member import (
+        inter, inter_ref, member, member_launch, member_ref,
+    )
+    from dbgtpu_torch.engine.pack import (
+        out_dtype_for, pack_paths, pack_paths_launch, pack_ref,
+    )
     from dbgtpu_torch.engine.read_scan import (
-        _scan, read_scan, read_scan_ref, unpack_fields,
+        _scan, read_scan, read_scan_launch, read_scan_ref, unpack_fields,
     )
     from dbgtpu_torch.engine.walk import (
-        greedy_walk, walk_inits, walk_inits_ref, walk_ref,
+        greedy_walk, greedy_walk_launch, walk_inits, walk_inits_launch,
+        walk_inits_ref, walk_ref,
     )
 
     k1 = k - 1
@@ -397,7 +464,10 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     u_row = ix.umeta.shape[1] * 4
 
     def record(name, pairs, fk, fr, *, stream, touched=0, table=0, ops,
-               reps_k=20, reps_r=3, library=False, min_stream=None):
+               alone, reps_k=20, reps_r=3, library=False, min_stream=None):
+        """`alone` = (prep, pairs_of): prep() allocates the kernel's
+        outputs once and gives (its build.Launch, those outputs);
+        pairs_of(outputs) pairs them with the wrapper's result."""
         torch.cuda.synchronize()
         err = max(_max_abs_err(g, w) for g, w in pairs)
         if err:
@@ -410,10 +480,12 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=pms if library else None,
                          bound_bytes=stream + min(touched, table),
-                         bound_ops=ops)
+                         bound_ops=ops, alone_ms=None)
         if min_stream is not None:
             out[name]["bound_min_bytes_ms"] = bound_of(
                 min_stream, 0, 0, 0)[0]
+        if timed:
+            out[name].update(time_alone(name, *alone))
 
     def walk_out_bytes(w):
         return 5 * B * 4 + 4 * int(w.llen.sum() + w.rlen.sum())
@@ -426,27 +498,57 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
            lambda: read_scan_ref(words, nmbits, lens, L=L, k1=k1),
            stream=nbytes(words, nmbits, lens, *sk),
            ops=ops_read_scan(B, Lk, words.shape[1], k1),
+           alone=(lambda: read_scan_launch(words, nmbits, lens, L=L, k1=k1),
+                  lambda s: list(zip(s, sk))),
            min_stream=nbytes(words, nmbits, lens, sk.rows))
     has_n = bool(sk.has_n.item())
 
-    def member_cost(ix_, n_masks):
-        """(stream, touched, table, ops) of K2 writing n_masks masks from
-        the index ix_; the exhaustive per-position branch also takes the
-        reverse complement and the smaller of the two (OPS_RCB + 2)."""
+    # positions a read's masks must answer (i <= len - k1) and, for the
+    # closure probes, the windows of W positions that cover them
+    nvalid = (lens.to(torch.int64) - k1 + 1).clamp(0, Lk)
+    valid = torch.arange(Lk, device=lens.device)[None, :] < nvalid[:, None]
+
+    def member_cost(ix_, masks):
+        """(stream, touched, table, ops) of K2 writing `masks` (its
+        outputs on this batch: member1 and member2, or inter) from the
+        index ix_, as the function needs them on the valid positions.  A
+        probe of a fused row must read the row's S slot key-hi words; one
+        that finds its key also reads a key-lo sector and, for a closure
+        probe, one sector of each of the W - 2 neighbour-word arrays it
+        sums (a found key sets the self bit of the probe position, so
+        counting those bits never overcounts).  An MPHF lookup reads its
+        level row and its verify row.  rep2 needs a lookup only where it
+        differs from rep1.  The exhaustive per-position branch also takes
+        the reverse complement and the smaller of the two (OPS_RCB + 2)."""
+        n_masks = len(masks)
+        positions = int(nvalid.sum())
         if ix_.pt_rows.shape[0] > 0 and not has_n:
             W = ix_.pt_window
+            S = ix_.pt_rows.shape[1] // W
+            windows = int(((nvalid + W - 1) // W).sum())
+            p = (torch.arange(0, Lk, W, device=lens.device) + 1).clamp(
+                max=Lk - 1)
+            found = int((masks[0][:, p] != 0).sum())
             return dict(
                 stream=nbytes(sk.rep1, sk.le1, sk.rows[0], lens)
                 + n_masks * B * Lk,
-                touched=B * ((Lk + W - 1) // W) * ix_.pt_rows.shape[1] * 4,
+                touched=windows * S * 4 + found * SECTOR_BYTES * (W - 1),
                 table=nbytes(ix_.pt_rows),
-                ops=ops_member_probe(B * Lk, ix_.pt_rows.shape[1] // W, W))
+                ops=ops_member_probe(windows, positions, S, W))
+        found = int((masks[0][:, 1:].bool() & valid[:, 1:]).sum())
+        lookups = positions
+        if n_masks == 2:
+            differ = (sk.rep2 != sk.rep1) & valid
+            lookups += int(differ.sum())
+            found += int((masks[1].bool() & differ).sum())
         return dict(
             stream=n_masks * nbytes(sk.rep1) + nbytes(lens)
             + n_masks * B * Lk,
-            touched=n_masks * B * Lk * j_row, table=j_table,
-            ops=B * Lk * (n_masks * j_ops(0) + 3
-                          + (OPS_RCB + 2 if n_masks == 1 else 0)))
+            touched=(lookups * j_row if jl_mphf else
+                     lookups * ix_.st_slots * 4 + found * SECTOR_BYTES),
+            table=j_table,
+            ops=lookups * j_ops(0) + positions * (
+                3 + (OPS_RCB + 2 if n_masks == 1 else 0)))
 
     kw = dict(k=k, m=m, effort=effort, L=L)
     if mode == "greedy":
@@ -455,21 +557,29 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         record("member", list(zip(mk, mr)),
                lambda: member(ix, sk, lens, L=L, k1=k1),
                lambda: member_ref(ix, sk, lens, L=L, k1=k1),
-               **member_cost(ix, 2))
+               alone=(lambda: member_launch(ix, sk, lens, L=L, k1=k1,
+                                            exhaustive=False),
+                      lambda r: list(zip(r, mk))),
+               **member_cost(ix, mk))
         if perpos_ix is not None:
             px = perpos_ix
+            mp = member(px, sk, lens, L=L, k1=k1)
             record("member (per-position)",
-                   list(zip(member(px, sk, lens, L=L, k1=k1),
-                            member_ref(px, sk, lens, L=L, k1=k1))),
+                   list(zip(mp, member_ref(px, sk, lens, L=L, k1=k1))),
                    lambda: member(px, sk, lens, L=L, k1=k1),
                    lambda: member_ref(px, sk, lens, L=L, k1=k1),
-                   **member_cost(px, 2))
+                   alone=(lambda: member_launch(px, sk, lens, L=L, k1=k1,
+                                                exhaustive=False),
+                          lambda r: list(zip(r, mp))),
+                   **member_cost(px, mp))
         wk = greedy_walk(ix, sk, *mk, lens, **kw)
         wr = walk_ref(ix, sk, *mk, lens, **kw)
         steps = int(wk.llen.sum() + wk.rlen.sum())
         record("greedy_walk", walks_pairs(wk, wr),
                lambda: greedy_walk(ix, sk, *mk, lens, **kw),
                lambda: walk_ref(ix, sk, *mk, lens, **kw), reps_r=2,
+               alone=(lambda: greedy_walk_launch(ix, sk, *mk, lens, **kw),
+                      lambda w: walks_pairs(w, wk)),
                stream=nbytes(*mk, sk.bug, sk.rcs, lens, sk.rows)
                + walk_out_bytes(wk),
                touched=steps * (j_row + u_row),
@@ -483,24 +593,26 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         used = (torch.arange(effort, device=lens.device)[None, None, :]
                 < torch.stack([ir.n_f, ir.n_r])[:, :, None])
         # k-mers K5 must look up: a read is scanned from the start up to
-        # its E-th hit and from the end down to its E-th hit from there
+        # its E-th hit and from the end down to its E-th hit from there;
+        # a position both scans reach is looked up once
         f = _scan(unpack_fields(sk.rows[0], 2, L), k)
         r = rcb_ref(f, k)
         hit = anchor_lookup_ref(ix, torch.where(le_ref(f, r), f, r))[0]
         col = torch.arange(f.shape[1], device=f.device)[None, :]
-        hit &= col <= (lens.to(torch.int64) - k)[:, None]
-        nv = (lens.to(torch.int64) - k + 1).clamp(min=0)
-        looked = 0
-        for h, lead in ((hit, 0), (torch.flip(hit, [1]), f.shape[1] - nv)):
-            # positions of the valid span scanned until the E-th hit
-            # (`lead`: columns past the read's last k-mer, flipped to
-            # the front)
-            c = h.to(torch.int64).cumsum(1)
-            reached = (c >= effort).to(torch.int64).argmax(1) + 1 - lead
-            looked += int(torch.where(c[:, -1] >= effort, reached, nv).sum())
+        live = col <= (lens.to(torch.int64) - k)[:, None]
+        hit = (hit & live).to(torch.int64)
+        before = hit.cumsum(1) - hit                      # hits ahead of i
+        after = torch.flip(torch.flip(hit, [1]).cumsum(1), [1]) - hit
+        need = live & ((before < effort) | (after < effort))
+        looked = int(need.sum())
+        hits = int((hit.bool() & need).sum())
         anchors = int(ir.n_f.sum() + ir.n_r.sum())
         al_mphf = ix.amph_meta is not None
-        a_row = 20 + 20 if al_mphf else ix.at_fused.shape[1] * 4
+        # an MPHF lookup reads its level row and its verify row; a scan
+        # lookup the row's S slot key-hi words, and a hit also a key-lo
+        # sector and the sector of its three values
+        a_bytes = (looked * (20 + 20) if al_mphf
+                   else looked * ix.at_slots * 4 + hits * 2 * SECTOR_BYTES)
         a_table = (nbytes(ix.amph_rows, ix.amph_arows, ix.amph_f) if al_mphf
                    else nbytes(ix.at_fused))
         a_ops = (ops_mphf_lookup(3) if al_mphf
@@ -509,8 +621,12 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                                (ik.planes[:, used], ir.planes[:, used])],
                lambda: dog_anchors(ix, sk.rows, lens, **kw),
                lambda: dog_anchors_ref(ix, sk.rows, lens, **kw),
+               alone=(lambda: dog_anchors_launch(ix, sk.rows, lens, k=k, m=m,
+                                                 effort=effort),
+                      lambda i: [(i.n_f, ik.n_f), (i.n_r, ik.n_r),
+                                 (i.planes[:, used], ik.planes[:, used])]),
                stream=nbytes(sk.rows, lens) + anchors * 9 * 8 + 2 * B * 4,
-               touched=looked * a_row + anchors * u_row,
+               touched=a_bytes + anchors * u_row,
                table=a_table + nbytes(ix.umeta),
                ops=looked * (OPS_DOG_KMER + a_ops) + anchors * OPS_DOG_PLACE)
         wk = walk_inits(ix, sk.rows, lens, ik, k=k, L=L)
@@ -520,6 +636,9 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                lambda: walk_inits(ix, sk.rows, lens, ik, k=k, L=L),
                lambda: walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L),
                reps_r=2,
+               alone=(lambda: walk_inits_launch(ix, sk.rows, lens, ik, k=k,
+                                                L=L),
+                      lambda w: walks_pairs(w, wk)),
                stream=anchors * 9 * 8 + 2 * B * 4 + nbytes(lens, sk.rows)
                + walk_out_bytes(wk),
                touched=steps * (j_row + u_row),
@@ -531,15 +650,21 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         record("member (inter)", [(xk, xr)],
                lambda: inter(ix, sk, lens, L=L, k1=k1),
                lambda: inter_ref(ix, sk, lens, L=L, k1=k1),
-               **member_cost(ix, 1))
+               alone=(lambda: member_launch(ix, sk, lens, L=L, k1=k1,
+                                            exhaustive=True),
+                      lambda x: [(x, xk)]),
+               **member_cost(ix, (xk,)))
         if perpos_ix is not None:
             px = perpos_ix
+            xp = inter(px, sk, lens, L=L, k1=k1)
             record("member (inter, per-position)",
-                   [(inter(px, sk, lens, L=L, k1=k1),
-                     inter_ref(px, sk, lens, L=L, k1=k1))],
+                   [(xp, inter_ref(px, sk, lens, L=L, k1=k1))],
                    lambda: inter(px, sk, lens, L=L, k1=k1),
                    lambda: inter_ref(px, sk, lens, L=L, k1=k1),
-                   **member_cost(px, 1))
+                   alone=(lambda: member_launch(px, sk, lens, L=L, k1=k1,
+                                                exhaustive=True),
+                          lambda x: [(x, xp)]),
+                   **member_cost(px, (xp,)))
         xw = dict(k=k, m=m, partial=partial, L=L)
         wk = exhaustive_dfs(ix, sk, xk, lens, **xw)
         wr = exhaustive_ref(ix, sk, xk, lens, **xw)
@@ -547,6 +672,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         record("exhaustive_dfs", walks_pairs(wk, wr),
                lambda: exhaustive_dfs(ix, sk, xk, lens, **xw),
                lambda: exhaustive_ref(ix, sk, xk, lens, **xw), reps_r=2,
+               alone=(lambda: exhaustive_dfs_launch(ix, sk, xk, lens, **xw),
+                      lambda w: walks_pairs(w, wk)),
                stream=nbytes(xk, sk.bug, lens, sk.rows) + walk_out_bytes(wk),
                touched=steps * (j_row + u_row),
                table=j_table + nbytes(ix.umeta),
@@ -561,6 +688,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     record("pack_paths", [(pk, pr)],
            lambda: pack_paths(wk, pmax=pmax, dtype=dtype),
            lambda: pack_ref(wk, pmax=pmax, dtype=dtype),
+           alone=(lambda: pack_paths_launch(wk, pmax=pmax, dtype=dtype),
+                  lambda o: [(o, pk)]),
            stream=walk_out_bytes(wk) - B * 4 + nbytes(pk),
            ops=B * (pmax + 2) * OPS_PACK_ELEM)
     if dtype == torch.int16:
@@ -579,10 +708,104 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         record(name, list(zip(ck, cr)),
                lambda fused=fused: compact_result(fused, pmax),
                lambda fused=fused: compact_ref(fused, pmax),
+               alone=(lambda fused=fused: compact_result_launch(fused, pmax),
+                      lambda r, ck=ck: list(zip(r, ck))),
                stream=nbytes(fused, *ck),
                ops=B * OPS_COMPACT_ROW + slots * OPS_COMPACT_SLOT,
                library=True)
     return out
+
+
+def compare_edge_batch(device):
+    """K2 (greedy and exhaustive mode; closure-probe branch with windows
+    of 3 and 4 and per-position branch; scan and mphf junction layouts)
+    and K5 (scan anchors, MPHF anchors under the mphf layout and beside a
+    scan junction table; efforts 1, 2 and 5) against their plain versions
+    on each case of the edge batch (dbgtpu_torch/kernels/edge_batch.py),
+    exact.  Returns the number of comparisons."""
+    import numpy as np
+    import torch
+
+    from dbgtpu_torch.engine.dog import dog_anchors, dog_anchors_ref
+    from dbgtpu_torch.engine.index import index_tensors
+    from dbgtpu_torch.engine.member import inter, inter_ref, member, member_ref
+    from dbgtpu_torch.engine.read_scan import read_scan
+    from dbgtpu_torch.index import device as dev_index
+    from dbgtpu_torch.index.build import build_graph_from_seqs
+    from dbgtpu_torch.kernels.edge_batch import edge_cases
+    from dbgtpu_torch.seq import encode, n_mask
+
+    compared = 0
+    for case in edge_cases():
+        k, L = case.k, case.L
+        graph = build_graph_from_seqs(list(case.unitigs), k, dog_mode=True)
+        dis = {layout: dev_index.build_device_index(graph, layout=layout)
+               for layout in ("scan", "mphf")}
+        dis["window4"] = dev_index.build_device_index(graph)
+        dis["window4"].probe_tbl = dev_index.build_probe_table(
+            graph.jkeys, k - 1, window=4)
+        floor = dev_index.ANCHOR_MPHF_MIN
+        dev_index.ANCHOR_MPHF_MIN = 1
+        try:
+            dis["anchor_mphf"] = dev_index.build_device_index(graph)
+        finally:
+            dev_index.ANCHOR_MPHF_MIN = floor
+        ixs = {name: index_tensors(di, device) for name, di in dis.items()}
+        if ixs["window4"].pt_window != 4 or ixs["anchor_mphf"].amph_meta is None:
+            raise AssertionError(f"edge {case.name}: index variants")
+        B = len(case.reads)
+        codes = np.zeros((B, L), np.uint8)
+        nmask = np.zeros((B, L), bool)
+        lens_np = np.zeros(B, np.int32)
+        for i, r in enumerate(case.reads):
+            codes[i, : len(r)] = encode(r)
+            nmask[i, : len(r)] = n_mask(r)
+            lens_np[i] = len(r)
+        words, nmbits = batch_tensors(codes, nmask, device)
+        lens = torch.from_numpy(lens_np).to(device)
+        sk = read_scan(words, nmbits, lens, L=L, k1=k - 1)
+        branches = set()
+        for name in ("scan", "window4", "mphf"):
+            ix = ixs[name]
+            for probe in (True, False):
+                px = ix if probe else dataclasses.replace(
+                    ix, pt_rows=ix.pt_rows[:0])
+                pairs = list(zip(member(px, sk, lens, L=L, k1=k - 1),
+                                 member_ref(px, sk, lens, L=L, k1=k - 1)))
+                pairs.append((inter(px, sk, lens, L=L, k1=k - 1),
+                              inter_ref(px, sk, lens, L=L, k1=k - 1)))
+                torch.cuda.synchronize()
+                err = max(_max_abs_err(g, w) for g, w in pairs)
+                if err:
+                    raise AssertionError(
+                        f"edge {case.name}: K2 on {name} "
+                        f"{'probe' if probe else 'probe-less'} != plain "
+                        f"(max abs err {err})")
+                compared += 3
+                branches.add("closure probes" if probe and not sk.has_n.item()
+                             else "per-position")
+        for name in ("scan", "mphf", "anchor_mphf"):
+            for effort in (1, 2, 5):
+                kw = dict(k=k, m=2, effort=effort, L=L)
+                got = dog_anchors(ixs[name], sk.rows, lens, **kw)
+                want = dog_anchors_ref(ixs[name], sk.rows, lens, **kw)
+                used = (torch.arange(effort, device=device)[None, None, :]
+                        < torch.stack([want.n_f, want.n_r])[:, :, None])
+                torch.cuda.synchronize()
+                err = max(_max_abs_err(g, w) for g, w in (
+                    (got.n_f, want.n_f), (got.n_r, want.n_r),
+                    (got.planes[:, used], want.planes[:, used])))
+                if err:
+                    raise AssertionError(
+                        f"edge {case.name}: K5 on {name}, E={effort} != "
+                        f"plain (max abs err {err})")
+                compared += 1
+        log(f"[edge] {case.name} (k={k}, L={L}, Lk={case.Lk}, {B} reads, "
+            f"lens {int(lens_np.min())}-{int(lens_np.max())}, N "
+            f"{bool(sk.has_n.item())}): K2 member and inter ({', '.join(sorted(branches))}; "
+            f"scan, window 4, mphf) and K5 (scan, mphf, MPHF anchors beside "
+            f"scan; E = 1, 2, 5) == plain versions (tolerance 0)")
+    return compared
 
 
 def compare_mphf(label, mphf, device, extra_keys, timed: bool):
@@ -614,7 +837,8 @@ def compare_mphf(label, mphf, device, extra_keys, timed: bool):
         raise AssertionError(f"{label}: K7 != plain version (err {err}) or "
                              "!= the host lookup")
     n = keys.numel()
-    res = dict(max_abs_err=err, ms=None, plain_ms=None, library_ms=None)
+    res = dict(max_abs_err=err, ms=None, alone_ms=None, plain_ms=None,
+               library_ms=None)
     # per key: the thread's index (2) and the lookup without the verify
     ops = n * (2 + ops_mphf_lookup(0, verify=False))
     res["bound_ms"], res["bound_by"] = bound_of(
@@ -633,7 +857,7 @@ def compare_mphf(label, mphf, device, extra_keys, timed: bool):
         def launch():
             build.check(lib.dbg_mphf_slots(*args), "mphf_slots")
 
-        res["ms"] = cuda_ms(launch, 5, launches=200)
+        res["ms"] = res["alone_ms"] = cuda_ms(launch, 5, launches=200)
         if not torch.equal(alone, got):
             raise AssertionError(f"{label}: K7 through its C entry point "
                                  "differs from K7 through its wrapper")
@@ -673,7 +897,7 @@ def compare_gathers(device):
             f"({r['library_ms'] / r['ms']:.2f}x the kernel's time), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bound_bytes']} B, "
             f"{r['bound_ops']} operations)")
-        out.setdefault(r["name"], r)
+        out.setdefault(r["name"], dict(r, alone_ms=r["ms"]))
     return out
 
 
@@ -757,9 +981,17 @@ def spec_bytes_equal(label, reads_fa, unitigs_fa, k, m, graph, device,
         f"{t2 - t1:.2f} s); kernels == plain on the file ({errs_s})")
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--baseline-csrc", metavar="DIR",
+                    help="also build the kernels of DIR (another tree's "
+                         "dbgtpu_torch/csrc) and time each mapping kernel "
+                         "alone beside this tree's, in turns")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -795,6 +1027,12 @@ def main() -> int:
     build.load()
     log(f"[build] {lib_path.name}: {time.monotonic() - t0:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    if args.baseline_csrc:
+        t0 = time.monotonic()
+        BASELINE["lib"] = build.load_from(Path(args.baseline_csrc))
+        log(f"[build] baseline kernels from {args.baseline_csrc}: "
+            f"{build.library_path(Path(args.baseline_csrc).resolve()).name}"
+            f", {time.monotonic() - t0:.1f} s")
     t0 = time.monotonic()
     if not native.available():
         raise AssertionError("the native parser / formatter did not build "
@@ -838,23 +1076,37 @@ def main() -> int:
     for layout in ("scan", "mphf"):
         for mode in PATH_KERNELS:
             ix = ixs[layout, mode == "anchors"]
-            # on the mphf index also K2's per-position branch, which the
-            # survey batch (no N, a probe table) does not take
+            # also K2's per-position branch, which the survey batch (no
+            # N, a probe table) does not take
             perpos = (dataclasses.replace(ix, pt_rows=ix.pt_rows[:0])
-                      if layout == "mphf" and mode != "anchors" else None)
+                      if mode != "anchors" else None)
             results[layout, mode] = compare_kernels(
                 ix, words, nmbits, lens, mode=mode, k=k, m=m, effort=effort,
                 L=L, pmax=pmax, timed=True, perpos_ix=perpos)
             for name, r in results[layout, mode].items():
                 log(f"[kernel] {layout} {mode}: {name}: == plain version "
                     f"(max abs err {r['max_abs_err']}, tolerance 0); kernel "
-                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                    f"alone {r['alone_ms']:.4f} ms ({ALONE_LAUNCHES} "
+                    f"back-to-back launches through the C entry point)"
+                    + (f", baseline kernel alone "
+                       f"{r['baseline_alone_ms']:.4f} ms (turns baseline, "
+                       f"this, this, baseline: " + ", ".join(
+                           f"{t:.4f}" for t in r["alone_turns_ms"]) + ")"
+                       if "baseline_alone_ms" in r else "")
+                    + f", one call through the wrapper {r['ms']:.4f} ms, "
+                    f"plain {r['plain_ms']:.4f} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
                     f"{r['bound_bytes']} B, {r['bound_ops']} operations)"
                     + (f", from the packed batch in and the packed rows "
                        f"out alone {r['bound_min_bytes_ms']:.4f} ms"
                        if "bound_min_bytes_ms" in r else "")
                     + f" per {B}-read batch (L={L}, pmax={pmax})")
+
+    # K2 and K5 on the edge batch (lane-group, window and chunk edges)
+    t0 = time.monotonic()
+    n_edge = compare_edge_batch(device)
+    log(f"[edge] {n_edge} kernel outputs == plain versions "
+        f"({time.monotonic() - t0:.1f} s)")
 
     # K7 alone: keys of the set, keys outside it, the all-ones key
     rng = np.random.default_rng(SEED)

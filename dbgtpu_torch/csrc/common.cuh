@@ -175,6 +175,85 @@ __device__ __forceinline__ bool st_lookup(const uint32_t* st, int nb,
   return found;
 }
 
+// ---- lane-group bucket probes (K2, K5) ----
+//
+// A fused scan row holds S slot key-hi words, then S slot key-lo words,
+// then the slots' values.  A group of GROUP neighbouring lanes (aligned
+// within its warp) compares one query against one row: lane g of the
+// group reads the key-hi and key-lo words of slots 4q .. 4q+3 for
+// q = g, g + GROUP, ... as one 16-byte vector each, so the group reads
+// the row's keys in contiguous 128-byte pieces (S = 32: one vector of
+// each per lane).  Rows whose slot count is not a multiple of 4 (the
+// slot counts are tunable) are compared one slot per lane instead.  A
+// query is hashed once, by the lane that owns it; the group takes its
+// row pointer and key by shuffle.  Every lane of the warp must reach
+// each group_* call (the shuffles and ballots name the whole warp).
+constexpr int GROUP = 8;
+constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
+
+__device__ __forceinline__ int group_lane() {
+  return static_cast<int>(threadIdx.x) & (GROUP - 1);
+}
+
+// calls hit(s) for each slot s of this lane's share of `row` whose key
+// is (hi, lo); key-hi words are compared after XOR with `hi_xor` (~0 for
+// the probe table, which stores them inverted).  Key-hi and key-lo are
+// read together: reading key-lo only after a key-hi match saves bytes
+// but adds a dependent load, and measured slower.
+template <class F>
+__device__ __forceinline__ void group_slots(const uint32_t* __restrict__ row,
+                                            int S, uint32_t hi, uint32_t lo,
+                                            uint32_t hi_xor, F&& hit) {
+  const int g = group_lane();
+  if ((S & 3) == 0) {
+    for (int q = g; 4 * q < S; q += GROUP) {
+      const uint4 h = __ldg(reinterpret_cast<const uint4*>(row) + q);
+      const uint4 l = __ldg(reinterpret_cast<const uint4*>(row + S) + q);
+      if ((h.x ^ hi_xor) == hi && l.x == lo) hit(4 * q);
+      if ((h.y ^ hi_xor) == hi && l.y == lo) hit(4 * q + 1);
+      if ((h.z ^ hi_xor) == hi && l.z == lo) hit(4 * q + 2);
+      if ((h.w ^ hi_xor) == hi && l.w == lo) hit(4 * q + 3);
+    }
+  } else {
+    for (int s = g; s < S; s += GROUP)
+      if ((__ldg(row + s) ^ hi_xor) == hi && __ldg(row + S + s) == lo) hit(s);
+  }
+}
+
+// the sum over the group's lanes (wraps mod 2^32, as the JAX row-sum)
+__device__ __forceinline__ uint32_t group_sum(uint32_t v) {
+#pragma unroll
+  for (int o = GROUP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_WARP, v, o);
+  return v;
+}
+
+// true on every lane of the group when it is true on any
+__device__ __forceinline__ bool group_any(bool p) {
+  const unsigned m = __ballot_sync(FULL_WARP, p);
+  return ((m >> (threadIdx.x & 24u)) & 0xFFu) != 0;
+}
+
+// lane `src` of this lane's group's value of v (an integer or a pointer)
+template <class T>
+__device__ __forceinline__ T group_bcast(T v, int src) {
+  return __shfl_sync(FULL_WARP, v, src, GROUP);
+}
+template <class T>
+__device__ __forceinline__ const T* group_bcast(const T* v, int src) {
+  return reinterpret_cast<const T*>(__shfl_sync(
+      FULL_WARP, reinterpret_cast<unsigned long long>(v), src, GROUP));
+}
+
+// the fused scan row of `key` in a table of nb rows of `cols` words
+__device__ __forceinline__ const uint32_t* scan_row(const uint32_t* tbl,
+                                                    int nb, int cols,
+                                                    uint32_t seed,
+                                                    uint64_t key) {
+  const uint32_t b =
+      mix32(khi(key) ^ seed, klo(key)) & static_cast<uint32_t>(nb - 1);
+  return tbl + static_cast<size_t>(b) * cols;
+}
+
 }  // namespace dbg
 
 // every entry point returns cudaGetLastError() right after its launch

@@ -15,93 +15,258 @@
 //      (mphf.cuh junction_vals; core.py:434-435, 454-456).  The probe
 //      table of path (a) is built under both layouts.
 // A second mode serves exhaustive mode (-b): one mask, `inter`
-// (dbgtpu/engine/exhaustive.py:118-148), in member1.  Path (a) is the
+// (dbgtpu/engine/exhaustive.py:118-152), in member1.  Path (a) is the
 // same probe; path (b) looks up canonical(bug, rcb(bug)) — the bug scan
 // against its own reverse complement, not greedy's rep1 — and position
 // 0 is always set: every read tries its first anchor.
 //
-// Bound on the card: random row reads (a probe row is 384-512 bytes,
-// a scan row 1280, an MPHF lookup a 20-byte level row and a 40-byte
-// jrows row), not bandwidth.  One thread per read position; in
-// path (a) the W threads of a window read the same row, which L1 and
-// L2 serve, so the row is fetched from device memory about once.
+// Bound on the card: random bucket rows (a probe row is 384-512 bytes,
+// a scan row's keys 256 of its 1280, an MPHF lookup a 20-byte level row
+// and a 40-byte jrows row), each needed once per probe; the function's
+// operations are a 32-slot compare per probe.  The probe table (12.6 MB
+// on the survey) lives in L2, so the bytes that bound path (a) are L2
+// bytes.  One thread per position read each probe row W times with
+// 4-byte loads, hashed it W times and left the Lk/128 tail of every
+// block idle.  Here:
+//  (a) one thread per window of W positions, windows laid out flat over
+//      B x ceil(Lk/W); a lane group of 8 threads (8 windows) probes its
+//      8 rows in turn, each lane hashing its own window's k-mer once and
+//      reading 16-byte key vectors (common.cuh group_slots), and each
+//      thread then sets its window's W mask bytes from the summed
+//      neighbour words.  Windows with no valid position are not probed;
+//  (b) one thread per position, flat over B x Lk.  Scan layout: the
+//      same lane-group probe of st_fused for `found` alone (no value
+//      word is read), and rep2 is looked up only where it differs from
+//      rep1 (reads without N); mphf layout: each thread runs its own
+//      MPHF chain (a 20-40 byte row has nothing to share).
+// Each path is its own kernel, with its own registers; threads take
+// items in whole warps over a grid that fills the card once.  The
+// batch's N flag lies on the device: with a probe table the entry point
+// launches path (a), which leaves at once on a batch with N, and then
+// path (b), which leaves at once when (a) ran.
 #include "mphf.cuh"
 
 namespace {
 
-__global__ void member_kernel(const int64_t* __restrict__ rep1,
-                              const uint8_t* __restrict__ le1,
-                              const int64_t* __restrict__ rep2,
-                              const int64_t* __restrict__ bug, int exhaustive,
-                              const uint32_t* __restrict__ rwf, int RWr,
-                              const int32_t* __restrict__ lens, int L,
-                              int k1, int Lk,
-                              const __grid_constant__ dbg::Index ix,
-                              const int32_t* __restrict__ has_n,
-                              uint8_t* __restrict__ member1,
-                              uint8_t* __restrict__ member2) {
-  const int b = blockIdx.x;
-  const int i = blockIdx.y * blockDim.x + threadIdx.x;
-  if (i >= Lk) return;
-  const size_t row0 = static_cast<size_t>(b) * Lk;
-  const size_t o = row0 + i;
-  const bool valid = i <= lens[b] - k1;
-  const int pt_nb = ix.pt_nb, pt_cols = ix.pt_cols, S_pt = ix.pt_slots;
-  if (pt_nb == 0 || *has_n) {
-    if (exhaustive) {
-      const uint64_t v = static_cast<uint64_t>(bug[o]);
-      const uint64_t rv = dbg::rcb(v, k1);
-      const bool m = dbg::junction_vals(ix, v <= rv ? v : rv, nullptr);
-      member1[o] = ((valid && m) || i == 0) ? 1 : 0;
-      return;
+constexpr int kThreads = 256;
+
+struct Args {
+  const int64_t* rep1;
+  const uint8_t* le1;
+  const int64_t* rep2;
+  const int64_t* bug;
+  int exhaustive;
+  const uint32_t* rwf;
+  int RWr;
+  const int32_t* lens;
+  int B, L, k1, Lk;
+  uint8_t* member1;
+  uint8_t* member2;
+};
+
+// the path of the batch, read on the device: (a) closure probes unless
+// the batch holds an N or there is no probe table
+__device__ __forceinline__ bool probes(const dbg::Index& ix,
+                                       const int32_t* has_n) {
+  return ix.pt_nb > 0 && *has_n == 0;
+}
+
+// Items t = 0 .. n-1 in whole warps: each warp takes 32 consecutive
+// items at a time (lane i the i-th), so the group shuffles of an
+// iteration see all 32 lanes, and the grid strides over the rest.
+template <class F>
+__device__ __forceinline__ void for_items(uint32_t n, F&& body) {
+  const uint32_t lane = threadIdx.x & 31u;
+  const uint32_t warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const uint32_t warps = (gridDim.x * blockDim.x) >> 5;
+  for (uint32_t base = 32u * warp; base < n; base += 32u * warps)
+    body(base + lane, base + lane < n);
+}
+
+// (a) closure probes: item t is window t of the flat B x ceil(Lk/W)
+__global__ void __launch_bounds__(kThreads)
+    member_probe_kernel(const Args a, const __grid_constant__ dbg::Index ix,
+                        const int32_t* __restrict__ has_n) {
+  if (!probes(ix, has_n)) return;
+  const int S = ix.pt_slots;
+  const int W = ix.pt_cols == 4 * S ? 4 : 3;
+  const uint32_t nW = (a.Lk + W - 1) / W;
+  for_items(a.B * nW, [&](uint32_t t, bool in_grid) {
+    const int b = in_grid ? static_cast<int>(t / nW) : 0;
+    const int i0 = in_grid ? W * static_cast<int>(t - b * nW) : 0;
+    const int last_valid = a.lens[b] - a.k1;   // positions i <= last_valid
+    const bool live = in_grid && i0 <= last_valid;
+    const int p = min(i0 + 1, a.Lk - 1);
+    const size_t row0 = static_cast<size_t>(b) * a.Lk;
+    uint32_t qhi = 0, qlo = 0;
+    const uint32_t* row = ix.pt;
+    if (live) {
+      const uint64_t q = static_cast<uint64_t>(a.rep1[row0 + p]);
+      qhi = dbg::khi(q);
+      qlo = dbg::klo(q);
+      row = dbg::scan_row(ix.pt, ix.pt_nb, ix.pt_cols, ix.pt_seed, q);
     }
-    const bool m1 =
-        dbg::junction_vals(ix, static_cast<uint64_t>(rep1[o]), nullptr);
-    const bool m2 =
-        dbg::junction_vals(ix, static_cast<uint64_t>(rep2[o]), nullptr);
-    member1[o] = (valid && m1) ? 1 : 0;
-    member2[o] = (valid && m2) ? 1 : 0;
-    return;
-  }
-  const int W = pt_cols == 4 * S_pt ? 4 : 3;
-  const int p = min(W * (i / W) + 1, Lk - 1);
-  const int d = i - p;
-  const uint64_t q = static_cast<uint64_t>(rep1[row0 + p]);
-  const uint32_t qhi = dbg::khi(q), qlo = dbg::klo(q);
-  const uint32_t bkt =
-      dbg::mix32(qhi ^ ix.pt_seed, qlo) & static_cast<uint32_t>(pt_nb - 1);
-  const uint32_t* row = ix.pt + static_cast<size_t>(bkt) * pt_cols;
-  uint32_t w0 = 0, w1 = 0;
-  for (int s = 0; s < S_pt; ++s) {
-    if (row[s] == ~qhi && row[S_pt + s] == qlo) {
-      w0 += row[2 * S_pt + s];
-      if (W == 4) w1 += row[3 * S_pt + s];
+    // the group's 8 probes in turn; lane j keeps probe j's neighbour words
+    uint32_t w0 = 0, w1 = 0;
+#pragma unroll
+    for (int j = 0; j < dbg::GROUP; ++j) {
+      const bool live_j = dbg::group_bcast(static_cast<int>(live), j);
+      const uint32_t hi_j = dbg::group_bcast(qhi, j);
+      const uint32_t lo_j = dbg::group_bcast(qlo, j);
+      const uint32_t* row_j = dbg::group_bcast(row, j);
+      uint32_t s0 = 0, s1 = 0;
+      if (live_j)
+        dbg::group_slots(row_j, S, hi_j, lo_j, ~0u, [&](int s) {
+          s0 += __ldg(row_j + 2 * S + s);
+          if (W == 4) s1 += __ldg(row_j + 3 * S + s);
+        });
+      s0 = dbg::group_sum(s0);
+      s1 = dbg::group_sum(s1);
+      if (dbg::group_lane() == j) {
+        w0 = s0;
+        w1 = s1;
+      }
     }
-  }
-  const uint32_t onum = le1[row0 + p] ? 0u : 1u;
-  const uint32_t* codes = rwf + static_cast<size_t>(b) * RWr;
-  uint32_t idx;
-  if (d < 0) {                       // predecessor bit
-    idx = 9u + 4u * onum + dbg::base_at(codes, max(p - 1, 0));
-  } else if (d == 0) {               // self bit
-    idx = 0u;
+    if (!in_grid) return;
+    // the window's W positions take their bits (core._closure_member)
+    const uint32_t onum = (live && a.le1[row0 + p]) ? 0u : 1u;
+    const uint32_t* codes = a.rwf + static_cast<size_t>(b) * a.RWr;
+    uint32_t fb = 0, c1 = 0, c2 = 0;
+    if (live) {
+      fb = dbg::base_at(codes, max(p - 1, 0));
+      c1 = dbg::base_at(codes, min(p + a.k1, a.L - 1));
+      c2 = dbg::base_at(codes, min(p + a.k1 + 1, a.L - 1));
+    }
+    const int i1 = min(i0 + W, a.Lk);
+    for (int i = i0; i < i1; ++i) {
+      const int d = i - p;
+      uint32_t idx;
+      if (d < 0) {                       // predecessor bit
+        idx = 9u + 4u * onum + fb;
+      } else if (d == 0) {               // self bit
+        idx = 0u;
+      } else if (d == 1) {               // one-step successor bit
+        idx = 1u + 4u * onum + c1;
+      } else {                           // two-step successor bit (W == 4)
+        idx = 17u + 16u * onum + ((c1 << 2) | c2);
+      }
+      const uint32_t bit =
+          idx < 32 ? (w0 >> idx) & 1u : (w1 >> (idx - 32)) & 1u;
+      const bool m = live && i <= last_valid && bit;
+      if (a.exhaustive) {
+        a.member1[row0 + i] = (m || i == 0) ? 1 : 0;
+      } else {
+        a.member1[row0 + i] = m ? 1 : 0;
+        a.member2[row0 + i] = m ? 1 : 0;
+      }
+    }
+  });
+}
+
+// (b) the keys of position t: rep1 / rep2, or in exhaustive mode
+// canonical(bug, rcb(bug)); valid = i <= len - k1
+struct PosKeys {
+  bool valid, need2;
+  uint64_t key1, key2;
+};
+
+__device__ __forceinline__ PosKeys pos_keys(const Args& a, uint32_t t,
+                                            bool in_grid) {
+  PosKeys pk{false, false, 0, 0};
+  if (!in_grid) return pk;
+  const int b = static_cast<int>(t / a.Lk);
+  const int i = static_cast<int>(t - b * static_cast<uint32_t>(a.Lk));
+  pk.valid = i <= a.lens[b] - a.k1;
+  if (!pk.valid) return pk;
+  if (a.exhaustive) {
+    const uint64_t v = static_cast<uint64_t>(a.bug[t]);
+    const uint64_t rv = dbg::rcb(v, a.k1);
+    pk.key1 = v <= rv ? v : rv;
   } else {
-    const uint32_t c1 = dbg::base_at(codes, min(p + k1, L - 1));
-    if (d == 1) {                    // one-step successor bit
-      idx = 1u + 4u * onum + c1;
-    } else {                         // two-step successor bit (W == 4)
-      const uint32_t c2 = dbg::base_at(codes, min(p + k1 + 1, L - 1));
-      idx = 17u + 16u * onum + ((c1 << 2) | c2);
-    }
+    pk.key1 = static_cast<uint64_t>(a.rep1[t]);
+    pk.key2 = static_cast<uint64_t>(a.rep2[t]);
+    // rep2 differs from rep1 only where the bug scan rolled an N in
+    pk.need2 = pk.key2 != pk.key1;
   }
-  const uint32_t bit = idx < 32 ? (w0 >> idx) & 1u : (w1 >> (idx - 32)) & 1u;
-  if (exhaustive) {
-    member1[o] = ((valid && bit) || i == 0) ? 1 : 0;
+  return pk;
+}
+
+__device__ __forceinline__ void put_members(const Args& a, uint32_t t,
+                                            const PosKeys& pk, bool m1,
+                                            bool m2) {
+  if (a.exhaustive) {
+    a.member1[t] = ((pk.valid && m1) || t % a.Lk == 0) ? 1 : 0;
     return;
   }
-  const uint8_t m = (valid && bit) ? 1 : 0;
-  member1[o] = m;
-  member2[o] = m;
+  a.member1[t] = (pk.valid && m1) ? 1 : 0;
+  a.member2[t] = (pk.valid && (pk.need2 ? m2 : m1)) ? 1 : 0;
+}
+
+// (b), scan layout: item t is position t of the flat B x Lk; the lane
+// group probes st_fused for its 8 positions' keys in turn (found only)
+__global__ void __launch_bounds__(kThreads)
+    member_scan_kernel(const Args a, const __grid_constant__ dbg::Index ix,
+                       const int32_t* __restrict__ has_n) {
+  if (probes(ix, has_n)) return;
+  const int S = ix.st_cols / 10;
+  for_items(a.B * a.Lk, [&](uint32_t t, bool in_grid) {
+    const PosKeys pk = pos_keys(a, t, in_grid);
+    bool m[2] = {false, false};
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const bool want = pass == 0 ? pk.valid : pk.need2;
+      const uint64_t key = pass == 0 ? pk.key1 : pk.key2;
+      const uint32_t* row =
+          dbg::scan_row(ix.st, ix.st_nb, ix.st_cols, ix.st_seed, key);
+      // a pass no lane of the warp needs is skipped whole
+      if (!__any_sync(dbg::FULL_WARP, want)) continue;
+#pragma unroll
+      for (int j = 0; j < dbg::GROUP; ++j) {
+        const bool want_j = dbg::group_bcast(static_cast<int>(want), j);
+        const uint64_t key_j = dbg::group_bcast(key, j);
+        const uint32_t* row_j = dbg::group_bcast(row, j);
+        bool hit = false;
+        if (want_j)
+          dbg::group_slots(row_j, S, dbg::khi(key_j), dbg::klo(key_j),
+                                 0u, [&](int) { hit = true; });
+        const bool found = dbg::group_any(hit);
+        if (dbg::group_lane() == j) m[pass] = found;
+      }
+    }
+    if (in_grid) put_members(a, t, pk, m[0], m[1]);
+  });
+}
+
+// (b), mphf layout: a per-thread MPHF chain (a 20-40 byte row has
+// nothing to share across a group), one thread per position
+__global__ void __launch_bounds__(kThreads)
+    member_mphf_kernel(const Args a, const __grid_constant__ dbg::Index ix,
+                       const int32_t* __restrict__ has_n) {
+  if (probes(ix, has_n)) return;
+  const uint32_t n = a.B * a.Lk;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
+       t += stride) {
+    const PosKeys pk = pos_keys(a, t, true);
+    const bool m1 = pk.valid && dbg::junction_vals(ix, pk.key1, nullptr);
+    const bool m2 = pk.need2 && dbg::junction_vals(ix, pk.key2, nullptr);
+    put_members(a, t, pk, m1, m2);
+  }
+}
+
+// blocks for n items: one per kThreads items, at most as many as fill
+// every SM of the current device once
+unsigned grid_for(uint32_t n) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (sms <= 0) sms = 1;
+  }
+  const uint32_t want = (n + kThreads - 1) / kThreads;
+  const uint32_t most = static_cast<uint32_t>(sms) * (2048 / kThreads);
+  return want < 1 ? 1 : (want < most ? want : most);
 }
 
 }  // namespace
@@ -112,15 +277,33 @@ extern "C" int dbg_member(const void* rep1, const void* le1, const void* rep2,
                           const void* has_n, void* member1, void* member2,
                           void* stream) {
   const int Lk = L - k1 + 1;
-  const int threads = 128;
-  const dim3 grid(B, (Lk + threads - 1) / threads);
-  member_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int64_t*>(rep1), static_cast<const uint8_t*>(le1),
-      static_cast<const int64_t*>(rep2), static_cast<const int64_t*>(bug),
-      exhaustive, static_cast<const uint32_t*>(rwf),
-      RWr, static_cast<const int32_t*>(lens), L, k1, Lk,
-      *static_cast<const dbg::Index*>(index),
-      static_cast<const int32_t*>(has_n), static_cast<uint8_t*>(member1),
-      static_cast<uint8_t*>(member2));
+  if (static_cast<long long>(B) * Lk >= (1ll << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const int64_t*>(rep1),
+               static_cast<const uint8_t*>(le1),
+               static_cast<const int64_t*>(rep2),
+               static_cast<const int64_t*>(bug),
+               exhaustive,
+               static_cast<const uint32_t*>(rwf),
+               RWr,
+               static_cast<const int32_t*>(lens),
+               B, L, k1, Lk,
+               static_cast<uint8_t*>(member1),
+               static_cast<uint8_t*>(member2)};
+  const dbg::Index& ix = *static_cast<const dbg::Index*>(index);
+  const int32_t* hn = static_cast<const int32_t*>(has_n);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const uint32_t n_pos = static_cast<uint32_t>(B) * Lk;
+  // path (a) when the batch turns out N-free, then path (b), which
+  // leaves at once when (a) ran: the batch's N flag lies on the device
+  if (ix.pt_nb > 0) {
+    const int W = ix.pt_cols == 4 * ix.pt_slots ? 4 : 3;
+    member_probe_kernel<<<grid_for(B * ((Lk + W - 1) / W)), kThreads, 0,
+                          st>>>(a, ix, hn);
+  }
+  if (ix.jl_mphf)
+    member_mphf_kernel<<<grid_for(n_pos), kThreads, 0, st>>>(a, ix, hn);
+  else
+    member_scan_kernel<<<grid_for(n_pos), kThreads, 0, st>>>(a, ix, hn);
   DBG_RETURN_LAUNCH_STATUS();
 }

@@ -58,22 +58,30 @@ def compact_result(fused: torch.Tensor, pmax: int):
         raise TypeError(f"unsupported result dtype {fused.dtype}")
     if fused.dim() != 2 or fused.shape[1] != 2 + pmax or pmax < 1:
         raise ValueError(f"fused {tuple(fused.shape)} is not [B, 2 + {pmax}]")
+    launch, out = compact_result_launch(fused, pmax)
+    if fused.shape[0]:
+        launch()
+        build.count("compact_result")
+    return out
+
+
+def compact_result_launch(fused: torch.Tensor, pmax: int):
+    """K8's allocation on checked CUDA tensors, its scratch included:
+    (build.Launch into the outputs, (meta, flat))."""
+    dev = fused.device
     fused = fused.contiguous()
     B = fused.shape[0]
     meta = torch.empty((B, 2), dtype=fused.dtype, device=dev)
     flat = torch.empty(B * pmax, dtype=fused.dtype, device=dev)
-    if B:
-        n_tiles = (B + build.COMPACT_TILE - 1) // build.COMPACT_TILE
-        scratch = torch.empty((pmax + 1) * (n_tiles + 1), dtype=torch.int32,
-                              device=dev)
-        lib = build.load()
-        err = lib.dbg_compact_result(
-            fused.data_ptr(), B, pmax, int(fused.dtype == torch.int16),
-            scratch.data_ptr(), meta.data_ptr(), flat.data_ptr(),
-            build.stream_ptr(dev))
-        build.check(err, "compact_result")
-        build.count("compact_result")
-    return meta, flat
+    n_tiles = (B + build.COMPACT_TILE - 1) // build.COMPACT_TILE
+    scratch = torch.empty((pmax + 1) * (n_tiles + 1), dtype=torch.int32,
+                          device=dev)
+    launch = build.Launch("compact_result", "dbg_compact_result", (
+        fused.data_ptr(), B, pmax, int(fused.dtype == torch.int16),
+        scratch.data_ptr(), meta.data_ptr(), flat.data_ptr(),
+        build.stream_ptr(dev),
+    ), (fused, meta, flat, scratch))
+    return launch, (meta, flat)
 
 
 def compact_counts(meta: np.ndarray, pmax: int) -> np.ndarray:

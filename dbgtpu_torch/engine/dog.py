@@ -153,18 +153,26 @@ def dog_anchors(ix: IndexTensors, rows, lens, *, k: int, m: int,
         raise TypeError("rows and lens must be int32")
     if not 2 <= k <= 32 or L < k:
         raise ValueError(f"unsupported k={k} for L={L}")
+    launch, inits = dog_anchors_launch(ix, rows, lens, k=k, m=m,
+                                       effort=effort)
+    if rows.shape[1]:
+        launch()
+        build.count("dog_anchors")
+    return inits
+
+
+def dog_anchors_launch(ix: IndexTensors, rows, lens, *, k: int, m: int,
+                       effort: int):
+    """K5's allocation on checked CUDA tensors: (build.Launch into the
+    outputs, the Inits it fills; rows e >= n stay zero)."""
+    dev = rows.device
     _, B, RWr = rows.shape
     rows, lens = rows.contiguous(), lens.contiguous()
     planes = torch.zeros((len(INIT_FIELDS), 2, B, effort), dtype=torch.int64,
                          device=dev)
     n = torch.zeros((2, B), dtype=torch.int32, device=dev)
-    if B:
-        lib = build.load()
-        cix_ptr = c_index_arg(ix, dev)
-        err = lib.dbg_dog_anchors(
-            rows.data_ptr(), B, RWr, lens.data_ptr(), cix_ptr, k, m, effort,
-            planes.data_ptr(), n.data_ptr(), build.stream_ptr(dev),
-        )
-        build.check(err, "dog_anchors")
-        build.count("dog_anchors")
-    return Inits(planes, n[0], n[1])
+    launch = build.Launch("dog_anchors", "dbg_dog_anchors", (
+        rows.data_ptr(), B, RWr, lens.data_ptr(), c_index_arg(ix, dev), k, m,
+        effort, planes.data_ptr(), n.data_ptr(), build.stream_ptr(dev),
+    ), (ix, rows, lens, planes, n))
+    return launch, Inits(planes, n[0], n[1])

@@ -225,6 +225,20 @@ def exhaustive_dfs(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
     B, Lk = scan.bug.shape
     if inter.shape != (B, Lk):
         raise ValueError("inter's shape differs from the scan's")
+    launch, walks = exhaustive_dfs_launch(ix, scan, inter, lens, k=k, m=m,
+                                          partial=partial, L=L)
+    if B:
+        launch()
+        build.count("exhaustive_dfs")
+    return walks
+
+
+def exhaustive_dfs_launch(ix: IndexTensors, scan: Scan, inter, lens, *,
+                          k: int, m: int, partial: bool, L: int):
+    """K6's allocation on checked CUDA tensors, its stack included:
+    (build.Launch into the outputs, the Walks it fills)."""
+    dev = scan.bug.device
+    B, Lk = scan.bug.shape
     D = depth_for(L, k)
     scan = Scan(*(t.contiguous() for t in scan))
     inter, lens = inter.contiguous(), lens.contiguous()
@@ -232,18 +246,13 @@ def exhaustive_dfs(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
     lbuf = torch.zeros((B, D), dtype=torch.int32, device=dev)
     rbuf = torch.zeros((B, D), dtype=torch.int32, device=dev)
     stack = torch.empty((D, FRAME_WORDS, B), dtype=torch.int32, device=dev)
-    if B:
-        lib = build.load()
-        cix_ptr = c_index_arg(ix, dev)
-        err = lib.dbg_exhaustive_dfs(
-            inter.data_ptr(), scan.bug.data_ptr(), lens.data_ptr(),
-            scan.rows.data_ptr(), B, Lk, scan.rows.shape[2], cix_ptr, k, m,
-            int(partial), D,
-            stack.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
-            out[2].data_ptr(), out[3].data_ptr(), lbuf.data_ptr(),
-            rbuf.data_ptr(), build.stream_ptr(dev),
-        )
-        build.check(err, "exhaustive_dfs")
-        build.count("exhaustive_dfs")
-    return Walks(out[0], torch.zeros(B, dtype=torch.int32, device=dev),
-                 out[1], out[2], out[3], lbuf, rbuf)
+    launch = build.Launch("exhaustive_dfs", "dbg_exhaustive_dfs", (
+        inter.data_ptr(), scan.bug.data_ptr(), lens.data_ptr(),
+        scan.rows.data_ptr(), B, Lk, scan.rows.shape[2], c_index_arg(ix, dev),
+        k, m, int(partial), D,
+        stack.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), out[3].data_ptr(), lbuf.data_ptr(),
+        rbuf.data_ptr(), build.stream_ptr(dev),
+    ), (ix, scan, inter, lens, out, lbuf, rbuf, stack))
+    return launch, Walks(out[0], torch.zeros(B, dtype=torch.int32, device=dev),
+                         out[1], out[2], out[3], lbuf, rbuf)

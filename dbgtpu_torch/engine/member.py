@@ -154,6 +154,19 @@ def _member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
         return member_ref(ix, scan, lens, L=L, k1=k1)
     if dev.type != "cuda":
         raise ValueError(f"no member kernel for device {dev}")
+    launch, out = member_launch(ix, scan, lens, L=L, k1=k1,
+                                exhaustive=exhaustive)
+    if scan.rep1.shape[0]:
+        launch()
+        build.count("member")
+    return out
+
+
+def member_launch(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
+                  exhaustive: bool):
+    """K2's checks and allocation on CUDA tensors: (build.Launch into the
+    outputs, inter or (member1, member2))."""
+    dev = scan.rep1.device
     if lens.device != dev:
         raise ValueError("index, scan and lens must share a device")
     if lens.dtype != torch.int32:
@@ -163,16 +176,11 @@ def _member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
     scan = Scan(*(t.contiguous() for t in scan))
     m1 = torch.empty((B, Lk), dtype=torch.uint8, device=dev)
     m2 = None if exhaustive else torch.empty_like(m1)
-    if B:
-        lib = build.load()
-        cix_ptr = c_index_arg(ix, dev)
-        err = lib.dbg_member(
-            scan.rep1.data_ptr(), scan.le1.data_ptr(), scan.rep2.data_ptr(),
-            scan.bug.data_ptr(), int(exhaustive),
-            scan.rows[0].data_ptr(), scan.rows.shape[2], lens.data_ptr(), B,
-            L, k1, cix_ptr, scan.has_n.data_ptr(), m1.data_ptr(),
-            None if m2 is None else m2.data_ptr(), build.stream_ptr(dev),
-        )
-        build.check(err, "member")
-        build.count("member")
-    return m1 if exhaustive else (m1, m2)
+    launch = build.Launch("member", "dbg_member", (
+        scan.rep1.data_ptr(), scan.le1.data_ptr(), scan.rep2.data_ptr(),
+        scan.bug.data_ptr(), int(exhaustive),
+        scan.rows[0].data_ptr(), scan.rows.shape[2], lens.data_ptr(), B,
+        L, k1, c_index_arg(ix, dev), scan.has_n.data_ptr(), m1.data_ptr(),
+        None if m2 is None else m2.data_ptr(), build.stream_ptr(dev),
+    ), (ix, scan, lens, m1, m2))
+    return launch, (m1 if exhaustive else (m1, m2))

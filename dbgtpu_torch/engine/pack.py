@@ -51,17 +51,24 @@ def pack_paths(walks: Walks, *, pmax: int, dtype: torch.dtype) -> torch.Tensor:
         raise TypeError(f"unsupported output dtype {dtype}")
     if any(t.dtype != torch.int32 for t in walks):
         raise TypeError("walk outputs must be int32")
+    launch, out = pack_paths_launch(walks, pmax=pmax, dtype=dtype)
+    if walks.lbuf.shape[0]:
+        launch()
+        build.count("pack_paths")
+    return out
+
+
+def pack_paths_launch(walks: Walks, *, pmax: int, dtype: torch.dtype):
+    """K4's allocation on checked CUDA tensors: (build.Launch into the
+    output, the output)."""
+    dev = walks.lbuf.device
     walks = Walks(*(t.contiguous() for t in walks))
     B, P = walks.lbuf.shape
     out = torch.empty((B, 2 + pmax), dtype=dtype, device=dev)
-    if B:
-        lib = build.load()
-        err = lib.dbg_pack_paths(
-            walks.status.data_ptr(), walks.offset.data_ptr(),
-            walks.llen.data_ptr(), walks.rlen.data_ptr(),
-            walks.lbuf.data_ptr(), walks.rbuf.data_ptr(), B, P, pmax,
-            int(dtype == torch.int16), out.data_ptr(), build.stream_ptr(dev),
-        )
-        build.check(err, "pack_paths")
-        build.count("pack_paths")
-    return out
+    launch = build.Launch("pack_paths", "dbg_pack_paths", (
+        walks.status.data_ptr(), walks.offset.data_ptr(),
+        walks.llen.data_ptr(), walks.rlen.data_ptr(),
+        walks.lbuf.data_ptr(), walks.rbuf.data_ptr(), B, P, pmax,
+        int(dtype == torch.int16), out.data_ptr(), build.stream_ptr(dev),
+    ), (walks, out))
+    return launch, out

@@ -121,6 +121,16 @@ def read_scan(words, nmbits, lens, *, L: int, k1: int) -> Scan:
         return read_scan_ref(words, nmbits, lens, L=L, k1=k1)
     if words.device.type != "cuda":
         raise ValueError(f"no read_scan kernel for device {words.device}")
+    launch, scan = read_scan_launch(words, nmbits, lens, L=L, k1=k1)
+    if words.shape[0]:
+        launch()
+        build.count("read_scan")
+    return scan
+
+
+def read_scan_launch(words, nmbits, lens, *, L: int, k1: int):
+    """K1's checks and allocation on CUDA tensors: (build.Launch into the
+    outputs, the Scan it fills)."""
     _check(words, nmbits, lens, L, k1)
     words, nmbits, lens = (t.contiguous() for t in (words, nmbits, lens))
     B, Lw = words.shape
@@ -130,14 +140,11 @@ def read_scan(words, nmbits, lens, *, L: int, k1: int) -> Scan:
     kmers = torch.empty((4, B, Lk), dtype=torch.int64, device=dev)
     le1 = torch.empty((B, Lk), dtype=torch.uint8, device=dev)
     has_n = torch.zeros(1, dtype=torch.int32, device=dev)
-    if B:
-        lib = build.load()
-        err = lib.dbg_read_scan(
-            words.data_ptr(), Lw, nmbits.data_ptr(), nmbits.shape[1],
-            lens.data_ptr(), B, L, k1, rows.data_ptr(), kmers[0].data_ptr(),
-            kmers[1].data_ptr(), kmers[2].data_ptr(), le1.data_ptr(),
-            kmers[3].data_ptr(), has_n.data_ptr(), build.stream_ptr(dev),
-        )
-        build.check(err, "read_scan")
-        build.count("read_scan")
-    return Scan(rows, kmers[0], kmers[1], kmers[2], le1, kmers[3], has_n)
+    launch = build.Launch("read_scan", "dbg_read_scan", (
+        words.data_ptr(), Lw, nmbits.data_ptr(), nmbits.shape[1],
+        lens.data_ptr(), B, L, k1, rows.data_ptr(), kmers[0].data_ptr(),
+        kmers[1].data_ptr(), kmers[2].data_ptr(), le1.data_ptr(),
+        kmers[3].data_ptr(), has_n.data_ptr(), build.stream_ptr(dev),
+    ), (words, nmbits, lens, rows, kmers, le1, has_n))
+    return launch, Scan(rows, kmers[0], kmers[1], kmers[2], le1, kmers[3],
+                        has_n)

@@ -363,6 +363,20 @@ def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
     B, Lk = scan.bug.shape
     if member1.shape != (B, Lk) or member2.shape != (B, Lk):
         raise ValueError("member shapes differ from the scan's")
+    launch, walks = greedy_walk_launch(ix, scan, member1, member2, lens,
+                                       k=k, m=m, effort=effort, L=L)
+    if B:
+        launch()
+        build.count("greedy_walk")
+    return walks
+
+
+def greedy_walk_launch(ix: IndexTensors, scan: Scan, member1, member2, lens,
+                       *, k: int, m: int, effort: int, L: int):
+    """K3's greedy entry, allocation on checked CUDA tensors:
+    (build.Launch into the outputs, the Walks it fills)."""
+    dev = scan.bug.device
+    B, Lk = scan.bug.shape
     P = 16 * ((L + 15) // 16)
     scan = Scan(*(t.contiguous() for t in scan))
     member1, member2, lens = (t.contiguous()
@@ -370,21 +384,16 @@ def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
     lbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
     rbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
-    if B:
-        lib = build.load()
-        cix_ptr = c_index_arg(ix, dev)
-        err = lib.dbg_greedy_walk(
-            member1.data_ptr(), member2.data_ptr(), scan.bug.data_ptr(),
-            scan.rcs.data_ptr(), lens.data_ptr(), scan.rows.data_ptr(), B,
-            Lk, scan.rows.shape[2], cix_ptr, k, m, effort,
-            max_iters_for(effort, L), P,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
-            rbuf.data_ptr(), build.stream_ptr(dev),
-        )
-        build.check(err, "greedy_walk")
-        build.count("greedy_walk")
-    return Walks(out[0], out[1], out[2], out[3], out[4], lbuf, rbuf)
+    launch = build.Launch("greedy_walk", "dbg_greedy_walk", (
+        member1.data_ptr(), member2.data_ptr(), scan.bug.data_ptr(),
+        scan.rcs.data_ptr(), lens.data_ptr(), scan.rows.data_ptr(), B,
+        Lk, scan.rows.shape[2], c_index_arg(ix, dev), k, m, effort,
+        max_iters_for(effort, L), P,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
+        rbuf.data_ptr(), build.stream_ptr(dev),
+    ), (ix, scan, member1, member2, lens, out, lbuf, rbuf))
+    return launch, Walks(out[0], out[1], out[2], out[3], out[4], lbuf, rbuf)
 
 
 def walk_inits(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
@@ -401,9 +410,22 @@ def walk_inits(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
         raise ValueError("index, rows and lens must share a device")
     if lens.dtype != torch.int32 or inits.planes.dtype != torch.int64:
         raise TypeError("lens must be int32 and the init planes int64")
-    _, B, RWr = rows.shape
+    B = rows.shape[1]
     if inits.planes.shape[:3] != (len(INIT_FIELDS), 2, B):
         raise ValueError(f"init planes {tuple(inits.planes.shape)} for B={B}")
+    launch, walks = walk_inits_launch(ix, rows, lens, inits, k=k, L=L)
+    if B:
+        launch()
+        build.count("walk_inits")
+    return walks
+
+
+def walk_inits_launch(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
+                      L: int):
+    """K3's entry from inits, allocation on checked CUDA tensors:
+    (build.Launch into the outputs, the Walks it fills)."""
+    dev = rows.device
+    _, B, RWr = rows.shape
     E = inits.planes.shape[3]
     P = 16 * ((L + 15) // 16)
     rows, lens = rows.contiguous(), lens.contiguous()
@@ -412,16 +434,11 @@ def walk_inits(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
     out = torch.empty((5, B), dtype=torch.int32, device=dev)
     lbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
     rbuf = torch.empty((B, P), dtype=torch.int32, device=dev)
-    if B:
-        lib = build.load()
-        cix_ptr = c_index_arg(ix, dev)
-        err = lib.dbg_walk_inits(
-            planes.data_ptr(), n.data_ptr(), lens.data_ptr(), rows.data_ptr(),
-            B, RWr, cix_ptr, k, E, max_iters_for(E, L), P,
-            out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
-            out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
-            rbuf.data_ptr(), build.stream_ptr(dev),
-        )
-        build.check(err, "walk_inits")
-        build.count("walk_inits")
-    return Walks(out[0], out[1], out[2], out[3], out[4], lbuf, rbuf)
+    launch = build.Launch("walk_inits", "dbg_walk_inits", (
+        planes.data_ptr(), n.data_ptr(), lens.data_ptr(), rows.data_ptr(),
+        B, RWr, c_index_arg(ix, dev), k, E, max_iters_for(E, L), P,
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
+        out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
+        rbuf.data_ptr(), build.stream_ptr(dev),
+    ), (ix, rows, lens, planes, n, out, lbuf, rbuf))
+    return launch, Walks(out[0], out[1], out[2], out[3], out[4], lbuf, rbuf)

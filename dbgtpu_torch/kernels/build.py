@@ -144,13 +144,13 @@ def count(name: str) -> None:
     launches[name] += 1
 
 
-def sources() -> list[Path]:
-    return sorted(_CSRC.glob("*.cu")) + sorted(_CSRC.glob("*.cuh"))
+def sources(csrc: Path = _CSRC) -> list[Path]:
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
-def source_hash() -> str:
+def source_hash(csrc: Path = _CSRC) -> str:
     h = hashlib.sha256()
-    for p in sources():
+    for p in sources(csrc):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -171,20 +171,21 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
-    return BUILD_DIR / f"libdbgtpu_torch.{source_hash()}.so"
+def library_path(csrc: Path = _CSRC) -> Path:
+    return BUILD_DIR / f"libdbgtpu_torch.{source_hash(csrc)}.so"
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists."""
-    so = library_path()
+def build(csrc: Path = _CSRC) -> Path:
+    """Compile the kernels of `csrc` (default: this package's sources)
+    unless a library for these sources exists."""
+    so = library_path(csrc)
     if so.exists():
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     objs, procs = [], []
-    for src in sorted(_CSRC.glob("*.cu")):
+    for src in sorted(csrc.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
         procs.append((cmd, subprocess.Popen(
@@ -220,32 +221,64 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _ARGTYPES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            lib.dbg_error_string.argtypes = [ctypes.c_int]
-            lib.dbg_error_string.restype = ctypes.c_char_p
-            for fn, ours in ((lib.dbg_sizeof_index, IndexC),
-                             (lib.dbg_sizeof_mphf_meta, MphfMetaC)):
-                fn.argtypes, fn.restype = [], ctypes.c_int
-                if fn() != ctypes.sizeof(ours):
-                    raise RuntimeError(
-                        f"{ours.__name__} is {ctypes.sizeof(ours)} bytes "
-                        f"here and {fn()} in the kernel library")
-            lib.dbg_compact_tile.argtypes = []
-            lib.dbg_compact_tile.restype = ctypes.c_int
-            if lib.dbg_compact_tile() != COMPACT_TILE:
-                raise RuntimeError("COMPACT_TILE differs from csrc/compact.cu")
-            _lib = lib
+            _lib = _open(build())
         return _lib
+
+
+def load_from(csrc: Path) -> ctypes.CDLL:
+    """The kernels of another source tree (`csrc`: a `dbgtpu_torch/csrc`
+    directory with the same C entry points and index struct), built into
+    its own library beside this tree's: what a measurement compares this
+    tree's kernels with.  No wrapper launches it."""
+    return _open(build(Path(csrc).resolve()))
+
+
+def _open(path: Path) -> ctypes.CDLL:
+    """Bind a built kernel library's entry points and check that it
+    agrees with this module on the struct sizes and the K8 tile."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.dbg_error_string.argtypes = [ctypes.c_int]
+    lib.dbg_error_string.restype = ctypes.c_char_p
+    for fn, ours in ((lib.dbg_sizeof_index, IndexC),
+                     (lib.dbg_sizeof_mphf_meta, MphfMetaC)):
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        if fn() != ctypes.sizeof(ours):
+            raise RuntimeError(
+                f"{ours.__name__} is {ctypes.sizeof(ours)} bytes "
+                f"here and {fn()} in the kernel library")
+    lib.dbg_compact_tile.argtypes = []
+    lib.dbg_compact_tile.restype = ctypes.c_int
+    if lib.dbg_compact_tile() != COMPACT_TILE:
+        raise RuntimeError("COMPACT_TILE differs from csrc/compact.cu")
+    return lib
 
 
 def check(err: int, name: str) -> None:
     if err != 0:
         msg = load().dbg_error_string(err).decode()
         raise RuntimeError(f"CUDA kernel {name} failed to launch: {msg}")
+
+
+class Launch:
+    """One call of kernel `name`'s C entry point `entry` with `args`
+    (pointers and ints, fixed when the wrapper allocated its outputs);
+    `tensors` keeps every tensor the pointers point into alive.  Calling
+    it launches into the same outputs again, on `lib` (default: this
+    tree's library) and raises on a launch error.  It counts nothing:
+    the wrappers count, and a measurement of the kernel alone calls it
+    back to back (chip_smoke.py)."""
+
+    def __init__(self, name: str, entry: str, args, tensors):
+        self.name, self.entry = name, entry
+        self.args, self.tensors = tuple(args), tuple(tensors)
+
+    def __call__(self, lib: ctypes.CDLL | None = None) -> None:
+        lib = load() if lib is None else lib
+        check(getattr(lib, self.entry)(*self.args), self.name)
 
 
 def stream_ptr(device) -> int:

@@ -22,6 +22,7 @@ import torch
 from dbgtpu.constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
 from dbgtpu.engine import core, dog
 from dbgtpu.engine.kmer32 import pair_le, rcb_pair
+from dbgtpu.index.build import build_graph_from_seqs
 from dbgtpu.pipeline import run_pipeline as dbgtpu_pipeline
 from dbgtpu_torch.engine.core import align_batch
 from dbgtpu_torch.engine.dog import (
@@ -31,6 +32,7 @@ from dbgtpu_torch.engine.index import index_tensors
 from dbgtpu_torch.engine.kmer import le_ref, rcb_ref
 from dbgtpu_torch.engine.read_scan import _scan, read_scan_ref
 from dbgtpu_torch.engine.walk import INIT_FIELDS
+from dbgtpu_torch.kernels.edge_batch import CASE_NAMES, edge_cases
 from dbgtpu_torch.pipeline import run_pipeline
 
 from . import synth
@@ -244,3 +246,66 @@ def test_anchor_pipeline_bytes_equal_spec_and_jax(tmp_path, case, k, m, kw):
         assert got[1] == want[1], impl
         for f in ("read_number", "aligned", "not_aligned", "no_overlap"):
             assert getattr(got[2], f) == getattr(want[2], f), (impl, f)
+
+
+# the edge batch: chunk boundaries of K5's scan (reads of length k-1 ..
+# L, 0, 1, E and > 32 hits, hits only in a read's last chunk or only at
+# position len-k, efforts 1, 2 and 5, planted N, k = 32)
+_EDGE = {c.name: c for c in edge_cases()}
+
+
+def _edge_batch(name):
+    case = _EDGE[name]
+    codes, nm, lens, words, nmbits = batch(list(case.reads), case.L)
+    rows = read_scan_ref(t32(words), t32(nmbits), t32(lens), L=case.L,
+                         k1=case.k - 1).rows
+    return case, codes, nm, lens, rows
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_edge_batch_k5_matches_jax(name):
+    """dog_anchors_ref on an edge case against the JAX anchor stage
+    (scan anchors): counts and every used init field."""
+    case, codes, nm, lens, rows = _edge_batch(name)
+    k, L, E, m = case.k, case.L, case.effort, 2
+    graph = build_graph_from_seqs(list(case.unitigs), k, dog_mode=True)
+    di = device_index(graph, "embedded")
+    ix = index_tensors(di, "cpu")
+    _, _, j_inits, j_n = _jax_anchor_stage(
+        core.index_to_device(di), jnp.asarray(codes), jnp.asarray(nm),
+        jnp.asarray(lens), k=k, m=m, E=E)
+    inits = dog_anchors_ref(ix, rows, t32(lens), k=k, m=m, effort=E, L=L)
+    for o, (jini, n) in enumerate(zip(j_inits, j_n)):
+        np.testing.assert_array_equal(
+            (inits.n_f, inits.n_r)[o].numpy(), np.asarray(n))
+        used = np.arange(E)[None, :] < np.asarray(n)[:, None]
+        for f in INIT_FIELDS:
+            jf = _JAX_FIELD.get(f)
+            want = (join(jini[jf[0]], jini[jf[1]]) if jf
+                    else np.asarray(jini[f]))
+            np.testing.assert_array_equal(inits.field(f)[o].numpy()[used],
+                                          want[used], err_msg=f"{f} {o}")
+    n_f = inits.n_f.numpy()
+    assert (n_f == 0).any() and (n_f == E).any()
+
+
+@pytest.mark.parametrize("name", CASE_NAMES)
+def test_edge_batch_k5_mphf_anchors_match_scan(name):
+    """The MPHF anchor layout (mphf junction layout, and MPHF anchors
+    beside a scan junction table) gives the scan layout's inits on an
+    edge case; the test above holds the scan layout against JAX."""
+    case, _, _, lens, rows = _edge_batch(name)
+    graph = build_graph_from_seqs(list(case.unitigs), case.k, dog_mode=True)
+    kw = dict(k=case.k, m=2, effort=case.effort, L=case.L)
+    want = dog_anchors_ref(index_tensors(device_index(graph), "cpu"), rows,
+                           t32(lens), **kw)
+    for variant in ("mphf", "anchor_mphf"):
+        ix = index_tensors(device_index(graph, variant), "cpu")
+        assert ix.amph_meta is not None
+        got = dog_anchors_ref(ix, rows, t32(lens), **kw)
+        assert torch.equal(got.n_f, want.n_f)
+        assert torch.equal(got.n_r, want.n_r)
+        for o, n in enumerate((want.n_f, want.n_r)):
+            used = torch.arange(case.effort)[None, :] < n[:, None]
+            assert torch.equal(got.planes[:, o][:, used],
+                               want.planes[:, o][:, used])

@@ -23,7 +23,9 @@ its file read alone, loaded to host arrays
 index tensors are on the card, beside the seconds the build took; the
 loaded tensors must equal the built ones.
 Then each kernel of the mode is timed against its plain version on the
-first 32,768-read batch with its bound (chip_smoke.compare_kernels: the
+first 32,768-read batch with its bound, alone (back-to-back launches of
+its C entry point) and through its wrapper, and with `--baseline-csrc
+DIR` beside the kernels built from DIR, in turns (chip_smoke.compare_kernels: the
 published memory rate; here also the bound at the measured rate; in an
 mphf cell also K2's per-position branch on the index without its probe
 table), K7 mphf_slots alone on the stored keys of the cell's junction
@@ -364,7 +366,11 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
     for n, r in res.items():
         lib = ("none" if r["library_ms"] is None
                else f"{r['library_ms']:.4f} ms")
+        base = (f", baseline alone {r['baseline_alone_ms']:.4f} ms (turns "
+                + ", ".join(f"{t:.4f}" for t in r["alone_turns_ms"]) + ")"
+                if "baseline_alone_ms" in r else "")
         cs.log(f"{tag} kernel {n}: == plain (err {r['max_abs_err']}), "
+               f"alone {r['alone_ms']:.4f} ms{base}, through the wrapper "
                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                f"call {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
                f"{r['bound_at_copy_rate_ms']:.4f} ms at the measured copy "
@@ -389,6 +395,10 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", default=DEFAULT_CELLS)
     ap.add_argument("--modes", default=",".join(MODES))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--baseline-csrc", metavar="DIR",
+                    help="also build the kernels of DIR (another tree's "
+                         "dbgtpu_torch/csrc) and time each kernel alone "
+                         "beside this tree's, in turns")
     args = ap.parse_args(argv)
     modes = tuple(args.modes.split(","))
     cells: dict[str, list[str]] = {}
@@ -415,6 +425,8 @@ def main(argv=None) -> int:
     card = cs.card_line()
     cs.log(f"[card] {card}")
     build.load()
+    if args.baseline_csrc:
+        cs.BASELINE["lib"] = build.load_from(Path(args.baseline_csrc))
     if not native.available():
         raise AssertionError("the native parser / formatter did not build")
     copy_rate = measure_copy_rate(device)
