@@ -7,31 +7,35 @@ Runs with `dbgtpu` and `jax` blocked in sys.modules (the port stands on
 its own) and fails if either was imported by the end.  Builds the CUDA
 kernels from dbgtpu_torch/csrc (K1-K8; K3 has two entry points, each
 its own kernel), then:
-  1. prints the card's name and power limit and the kernel build time;
-     the native parser / formatter must build too;
+  1. prints the card's name and power limit, the kernel build time and
+     ptxas's registers and spills per mapping kernel (with the warps per
+     SM they allow); the native parser / formatter must build too;
   2. runs the kernels of each mode's path and their plain torch versions
      on the same CUDA inputs (the first 32,768-read batch of the survey
      workload) and requires exactly equal integer outputs; prints each
-     kernel's time alone (back-to-back launches of its C entry point
-     into outputs allocated once and checked equal to the wrapper's:
-     `alone_ms`), through its wrapper (`ms`), its plain version's and its
-     bound.  With `--baseline-csrc DIR` the kernels built from DIR (an
-     older tree's dbgtpu_torch/csrc) are timed alone beside these in
-     turns (baseline, this, this, baseline).  Greedy: K1 read_scan, K2
-     member, K3 greedy_walk, K4 pack_paths, K8 compact_result (int16 and
-     int32); anchors (-G): K5 dog_anchors, K3 walk_inits (the walk from
-     K5's inits); exhaustive (-b): K2's exhaustive mode, K6
-     exhaustive_dfs.  The same again on the mphf index as the main path
-     holds it (with its probe table, so K2 takes the closure-probe
-     branch on this batch; K3, walk_inits, K5 and K6 run K7's device
-     function inline).  Under each layout K2 once more on the index
-     without its probe table (its per-position branch, which batches
-     with N take; no main-path launch count goes with that row).  K2
-     (greedy and exhaustive mode, both branches, scan and mphf) and K5
-     (scan and MPHF anchors, efforts 1, 2 and 5) against their plain
-     versions on the edge batch (dbgtpu_torch/kernels/edge_batch.py:
-     lane-group, window and chunk edges).  K7 mphf_slots itself against
-     its plain
+     kernel's time alone (back-to-back launches of its C entry point,
+     rotating over the survey's 4 batches, into outputs allocated once
+     per batch and checked equal to the wrapper's: `alone_ms`), through
+     its wrapper (`ms`), its plain version's and its bound.  With
+     `--baseline-csrc DIR` the kernels built from DIR (an older tree's
+     dbgtpu_torch/csrc) are timed alone beside these in turns (baseline,
+     this, this, baseline).  Greedy: K1 read_scan, K2 member, K3
+     greedy_walk, K4 pack_paths, K8 compact_result (int16 and int32);
+     anchors (-G): K5 dog_anchors, K3 walk_inits (the walk from K5's
+     inits); exhaustive (-b): K2's exhaustive mode, K6 exhaustive_dfs.
+     The same again on the mphf index as the main path holds it (with
+     its probe table, so K2 takes the closure-probe branch on this
+     batch; K3, walk_inits, K5 and K6 run K7's device function inline).
+     Under each layout K2 once more on the index without its probe table
+     (its per-position branch, which batches with N take; no main-path
+     launch count goes with that row).  K2 (greedy and exhaustive mode,
+     both branches, scan and mphf), K5 (scan and MPHF anchors, efforts 1,
+     2 and 5), K3 greedy_walk, K3 walk_inits on K5's inits and K6 (with
+     and without -i; scan, mphf and a pool-chunk index) against their
+     plain versions on the edge batch (dbgtpu_torch/kernels/edge_batch.py:
+     lane-group, window and chunk edges, ragged warps, tied and 0 / 4
+     candidates, dead ends, deep searches).  K7 mphf_slots itself
+     against its plain
      version on the survey junction MPHF, the survey anchor MPHF and a
      tight-gamma MPHF that uses the final table, each with keys of the
      set, keys outside it and the all-ones key, and on an empty MPHF;
@@ -85,22 +89,35 @@ published memory rate) and operations / 16.75e12 op/s (32-bit integer
 operations: a quarter of the published 67 TFLOP/s of float32, which
 counts a fused multiply-add as two on twice as many lanes).  Bytes are
 the tensors a kernel must read and write once, plus the table rows this
-batch's lookups touch (never more than the table); for the walks and
-the DFS the lookups are the junction steps that ended on the reported
-paths, a lower bound.  K1's outputs are the tensors it hands to K2-K6
+batch's lookups touch (never more than the table).  For K3 and K6 the
+lookups are every junction evaluation the function makes, counted by
+the plain versions (engine/walk.py count_probe; K3's successful and
+failed steps, K6's populated frames): per evaluation the junction row's
+32 key-hi words and, where the key is found, a key-lo sector and a
+values sector (MPHF: the level row and the jrows row), and per valid
+candidate the sectors of its umeta header and window words; of the
+k-mer planes bug and rcs, only the sectors read at the anchors (K3's
+greedy entry: the first E forward and last E RC anchors of each read;
+K6: each anchor FETCHX takes; walk.count_read_sectors).  K6's stack is
+the kernel's own scratch, not part of the function, and stays out of
+its bound.  K1's outputs are the tensors it hands to K2-K6
 (four int64 k-mer planes, a byte plane, the packed rows); its bound
 from the packed batch in and the packed rows out alone is printed
 beside it.  Operations are counted from the kernel bodies, per position,
-slot, step or key: the OPS_* constants and ops_* functions below.  For
+slot, evaluation, candidate, window word or key: the OPS_* constants and
+ops_* functions below.  For
 the gathers K9-K12 they are what the function needs whatever the
 kernel's layout (tools/exp_gather.py): no operation for K9's copy, one
-add per table word summed for K10-K12.
+add per table word summed for K10-K12.  `library_ms` is the time of one
+PyTorch call that computes the same function: for K9-K12 a gather, for
+the mapping kernels none (null).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import itertools
 import json
 import os
 import subprocess
@@ -197,13 +214,12 @@ def ops_member_probe(windows: int, positions: int, pt_slots: int,
             + positions * (5 + 1 + (2 + OPS_BASE_AT + 3) + 3 + 3))
 
 
-def ops_junction_step(j_lookup: int) -> int:
-    """One junction step of walk.cu / exhaustive.cu at its least:
-    junction_lookup (rcb, canonical compare and select, the lookup with
-    its 8 values, side select, 4 candidate selects), one valid candidate
-    with one window word, and the walk's state update."""
-    return (OPS_RCB + 2 + j_lookup + 1 + 4 + OPS_CANDIDATE + OPS_WINDOW_WORD
-            + OPS_WALK_UPDATE)
+def ops_junction_eval(j_lookup: int) -> int:
+    """One junction evaluation of walk.cu / exhaustive.cu besides its
+    candidates: the reverse complement, canonical compare and select,
+    the lookup with the 4 values of its side (`j_lookup`), the side
+    select and the walk's state update."""
+    return OPS_RCB + 2 + j_lookup + 1 + OPS_WALK_UPDATE
 
 
 # dog.cu per scanned k-mer besides its lookup: kmer_at (two word_at, shift
@@ -374,45 +390,57 @@ BASELINE = {"lib": None}
 ALONE_LAUNCHES, ALONE_REPS = 50, 5
 
 
-def time_alone(name, prep, pairs_of) -> dict:
+def time_alone(name, alones) -> dict:
     """Kernel `name` alone: ALONE_LAUNCHES back-to-back launches of its C
-    entry point into outputs allocated once (`prep()` gives the launch
-    and those outputs), the median of ALONE_REPS runs; its outputs must
-    then equal the wrapper's (`pairs_of(outputs)` pairs them).
+    entry point, the median of ALONE_REPS runs.  `alones` holds one
+    (prep, pairs_of) per batch of the run: prep() gives the kernel's
+    launch on that batch into outputs allocated once, and those outputs;
+    pairs_of(outputs) pairs them with the wrapper's result on the batch.
+    The launches rotate over the batches, so a launch does not find the
+    rows the previous one read still in L2 (a real run maps one batch
+    after another); each batch's outputs must then equal the wrapper's.
     With a baseline library, the baseline and this tree's kernel in
     turns (baseline, this, this, baseline) on the same inputs, and the
     baseline's outputs must equal the wrapper's too."""
     import torch
 
-    launch, outputs = prep()
+    preps = [(prep(), pairs_of) for prep, pairs_of in alones]
 
     def timed(lib):
-        return cuda_ms(lambda: launch(lib), ALONE_REPS,
-                       launches=ALONE_LAUNCHES)
+        turn = itertools.count()
+
+        def launch():
+            (go, _), _ = preps[next(turn) % len(preps)]
+            go(lib)
+
+        return cuda_ms(launch, ALONE_REPS, launches=ALONE_LAUNCHES)
 
     def check(who):
         torch.cuda.synchronize()
-        err = max(_max_abs_err(g, w) for g, w in pairs_of(outputs))
-        if err:
-            raise AssertionError(f"{name}: {who} alone != the wrapper's "
-                                 f"result (max abs err {err})")
+        for (_, outputs), pairs_of in preps:
+            err = max(_max_abs_err(g, w) for g, w in pairs_of(outputs))
+            if err:
+                raise AssertionError(f"{name}: {who} alone != the "
+                                     f"wrapper's result (max abs err {err})")
 
     base = BASELINE["lib"]
     if base is None:
         alone_ms = timed(None)
         check("the kernel")
-        return dict(alone_ms=alone_ms)
+        return dict(alone_ms=alone_ms, alone_batches=len(preps))
     turns = [timed(base), timed(None), timed(None), timed(base)]
     check("the kernel")
-    launch(base)
+    for (go, _), _ in preps:
+        go(base)
     check("the baseline kernel")
     return dict(alone_ms=(turns[1] + turns[2]) / 2,
                 baseline_alone_ms=(turns[0] + turns[3]) / 2,
-                alone_turns_ms=turns)
+                alone_turns_ms=turns, alone_batches=len(preps))
 
 
 def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
-                    timed: bool, partial: bool = False, perpos_ix=None):
+                    timed: bool, partial: bool = False, perpos_ix=None,
+                    more=()):
     """Each kernel of `mode`'s path against its plain version on the same
     CUDA inputs.  Integer outputs must be exactly equal (tolerance 0).
     Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -420,7 +448,11 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     exhaustive mode is "member (inter)", K8 on the other result dtype
     "compact_result (int32)" or "(int16)".  `perpos_ix` (the same index
     without its probe table) adds K2 on its per-position branch as
-    "member (per-position)" / "member (inter, per-position)"."""
+    "member (per-position)" / "member (inter, per-position)".  `more`
+    holds the run's other batches, (words, nmbits, lens) each: the alone
+    timer rotates over them and this one."""
+    import types
+
     import torch
 
     from dbgtpu_torch.engine.compact import (
@@ -460,14 +492,41 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         return (ops_mphf_lookup(vals) if jl_mphf
                 else ops_scan_lookup(ix.st_slots, vals))
 
-    step_ops = ops_junction_step(j_ops(8))
     u_row = ix.umeta.shape[1] * 4
+    dtype = out_dtype_for(ix.umeta.shape[0], L)
+    xw = dict(k=k, m=m, partial=partial, L=L)
+    kw = dict(k=k, m=m, effort=effort, L=L)
+
+    def chain(words, nmbits, lens):
+        """The mode's path through the wrappers on one batch: every
+        kernel's inputs and outputs there."""
+        c = types.SimpleNamespace(lens=lens)
+        c.sk = read_scan(words, nmbits, lens, L=L, k1=k1)
+        if mode == "greedy":
+            c.mk = member(ix, c.sk, lens, L=L, k1=k1)
+            c.wk = greedy_walk(ix, c.sk, *c.mk, lens, **kw)
+        elif mode == "anchors":
+            c.ik = dog_anchors(ix, c.sk.rows, lens, **kw)
+            c.wk = walk_inits(ix, c.sk.rows, lens, c.ik, k=k, L=L)
+        elif mode == "exhaustive":
+            c.xk = inter(ix, c.sk, lens, L=L, k1=k1)
+            c.wk = exhaustive_dfs(ix, c.sk, c.xk, lens, **xw)
+        else:
+            raise ValueError(mode)
+        c.pk = pack_paths(c.wk, pmax=pmax, dtype=dtype)
+        c.words, c.nmbits = words, nmbits
+        return c
+
+    c0 = chain(words, nmbits, lens)
+    chains = [c0] + ([chain(*b) for b in more] if timed else [])
+    sk, wk, pk = c0.sk, c0.wk, c0.pk
 
     def record(name, pairs, fk, fr, *, stream, touched=0, table=0, ops,
-               alone, reps_k=20, reps_r=3, library=False, min_stream=None):
-        """`alone` = (prep, pairs_of): prep() allocates the kernel's
-        outputs once and gives (its build.Launch, those outputs);
-        pairs_of(outputs) pairs them with the wrapper's result."""
+               alone, reps_k=20, reps_r=3, min_stream=None):
+        """`alone(c)` = (prep, pairs_of) on the batch of chain c: prep()
+        allocates the kernel's outputs once and gives (its build.Launch,
+        those outputs); pairs_of(outputs) pairs them with the wrapper's
+        result on that batch."""
         torch.cuda.synchronize()
         err = max(_max_abs_err(g, w) for g, w in pairs)
         if err:
@@ -476,21 +535,36 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         bound_ms, bound_by = bound_of(stream, touched, table, ops)
         ms = cuda_ms(fk, reps_k) if timed else None
         pms = cuda_ms(fr, reps_r) if timed else None
+        # no one PyTorch call computes any of these kernels' functions
         out[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
                          bound_ms=bound_ms, bound_by=bound_by,
-                         library_ms=pms if library else None,
+                         library_ms=None,
                          bound_bytes=stream + min(touched, table),
                          bound_ops=ops, alone_ms=None)
         if min_stream is not None:
             out[name]["bound_min_bytes_ms"] = bound_of(
                 min_stream, 0, 0, 0)[0]
         if timed:
-            out[name].update(time_alone(name, *alone))
+            out[name].update(time_alone(name, [alone(c) for c in chains]))
 
     def walk_out_bytes(w):
         return 5 * B * 4 + 4 * int(w.llen.sum() + w.rlen.sum())
 
-    sk = read_scan(words, nmbits, lens, L=L, k1=k1)
+    def probe_cost(counts):
+        """(touched, ops) of the junction evaluations the plain version
+        counted (engine/walk.py count_probe): per evaluation the table
+        row's 32 key-hi words, and where the key was found a key-lo
+        sector and a values sector (MPHF: the level row and the jrows
+        row), its lookup and the walk's update; per valid candidate the
+        sectors of its umeta header and window words, OPS_CANDIDATE and
+        OPS_WINDOW_WORD per window word."""
+        n = counts["evals"]
+        touched = (n * j_row if jl_mphf else
+                   n * ix.st_slots * 4 + counts["found"] * 2 * SECTOR_BYTES)
+        ops = (n * ops_junction_eval(j_ops(4)) + counts["cands"] * OPS_CANDIDATE
+               + counts["words"] * OPS_WINDOW_WORD)
+        return touched + counts["sectors"] * SECTOR_BYTES, ops
+
     sr = read_scan_ref(words, nmbits, lens, L=L, k1=k1)
     Lk = sk.bug.shape[1]
     record("read_scan", list(zip(sk, sr)),
@@ -498,8 +572,10 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
            lambda: read_scan_ref(words, nmbits, lens, L=L, k1=k1),
            stream=nbytes(words, nmbits, lens, *sk),
            ops=ops_read_scan(B, Lk, words.shape[1], k1),
-           alone=(lambda: read_scan_launch(words, nmbits, lens, L=L, k1=k1),
-                  lambda s: list(zip(s, sk))),
+           alone=lambda c: (
+               lambda: read_scan_launch(c.words, c.nmbits, c.lens, L=L,
+                                        k1=k1),
+               lambda s: list(zip(s, c.sk))),
            min_stream=nbytes(words, nmbits, lens, sk.rows))
     has_n = bool(sk.has_n.item())
 
@@ -550,17 +626,28 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
             ops=lookups * j_ops(0) + positions * (
                 3 + (OPS_RCB + 2 if n_masks == 1 else 0)))
 
-    kw = dict(k=k, m=m, effort=effort, L=L)
+    def member_alone(ix_, exhaustive):
+        """K2 alone on chain c's batch, against the wrapper there."""
+        def alone(c):
+            if exhaustive:
+                want = c.xk if ix_ is ix else inter(ix_, c.sk, c.lens, L=L,
+                                                    k1=k1)
+                return (lambda: member_launch(ix_, c.sk, c.lens, L=L, k1=k1,
+                                              exhaustive=True),
+                        lambda x: [(x, want)])
+            want = c.mk if ix_ is ix else member(ix_, c.sk, c.lens, L=L,
+                                                 k1=k1)
+            return (lambda: member_launch(ix_, c.sk, c.lens, L=L, k1=k1,
+                                          exhaustive=False),
+                    lambda r: list(zip(r, want)))
+        return alone
+
     if mode == "greedy":
-        mk = member(ix, sk, lens, L=L, k1=k1)
-        mr = member_ref(ix, sk, lens, L=L, k1=k1)
-        record("member", list(zip(mk, mr)),
+        mk = c0.mk
+        record("member", list(zip(mk, member_ref(ix, sk, lens, L=L, k1=k1))),
                lambda: member(ix, sk, lens, L=L, k1=k1),
                lambda: member_ref(ix, sk, lens, L=L, k1=k1),
-               alone=(lambda: member_launch(ix, sk, lens, L=L, k1=k1,
-                                            exhaustive=False),
-                      lambda r: list(zip(r, mk))),
-               **member_cost(ix, mk))
+               alone=member_alone(ix, False), **member_cost(ix, mk))
         if perpos_ix is not None:
             px = perpos_ix
             mp = member(px, sk, lens, L=L, k1=k1)
@@ -568,30 +655,32 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                    list(zip(mp, member_ref(px, sk, lens, L=L, k1=k1))),
                    lambda: member(px, sk, lens, L=L, k1=k1),
                    lambda: member_ref(px, sk, lens, L=L, k1=k1),
-                   alone=(lambda: member_launch(px, sk, lens, L=L, k1=k1,
-                                                exhaustive=False),
-                          lambda r: list(zip(r, mp))),
-                   **member_cost(px, mp))
-        wk = greedy_walk(ix, sk, *mk, lens, **kw)
-        wr = walk_ref(ix, sk, *mk, lens, **kw)
-        steps = int(wk.llen.sum() + wk.rlen.sum())
+                   alone=member_alone(px, False), **member_cost(px, mp))
+        counts = {}
+        wr = walk_ref(ix, sk, *mk, lens, counts=counts, **kw)
+        touched, ops = probe_cost(counts)
         record("greedy_walk", walks_pairs(wk, wr),
                lambda: greedy_walk(ix, sk, *mk, lens, **kw),
                lambda: walk_ref(ix, sk, *mk, lens, **kw), reps_r=2,
-               alone=(lambda: greedy_walk_launch(ix, sk, *mk, lens, **kw),
-                      lambda w: walks_pairs(w, wk)),
-               stream=nbytes(*mk, sk.bug, sk.rcs, lens, sk.rows)
-               + walk_out_bytes(wk),
-               touched=steps * (j_row + u_row),
-               table=j_table + nbytes(ix.umeta),
-               # the anchor count: an add and a loop step per member byte
-               ops=4 * B * Lk + steps * step_ops)
+               alone=lambda c: (
+                   lambda: greedy_walk_launch(ix, c.sk, *c.mk, c.lens, **kw),
+                   lambda w: walks_pairs(w, c.wk)),
+               # bug and rcs: the sectors read at the anchors
+               stream=nbytes(*mk, lens, sk.rows) + walk_out_bytes(wk)
+               + counts["anchor_sectors"] * SECTOR_BYTES,
+               touched=touched, table=j_table + nbytes(ix.umeta),
+               # the anchors: a test per member byte
+               ops=2 * B * Lk + ops)
+        out["greedy_walk"]["evaluations"] = counts
     elif mode == "anchors":
-        ik = dog_anchors(ix, sk.rows, lens, **kw)
+        ik = c0.ik
         ir = dog_anchors_ref(ix, sk.rows, lens, **kw)
         # init rows e >= n_f (n_r) are never read
-        used = (torch.arange(effort, device=lens.device)[None, None, :]
-                < torch.stack([ir.n_f, ir.n_r])[:, :, None])
+
+        def used_of(i):
+            return (torch.arange(effort, device=lens.device)[None, None, :]
+                    < torch.stack([i.n_f, i.n_r])[:, :, None])
+
         # k-mers K5 must look up: a read is scanned from the start up to
         # its E-th hit and from the end down to its E-th hit from there;
         # a position both scans reach is looked up once
@@ -617,43 +706,44 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                    else nbytes(ix.at_fused))
         a_ops = (ops_mphf_lookup(3) if al_mphf
                  else ops_scan_lookup(ix.at_slots, 3))
-        record("dog_anchors", [(ik.n_f, ir.n_f), (ik.n_r, ir.n_r),
-                               (ik.planes[:, used], ir.planes[:, used])],
+
+        def inits_pairs(got, want):
+            u = used_of(want)
+            return [(got.n_f, want.n_f), (got.n_r, want.n_r),
+                    (got.planes[:, u], want.planes[:, u])]
+
+        record("dog_anchors", inits_pairs(ik, ir),
                lambda: dog_anchors(ix, sk.rows, lens, **kw),
                lambda: dog_anchors_ref(ix, sk.rows, lens, **kw),
-               alone=(lambda: dog_anchors_launch(ix, sk.rows, lens, k=k, m=m,
-                                                 effort=effort),
-                      lambda i: [(i.n_f, ik.n_f), (i.n_r, ik.n_r),
-                                 (i.planes[:, used], ik.planes[:, used])]),
+               alone=lambda c: (
+                   lambda: dog_anchors_launch(ix, c.sk.rows, c.lens, k=k,
+                                              m=m, effort=effort),
+                   lambda i: inits_pairs(i, c.ik)),
                stream=nbytes(sk.rows, lens) + anchors * 9 * 8 + 2 * B * 4,
                touched=a_bytes + anchors * u_row,
                table=a_table + nbytes(ix.umeta),
                ops=looked * (OPS_DOG_KMER + a_ops) + anchors * OPS_DOG_PLACE)
-        wk = walk_inits(ix, sk.rows, lens, ik, k=k, L=L)
-        wr = walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L)
-        steps = int(wk.llen.sum() + wk.rlen.sum())
+        counts = {}
+        wr = walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L, counts=counts)
+        touched, ops = probe_cost(counts)
         record("walk_inits", walks_pairs(wk, wr),
                lambda: walk_inits(ix, sk.rows, lens, ik, k=k, L=L),
                lambda: walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L),
                reps_r=2,
-               alone=(lambda: walk_inits_launch(ix, sk.rows, lens, ik, k=k,
-                                                L=L),
-                      lambda w: walks_pairs(w, wk)),
+               alone=lambda c: (
+                   lambda: walk_inits_launch(ix, c.sk.rows, c.lens, c.ik,
+                                             k=k, L=L),
+                   lambda w: walks_pairs(w, c.wk)),
                stream=anchors * 9 * 8 + 2 * B * 4 + nbytes(lens, sk.rows)
                + walk_out_bytes(wk),
-               touched=steps * (j_row + u_row),
-               table=j_table + nbytes(ix.umeta),
-               ops=steps * step_ops)
-    elif mode == "exhaustive":
-        xk = inter(ix, sk, lens, L=L, k1=k1)
-        xr = inter_ref(ix, sk, lens, L=L, k1=k1)
-        record("member (inter)", [(xk, xr)],
+               touched=touched, table=j_table + nbytes(ix.umeta), ops=ops)
+        out["walk_inits"]["evaluations"] = counts
+    else:
+        xk = c0.xk
+        record("member (inter)", [(xk, inter_ref(ix, sk, lens, L=L, k1=k1))],
                lambda: inter(ix, sk, lens, L=L, k1=k1),
                lambda: inter_ref(ix, sk, lens, L=L, k1=k1),
-               alone=(lambda: member_launch(ix, sk, lens, L=L, k1=k1,
-                                            exhaustive=True),
-                      lambda x: [(x, xk)]),
-               **member_cost(ix, (xk,)))
+               alone=member_alone(ix, True), **member_cost(ix, (xk,)))
         if perpos_ix is not None:
             px = perpos_ix
             xp = inter(px, sk, lens, L=L, k1=k1)
@@ -661,79 +751,101 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                    [(xp, inter_ref(px, sk, lens, L=L, k1=k1))],
                    lambda: inter(px, sk, lens, L=L, k1=k1),
                    lambda: inter_ref(px, sk, lens, L=L, k1=k1),
-                   alone=(lambda: member_launch(px, sk, lens, L=L, k1=k1,
-                                                exhaustive=True),
-                          lambda x: [(x, xp)]),
-                   **member_cost(px, (xp,)))
-        xw = dict(k=k, m=m, partial=partial, L=L)
-        wk = exhaustive_dfs(ix, sk, xk, lens, **xw)
-        wr = exhaustive_ref(ix, sk, xk, lens, **xw)
-        steps = int(wk.llen.sum() + wk.rlen.sum())
+                   alone=member_alone(px, True), **member_cost(px, (xp,)))
+        counts = {}
+        wr = exhaustive_ref(ix, sk, xk, lens, counts=counts, **xw)
+        touched, ops = probe_cost(counts)
         record("exhaustive_dfs", walks_pairs(wk, wr),
                lambda: exhaustive_dfs(ix, sk, xk, lens, **xw),
                lambda: exhaustive_ref(ix, sk, xk, lens, **xw), reps_r=2,
-               alone=(lambda: exhaustive_dfs_launch(ix, sk, xk, lens, **xw),
-                      lambda w: walks_pairs(w, wk)),
-               stream=nbytes(xk, sk.bug, lens, sk.rows) + walk_out_bytes(wk),
-               touched=steps * (j_row + u_row),
-               table=j_table + nbytes(ix.umeta),
-               # the anchor scan: a test and a loop step per inter byte
-               ops=2 * B * Lk + steps * step_ops)
-    else:
-        raise ValueError(mode)
+               alone=lambda c: (
+                   lambda: exhaustive_dfs_launch(ix, c.sk, c.xk, c.lens,
+                                                 **xw),
+                   lambda w: walks_pairs(w, c.wk)),
+               # bug: the sectors FETCHX reads at its anchors
+               stream=nbytes(xk, lens, sk.rows) + walk_out_bytes(wk)
+               + counts["anchor_sectors"] * SECTOR_BYTES,
+               touched=touched, table=j_table + nbytes(ix.umeta),
+               # the anchor scan: a test per inter byte; the stack's
+               # frames are the kernel's own scratch, not the function's
+               ops=B * Lk + ops)
+        out["exhaustive_dfs"]["evaluations"] = counts
 
-    dtype = out_dtype_for(ix.umeta.shape[0], L)
-    pk = pack_paths(wk, pmax=pmax, dtype=dtype)
     pr = pack_ref(wk, pmax=pmax, dtype=dtype)
     record("pack_paths", [(pk, pr)],
            lambda: pack_paths(wk, pmax=pmax, dtype=dtype),
            lambda: pack_ref(wk, pmax=pmax, dtype=dtype),
-           alone=(lambda: pack_paths_launch(wk, pmax=pmax, dtype=dtype),
-                  lambda o: [(o, pk)]),
+           alone=lambda c: (
+               lambda: pack_paths_launch(c.wk, pmax=pmax, dtype=dtype),
+               lambda o: [(o, c.pk)]),
            stream=walk_out_bytes(wk) - B * 4 + nbytes(pk),
            ops=B * (pmax + 2) * OPS_PACK_ELEM)
     if dtype == torch.int16:
-        variants = ((pk, "compact_result"),
-                    (pk.to(torch.int32), "compact_result (int32)"))
+        variants = ((None, "compact_result"),
+                    (torch.int32, "compact_result (int32)"))
     elif int(pk.abs().max()) <= 32767:
-        variants = ((pk, "compact_result"),
-                    (pk.to(torch.int16), "compact_result (int16)"))
+        variants = ((None, "compact_result"),
+                    (torch.int16, "compact_result (int16)"))
     else:
-        variants = ((pk, "compact_result"),)
+        variants = ((None, "compact_result"),)
     aligned = (pk[:, 0] == 1) | (pk[:, 0] == 2)
     slots = int((pk[:, 1].clamp(max=pmax) * aligned).sum())   # populated
-    for fused, name in variants:
+    for cast, name in variants:
+        fused = pk if cast is None else pk.to(cast)
         ck = compact_result(fused, pmax)
         cr = compact_ref(fused, pmax)
+
+        def compact_alone(c, cast=cast):
+            f = c.pk if cast is None else c.pk.to(cast)
+            want = compact_result(f, pmax)
+            return (lambda: compact_result_launch(f, pmax),
+                    lambda r: list(zip(r, want)))
+
         record(name, list(zip(ck, cr)),
                lambda fused=fused: compact_result(fused, pmax),
                lambda fused=fused: compact_ref(fused, pmax),
-               alone=(lambda fused=fused: compact_result_launch(fused, pmax),
-                      lambda r, ck=ck: list(zip(r, ck))),
+               alone=compact_alone,
                stream=nbytes(fused, *ck),
-               ops=B * OPS_COMPACT_ROW + slots * OPS_COMPACT_SLOT,
-               library=True)
+               ops=B * OPS_COMPACT_ROW + slots * OPS_COMPACT_SLOT)
     return out
 
 
 def compare_edge_batch(device):
     """K2 (greedy and exhaustive mode; closure-probe branch with windows
-    of 3 and 4 and per-position branch; scan and mphf junction layouts)
-    and K5 (scan anchors, MPHF anchors under the mphf layout and beside a
-    scan junction table; efforts 1, 2 and 5) against their plain versions
-    on each case of the edge batch (dbgtpu_torch/kernels/edge_batch.py),
-    exact.  Returns the number of comparisons."""
+    of 3 and 4 and per-position branch; scan and mphf junction layouts),
+    K5 (scan anchors, MPHF anchors under the mphf layout and beside a
+    scan junction table; efforts 1, 2 and 5), and K3 greedy_walk (on
+    K2's masks), K3 walk_inits (on K5's inits) and K6 exhaustive_dfs
+    (on K2's `inter`, with and without -i) under the scan and mphf
+    layouts and on a pool-chunk index (unitigs longer than the embedded
+    width), against their plain versions on each case of the edge batch
+    (dbgtpu_torch/kernels/edge_batch.py), exact.  Returns the number of
+    comparisons."""
     import numpy as np
     import torch
 
     from dbgtpu_torch.engine.dog import dog_anchors, dog_anchors_ref
+    from dbgtpu_torch.engine.exhaustive import (
+        depth_for, exhaustive_dfs, exhaustive_ref,
+    )
     from dbgtpu_torch.engine.index import index_tensors
     from dbgtpu_torch.engine.member import inter, inter_ref, member, member_ref
     from dbgtpu_torch.engine.read_scan import read_scan
+    from dbgtpu_torch.engine.walk import (
+        greedy_walk, walk_inits, walk_inits_ref, walk_ref,
+    )
     from dbgtpu_torch.index import device as dev_index
     from dbgtpu_torch.index.build import build_graph_from_seqs
     from dbgtpu_torch.kernels.edge_batch import edge_cases
     from dbgtpu_torch.seq import encode, n_mask
+
+    def with_floor(name, value, fn):
+        old = getattr(dev_index, name)
+        setattr(dev_index, name, value)
+        try:
+            return fn()
+        finally:
+            setattr(dev_index, name, old)
 
     compared = 0
     for case in edge_cases():
@@ -744,14 +856,14 @@ def compare_edge_batch(device):
         dis["window4"] = dev_index.build_device_index(graph)
         dis["window4"].probe_tbl = dev_index.build_probe_table(
             graph.jkeys, k - 1, window=4)
-        floor = dev_index.ANCHOR_MPHF_MIN
-        dev_index.ANCHOR_MPHF_MIN = 1
-        try:
-            dis["anchor_mphf"] = dev_index.build_device_index(graph)
-        finally:
-            dev_index.ANCHOR_MPHF_MIN = floor
+        dis["anchor_mphf"] = with_floor(
+            "ANCHOR_MPHF_MIN", 1, lambda: dev_index.build_device_index(graph))
+        dis["pool"] = with_floor(
+            "EMBED_CAP_BASES", 8, lambda: dev_index.build_device_index(graph))
         ixs = {name: index_tensors(di, device) for name, di in dis.items()}
-        if ixs["window4"].pt_window != 4 or ixs["anchor_mphf"].amph_meta is None:
+        if (ixs["window4"].pt_window != 4
+                or ixs["anchor_mphf"].amph_meta is None
+                or ixs["pool"].seq_words != 0):
             raise AssertionError(f"edge {case.name}: index variants")
         B = len(case.reads)
         codes = np.zeros((B, L), np.uint8)
@@ -800,11 +912,43 @@ def compare_edge_batch(device):
                         f"edge {case.name}: K5 on {name}, E={effort} != "
                         f"plain (max abs err {err})")
                 compared += 1
+        deepest = 0
+        for name in ("scan", "mphf", "pool"):
+            ix = ixs[name]
+            kw = dict(k=k, m=2, effort=case.effort, L=L)
+            m1, m2 = member(ix, sk, lens, L=L, k1=k - 1)
+            runs = [("K3 greedy_walk", greedy_walk(ix, sk, m1, m2, lens, **kw),
+                     walk_ref(ix, sk, m1, m2, lens, **kw))]
+            ik = dog_anchors(ix, sk.rows, lens, **kw)
+            runs.append(("K3 walk_inits",
+                         walk_inits(ix, sk.rows, lens, ik, k=k, L=L),
+                         walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L)))
+            xk = inter(ix, sk, lens, L=L, k1=k - 1)
+            for partial in (False, True):
+                xw = dict(k=k, m=2, partial=partial, L=L)
+                got = exhaustive_dfs(ix, sk, xk, lens, **xw)
+                runs.append((f"K6 exhaustive_dfs{' -i' if partial else ''}",
+                             got, exhaustive_ref(ix, sk, xk, lens, **xw)))
+                deepest = max(deepest, int(got.llen.max()),
+                              int(got.rlen.max()))
+            torch.cuda.synchronize()
+            for what, got, want in runs:
+                err = max(_max_abs_err(g, w) for g, w in walks_pairs(got,
+                                                                      want))
+                if err:
+                    raise AssertionError(f"edge {case.name}: {what} on "
+                                         f"{name} != plain (max abs err "
+                                         f"{err})")
+                compared += 1
         log(f"[edge] {case.name} (k={k}, L={L}, Lk={case.Lk}, {B} reads, "
-            f"lens {int(lens_np.min())}-{int(lens_np.max())}, N "
-            f"{bool(sk.has_n.item())}): K2 member and inter ({', '.join(sorted(branches))}; "
-            f"scan, window 4, mphf) and K5 (scan, mphf, MPHF anchors beside "
-            f"scan; E = 1, 2, 5) == plain versions (tolerance 0)")
+            f"{len(case.unitigs)} unitigs, lens {int(lens_np.min())}-"
+            f"{int(lens_np.max())}, N {bool(sk.has_n.item())}): K2 member "
+            f"and inter ({', '.join(sorted(branches))}; scan, window 4, "
+            f"mphf), K5 (scan, mphf, MPHF anchors beside scan; E = 1, 2, "
+            f"5), K3 greedy_walk and walk_inits and K6 exhaustive_dfs "
+            f"(with and without -i; scan, mphf, pool chunks; deepest K6 "
+            f"path {deepest} of D = {depth_for(L, k)}) == plain versions "
+            f"(tolerance 0)")
     return compared
 
 
@@ -899,6 +1043,55 @@ def compare_gathers(device):
             f"{r['bound_ops']} operations)")
         out.setdefault(r["name"], dict(r, alone_ms=r["ms"]))
     return out
+
+
+def survey_batches(codes_all, L, device):
+    """The survey's reads as the run's batches of BATCH reads, each
+    (words, nmbits, lens) on the device, padded to L bases."""
+    import numpy as np
+    import torch
+
+    n_reads, read_len = codes_all.shape
+    out = []
+    for s0 in range(0, n_reads, BATCH):
+        part = codes_all[s0 : s0 + BATCH]
+        codes = np.zeros((part.shape[0], L), np.uint8)
+        codes[:, :read_len] = part
+        words, nmbits = batch_tensors(codes, np.zeros(codes.shape, bool),
+                                      device)
+        out.append((words, nmbits, torch.full(
+            (part.shape[0],), read_len, dtype=torch.int32, device=device)))
+    return out
+
+
+def occupancy_warps(registers: int, block: int) -> int:
+    """Resident warps per SM that `registers` per thread allow blocks of
+    `block` threads (65,536 registers per SM, allocated per warp in
+    units of 256; at most 64 warps and 32 blocks per SM)."""
+    per_warp = -(-registers * 32 // 256) * 256
+    warps = block // 32
+    blocks = min(65536 // (per_warp * warps), 32, 64 // warps)
+    return blocks * warps
+
+
+def log_resources(who, resources, lib) -> None:
+    """ptxas's registers and spills per kernel entry of `lib`, and the
+    warps per SM they allow in blocks of the size that the entry's source
+    launches (its `dbg_<source>_threads()`, where the library has one)."""
+    for entry, r in sorted(resources.items(),
+                           key=lambda e: (e[1]["source"] or "", e[0])):
+        if "registers" not in r:
+            continue
+        threads = getattr(lib, f"dbg_{r['source']}_threads", None)
+        occ = "block size not reported"
+        if threads is not None:
+            threads.argtypes, threads.restype = [], ctypes.c_int
+            block = threads()
+            occ = (f"{occupancy_warps(r['registers'], block)} warps per SM "
+                   f"in blocks of {block} threads")
+        log(f"[ptxas] {who}: {r['source']}.cu {entry}: {r['registers']} "
+            f"registers, spill stores {r.get('spill_stores', 0)} B, loads "
+            f"{r.get('spill_loads', 0)} B; {occ}")
 
 
 def batch_tensors(codes, nmask, device):
@@ -1027,12 +1220,15 @@ def main(argv=None) -> int:
     build.load()
     log(f"[build] {lib_path.name}: {time.monotonic() - t0:.1f} s "
         f"(nvcc {' '.join(build.NVCC_FLAGS)})")
+    log_resources("this tree", build.kernel_resources(), build.load())
     if args.baseline_csrc:
         t0 = time.monotonic()
         BASELINE["lib"] = build.load_from(Path(args.baseline_csrc))
         log(f"[build] baseline kernels from {args.baseline_csrc}: "
             f"{build.library_path(Path(args.baseline_csrc).resolve()).name}"
             f", {time.monotonic() - t0:.1f} s")
+        log_resources("baseline", build.kernel_resources(
+            Path(args.baseline_csrc).resolve()), BASELINE["lib"])
     t0 = time.monotonic()
     if not native.available():
         raise AssertionError("the native parser / formatter did not build "
@@ -1068,10 +1264,8 @@ def main(argv=None) -> int:
     graph, di = graphs[False], get_device_index(graphs[False], "scan")
     L = _bucket_len(read_len, k)
     pmax = min(_pmax_for(di, L), _pmax_cap(L))
-    codes = np.zeros((B, L), np.uint8)
-    codes[:, :read_len] = codes_all[:B]
-    words, nmbits = batch_tensors(codes, np.zeros((B, L), bool), device)
-    lens = torch.full((B,), read_len, dtype=torch.int32, device=device)
+    batches = survey_batches(codes_all, L, device)
+    words, nmbits, lens = batches[0]
     results = {}
     for layout in ("scan", "mphf"):
         for mode in PATH_KERNELS:
@@ -1082,12 +1276,14 @@ def main(argv=None) -> int:
                       if mode != "anchors" else None)
             results[layout, mode] = compare_kernels(
                 ix, words, nmbits, lens, mode=mode, k=k, m=m, effort=effort,
-                L=L, pmax=pmax, timed=True, perpos_ix=perpos)
+                L=L, pmax=pmax, timed=True, perpos_ix=perpos,
+                more=batches[1:])
             for name, r in results[layout, mode].items():
                 log(f"[kernel] {layout} {mode}: {name}: == plain version "
                     f"(max abs err {r['max_abs_err']}, tolerance 0); kernel "
                     f"alone {r['alone_ms']:.4f} ms ({ALONE_LAUNCHES} "
-                    f"back-to-back launches through the C entry point)"
+                    f"back-to-back launches through the C entry point, "
+                    f"rotating over {r['alone_batches']} batches)"
                     + (f", baseline kernel alone "
                        f"{r['baseline_alone_ms']:.4f} ms (turns baseline, "
                        f"this, this, baseline: " + ", ".join(
@@ -1100,6 +1296,8 @@ def main(argv=None) -> int:
                     + (f", from the packed batch in and the packed rows "
                        f"out alone {r['bound_min_bytes_ms']:.4f} ms"
                        if "bound_min_bytes_ms" in r else "")
+                    + (f", junction evaluations (plain version) "
+                       f"{r['evaluations']}" if "evaluations" in r else "")
                     + f" per {B}-read batch (L={L}, pmax={pmax})")
 
     # K2 and K5 on the edge batch (lane-group, window and chunk edges)

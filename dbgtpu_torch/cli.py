@@ -5,19 +5,26 @@ Takes dbgtpu's flags for mapping on one device:
   -t threads (accepted; batching replaces it), -e effort, -f paths
   file, -a notAligned file, -q fastq, -c correction, -G anchor (dog)
   mode, -b exhaustive mode, -i partial (with -b), -p path mode (with -b:
-  exhaustive path mode), --batch-size, --json-summary, --index-layout
-  scan|mphf, --save-index / --load-index (a persisted index; -g and -k
-  are then ignored), --resume (journaled run), --progress N,
-  --num-processes / --process-id (this process maps its share of every
-  input file and writes <out>.shard<id>), --merge-shards N, and --device
-  (where the kernels run; default cuda).
+  exhaustive path mode), --impl auto|jax|python, --batch-size,
+  --json-summary, --index-layout scan|mphf, --save-index / --load-index
+  (a persisted index; -g and -k are then ignored), --resume (journaled
+  run), --progress N, --num-processes / --process-id (this process maps
+  its share of every input file and writes <out>.shard<id>),
+  --merge-shards N, and --device (where the kernels run; default cuda).
 As in dbgtpu, -p wins over -b, -b over -G, and -i affects only -b and -p.
-The path modes have no device engine: they run on the host spec, launch
-no kernel and report `"device": "host-spec"` in --json-summary.  The
-flags of features outside the port (--mesh, --shard-index,
---coordinator, --profile-dir) are recognised and refused with exit code
-2, naming the flag.  Without a GPU the command stops unless `--device
-cpu` asks for the plain torch versions of the kernels.
+`--impl python` runs every mode on the host spec; `auto` and `jax` run
+the device modes' kernels.  The path modes have no device engine: they
+run on the host spec too.  A run on the host spec launches no kernel and
+reports `"device": "host-spec"` in --json-summary; `--resume` refuses
+`--impl python`, as dbgtpu does.
+dbgtpu's multi-device flags are parsed with its types and defaults and
+run wherever they change nothing on one device: `--mesh 0` (the
+default), `--shard-index` without a mesh, `--coordinator` with one
+process.  Where one would take effect (`--mesh N` for N != 0,
+`--shard-index` with a mesh, `--coordinator` with more than one process,
+`--profile-dir`), the command exits with code 2 before reading input,
+naming the flag.  Without a GPU the command stops unless `--device cpu`
+asks for the plain torch versions of the kernels.
 """
 
 from __future__ import annotations
@@ -25,15 +32,6 @@ from __future__ import annotations
 import argparse
 import sys
 import time
-
-# dbgtpu flags whose engines lie outside this port: (option strings,
-# argparse keywords)
-_REFUSED = (
-    (("--mesh",), dict()),
-    (("--shard-index",), dict(action="store_true")),
-    (("--coordinator",), dict()),
-    (("--profile-dir",), dict()),
-)
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -73,6 +71,11 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("-p", dest="paths_mode", action="store_true",
                    help="simple-path mode (with -b: exhaustive path "
                         "mode); runs on the host spec, no kernel")
+    p.add_argument("--impl", choices=["auto", "python", "jax"],
+                   default="auto",
+                   help="alignment engine: auto (default) and jax run the "
+                        "device kernels, python the executable spec on the "
+                        "host (no kernel)")
     p.add_argument("--batch-size", type=int, default=32768,
                    help="reads per device batch (32768)")
     p.add_argument("--save-index", metavar="FILE",
@@ -110,11 +113,35 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device for the kernels (cuda); 'cpu' runs "
                         "their plain torch versions")
-    for flags, kw in _REFUSED:
-        p.add_argument(*flags, dest="refused_" + flags[0].lstrip("-")
-                       .replace("-", "_"), default=None,
-                       help=argparse.SUPPRESS, **kw)
+    p.add_argument("--mesh", type=int, default=0, metavar="N",
+                   help="dbgtpu's device mesh; only 0 (no mesh, the "
+                        "default) runs here")
+    p.add_argument("--shard-index", action="store_true",
+                   help="dbgtpu's sharded index; read only with a mesh, "
+                        "so it changes nothing here")
+    p.add_argument("--coordinator", metavar="HOST:PORT",
+                   help="dbgtpu's multi-process coordinator; used only "
+                        "with --num-processes > 1, which refuses it here")
+    p.add_argument("--profile-dir", metavar="DIR",
+                   help="dbgtpu's profiler trace; refused here")
     return p
+
+
+def _refusal(args) -> str | None:
+    """Why the command line needs an engine outside this port (naming
+    the flag), or None: only where a flag would take effect in dbgtpu."""
+    if args.shard_index and args.mesh:
+        return f"--shard-index with --mesh {args.mesh} shards the index " \
+               "over several devices"
+    if args.mesh:
+        return f"--mesh {args.mesh} splits each batch over several devices"
+    if args.coordinator and args.num_processes > 1:
+        return "--coordinator joins the processes into one distributed " \
+               "run; map each process's share without it and merge with " \
+               "--merge-shards"
+    if args.profile_dir:
+        return "--profile-dir writes a profiler trace"
+    return None
 
 
 def _finish(args, reads_files, stats) -> int:
@@ -134,14 +161,11 @@ def _finish(args, reads_files, stats) -> int:
 def main(argv: list[str] | None = None) -> int:
     parser = make_parser()
     args = parser.parse_args(argv)
-    for flags, _ in _REFUSED:
-        val = getattr(args, "refused_" + flags[0].lstrip("-")
-                      .replace("-", "_"))
-        if val not in (None, False):
-            print(f"dbgtpu_torch: {flags[0]} needs an engine outside this "
-                  "port (one device; no mesh, sharded index, coordinator "
-                  "or profiler trace); use dbgtpu", file=sys.stderr)
-            return 2
+    why = _refusal(args)
+    if why is not None:
+        print(f"dbgtpu_torch: {why}, which this port does not do (one "
+              "device); use dbgtpu", file=sys.stderr)
+        return 2
     if args.load_index is None and not 2 <= args.k <= 32:
         parser.error(
             f"-k {args.k} is out of range: supported k is 2..32 "
@@ -168,7 +192,11 @@ def main(argv: list[str] | None = None) -> int:
         else "anchors" if args.dog_mode
         else "greedy"
     )
+    host = args.paths_mode or args.impl == "python"
     if args.resume:
+        if args.impl == "python":
+            print("--resume requires --impl jax or auto", file=sys.stderr)
+            return 2
         if args.paths_mode:
             print("--resume takes a device mode; -p runs on the host spec",
                   file=sys.stderr)
@@ -182,16 +210,17 @@ def main(argv: list[str] | None = None) -> int:
     import torch
 
     device = torch.device(args.device)
-    if (device.type == "cuda" and not args.paths_mode
-            and not torch.cuda.is_available()):
+    if device.type == "cuda" and not host and not torch.cuda.is_available():
         print("dbgtpu_torch: no CUDA device is available; pass "
               "--device cpu to run the plain torch kernels on the CPU",
               file=sys.stderr)
         return 1
 
-    if args.paths_mode and device.type == "cuda":
-        print("dbgtpu_torch: path modes (-p) run on the host spec; "
-              f"--device {args.device} is not used", file=sys.stderr)
+    if host and device.type == "cuda":
+        print("dbgtpu_torch: " + ("path modes (-p)" if args.paths_mode
+                                  else "--impl python")
+              + f" run on the host spec; --device {args.device} is not used",
+              file=sys.stderr)
 
     from .pipeline import run_pipeline, run_pipeline_resumable
 
@@ -221,7 +250,7 @@ def main(argv: list[str] | None = None) -> int:
     paths, na, stats = run_pipeline(
         reads_files, args.unitigs, save_index=args.save_index,
         process_id=args.process_id, num_processes=args.num_processes,
-        **common)
+        impl=args.impl, **common)
     stats.index_seconds += load_seconds
     paths_file, na_file = args.paths_file, args.not_aligned_file
     if args.num_processes > 1:

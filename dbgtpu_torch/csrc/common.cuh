@@ -150,32 +150,7 @@ struct Index {
   Mphf am;                 // anchor MPHF, vrows = arows [n, 5]
 };
 
-// exact membership / value lookup in the fused scan table: S slot
-// key-hi, S slot key-lo, then S x 8 values (core._junction_vals).
-// Values of every matching slot are summed, as the JAX masked row-sum
-// does (keys are unique, so at most one slot matches).
-__device__ __forceinline__ bool st_lookup(const uint32_t* st, int nb,
-                                          int cols, uint32_t seed,
-                                          uint64_t key, int32_t* vals8) {
-  const int S = cols / 10;
-  const uint32_t hi = khi(key), lo = klo(key);
-  const uint32_t b = mix32(hi ^ seed, lo) & static_cast<uint32_t>(nb - 1);
-  const uint32_t* row = st + static_cast<size_t>(b) * cols;
-  bool found = false;
-  uint32_t acc[8] = {0, 0, 0, 0, 0, 0, 0, 0};
-  for (int s = 0; s < S; ++s) {
-    if (row[s] == hi && row[S + s] == lo) {
-      found = true;
-      if (vals8)
-        for (int v = 0; v < 8; ++v) acc[v] += row[2 * S + 8 * s + v];
-    }
-  }
-  if (vals8)
-    for (int v = 0; v < 8; ++v) vals8[v] = static_cast<int32_t>(acc[v]);
-  return found;
-}
-
-// ---- lane-group bucket probes (K2, K5) ----
+// ---- lane-group bucket probes (K2, K3, K5, K6) ----
 //
 // A fused scan row holds S slot key-hi words, then S slot key-lo words,
 // then the slots' values.  A group of GROUP neighbouring lanes (aligned
@@ -185,14 +160,26 @@ __device__ __forceinline__ bool st_lookup(const uint32_t* st, int nb,
 // the row's keys in contiguous 128-byte pieces (S = 32: one vector of
 // each per lane).  Rows whose slot count is not a multiple of 4 (the
 // slot counts are tunable) are compared one slot per lane instead.  A
-// query is hashed once, by the lane that owns it; the group takes its
-// row pointer and key by shuffle.  Every lane of the warp must reach
-// each group_* call (the shuffles and ballots name the whole warp).
+// query is hashed once, by the lane that owns it, or by every lane of a
+// group that shares it; the group takes its row pointer and key by
+// shuffle.  The shuffles and ballots of the group_* helpers name the
+// lanes of `mask`: by default the whole warp, which must then reach each
+// call together (K2 and K5 walk their items in whole warps); or
+// group_mask(), the group's own 8 lanes (as a cooperative-groups tile of
+// 8 does), so that the groups of a warp may follow their own control
+// flow (K3 and K6 give each read a group that runs its own walk).  A
+// mask that is not the constant full warp costs a warp sync per call
+// (on an H100, K2's per-position branch ran 39% slower with group masks).
 constexpr int GROUP = 8;
 constexpr unsigned FULL_WARP = 0xFFFFFFFFu;
 
 __device__ __forceinline__ int group_lane() {
   return static_cast<int>(threadIdx.x) & (GROUP - 1);
+}
+
+// the lanes of this lane's group, as a warp lane mask
+__device__ __forceinline__ unsigned group_mask() {
+  return 0xFFu << (threadIdx.x & 24u);
 }
 
 // calls hit(s) for each slot s of this lane's share of `row` whose key
@@ -221,27 +208,35 @@ __device__ __forceinline__ void group_slots(const uint32_t* __restrict__ row,
 }
 
 // the sum over the group's lanes (wraps mod 2^32, as the JAX row-sum)
-__device__ __forceinline__ uint32_t group_sum(uint32_t v) {
+__device__ __forceinline__ uint32_t group_sum(uint32_t v,
+                                              unsigned mask = FULL_WARP) {
 #pragma unroll
-  for (int o = GROUP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_WARP, v, o);
+  for (int o = GROUP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o);
   return v;
 }
 
+// bit g set where p is true on lane g of the group
+__device__ __forceinline__ unsigned group_ballot(bool p,
+                                                 unsigned mask = FULL_WARP) {
+  return (__ballot_sync(mask, p) >> (threadIdx.x & 24u)) & 0xFFu;
+}
+
 // true on every lane of the group when it is true on any
-__device__ __forceinline__ bool group_any(bool p) {
-  const unsigned m = __ballot_sync(FULL_WARP, p);
-  return ((m >> (threadIdx.x & 24u)) & 0xFFu) != 0;
+__device__ __forceinline__ bool group_any(bool p, unsigned mask = FULL_WARP) {
+  return group_ballot(p, mask) != 0u;
 }
 
 // lane `src` of this lane's group's value of v (an integer or a pointer)
 template <class T>
-__device__ __forceinline__ T group_bcast(T v, int src) {
-  return __shfl_sync(FULL_WARP, v, src, GROUP);
+__device__ __forceinline__ T group_bcast(T v, int src,
+                                         unsigned mask = FULL_WARP) {
+  return __shfl_sync(mask, v, src, GROUP);
 }
 template <class T>
-__device__ __forceinline__ const T* group_bcast(const T* v, int src) {
+__device__ __forceinline__ const T* group_bcast(const T* v, int src,
+                                                unsigned mask = FULL_WARP) {
   return reinterpret_cast<const T*>(__shfl_sync(
-      FULL_WARP, reinterpret_cast<unsigned long long>(v), src, GROUP));
+      mask, reinterpret_cast<unsigned long long>(v), src, GROUP));
 }
 
 // the fused scan row of `key` in a table of nb rows of `cols` words
@@ -252,6 +247,88 @@ __device__ __forceinline__ const uint32_t* scan_row(const uint32_t* tbl,
   const uint32_t b =
       mix32(khi(key) ^ seed, klo(key)) & static_cast<uint32_t>(nb - 1);
   return tbl + static_cast<size_t>(b) * cols;
+}
+
+// ---- lane-group scans of a byte mask row (K3's anchors, K6's FETCHX) ----
+//
+// A row of n bytes at any address (a read's row of a [B, Lk] mask) is
+// read as the 16-byte aligned vectors that cover it, lane g of a group
+// taking vectors q0 + g, q0 + g + GROUP, ...: 128 contiguous bytes per
+// group step.  Bytes outside the row are masked off, and a vector is
+// loaded only where it holds a byte of the row, so no load leaves the
+// aligned 16 bytes around one.
+struct ByteRow {
+  const uint4* a;     // the row's first byte, rounded down to 16 bytes
+  int off, n;         // the row's offset from a, its length
+};
+
+__device__ __forceinline__ ByteRow byte_row(const uint8_t* row, int n) {
+  const uintptr_t p = reinterpret_cast<uintptr_t>(row);
+  return ByteRow{reinterpret_cast<const uint4*>(p & ~uintptr_t{15}),
+                 static_cast<int>(p & 15u), n};
+}
+
+// bit j set where byte j of the word is not zero (j < 4)
+__device__ __forceinline__ uint32_t nonzero4(uint32_t w) {
+  w |= w >> 4;
+  w |= w >> 2;
+  w |= w >> 1;
+  return ((w & 0x01010101u) * 0x10204080u) >> 28;
+}
+
+// the nonzero bytes of vector q that lie in row bytes [lo, hi): bit j is
+// row byte 16 q - off + j
+__device__ __forceinline__ uint32_t row_bits(const ByteRow& r, int q, int lo,
+                                             int hi) {
+  const int b0 = 16 * q - r.off;
+  const int s = max(lo - b0, 0), e = min(hi - b0, 16);
+  if (s >= e) return 0u;
+  const uint4 v = __ldg(r.a + q);
+  const uint32_t m = nonzero4(v.x) | (nonzero4(v.y) << 4) |
+                     (nonzero4(v.z) << 8) | (nonzero4(v.w) << 12);
+  return m & ((1u << e) - 1u) & ~((1u << s) - 1u);
+}
+
+// the first nonzero byte of the row at or after `from`, or n
+__device__ __forceinline__ int group_first(const ByteRow& r, int from,
+                                           unsigned mask) {
+  from = max(from, 0);
+  const int qe = (r.off + r.n - 1) >> 4;
+  for (int q0 = (r.off + from) >> 4; q0 <= qe && from < r.n; q0 += GROUP) {
+    const int q = q0 + group_lane();
+    const uint32_t m = q <= qe ? row_bits(r, q, from, r.n) : 0u;
+    const unsigned lanes = group_ballot(m != 0u, mask);
+    if (lanes) {
+      const int l = __ffs(lanes) - 1;
+      return 16 * (q0 + l) - r.off + __ffs(group_bcast(m, l, mask)) - 1;
+    }
+  }
+  return r.n;
+}
+
+// the last nonzero byte of the row before `to`, or -1
+__device__ __forceinline__ int group_last(const ByteRow& r, int to,
+                                          unsigned mask) {
+  to = min(to, r.n);
+  for (int q0 = (r.off + to - 1) >> 4; q0 >= 0 && to > 0; q0 -= GROUP) {
+    const int q = q0 - group_lane();
+    const uint32_t m = q >= 0 ? row_bits(r, q, 0, to) : 0u;
+    const unsigned lanes = group_ballot(m != 0u, mask);
+    if (lanes) {   // the lowest lane holds the highest vector
+      const int l = __ffs(lanes) - 1;
+      return 16 * (q0 - l) - r.off + 31 - __clz(group_bcast(m, l, mask));
+    }
+  }
+  return -1;
+}
+
+// the number of nonzero bytes of the row
+__device__ __forceinline__ int group_count(const ByteRow& r, unsigned mask) {
+  const int qe = (r.off + r.n - 1) >> 4;
+  uint32_t c = 0;
+  for (int q = group_lane(); q <= qe; q += GROUP)
+    c += __popc(row_bits(r, q, 0, r.n));
+  return static_cast<int>(group_sum(c, mask));
 }
 
 }  // namespace dbg

@@ -307,3 +307,7 @@ extern "C" int dbg_dog_anchors(const void* rows, int B, int RWr,
       static_cast<int64_t*>(planes), static_cast<int32_t*>(n));
   DBG_RETURN_LAUNCH_STATUS();
 }
+
+// threads per block of this file's kernels (build.kernel_resources gives
+// ptxas's registers per kernel; with this, the warps per SM they allow)
+extern "C" int dbg_dog_threads() { return 32 * kWarps; }

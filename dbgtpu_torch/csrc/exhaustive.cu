@@ -1,53 +1,58 @@
 // K6 exhaustive_dfs: the branch-and-bound DFS of exhaustive mode (-b,
-// -i), one thread per read, the search run to completion on an explicit
-// stack.
+// -i), one lane group per read, the search run to completion on an
+// explicit stack.
 //
 // Replaces dbgtpu/engine/exhaustive.py align_batch_exhaustive (:83-475):
 // bookkeepX (:195) and dfs_step (:261), with the junction probe of
 // junction.cuh (core.py:777 _junction_probe, shared with K3).
 //
 // Bound on the card: the dependent row reads of the junction probes (a
-// scan-table row and up to 4 umeta rows per populated frame), plus the
-// stack traffic of deep searches.  The JAX version runs the batch in a
-// lockstep while_loop (one populate, trial or pop per read per
-// iteration) and compacts stragglers into a B/8 sub-batch after 48
-// iterations, because the slowest read sets the loop's length; here each
-// thread follows its own read's sequence of the same steps, in the same
-// order, so neither is needed and the results are the same.
+// junction table row and up to 4 umeta rows with their window words per
+// populated frame; junction.cuh), plus the stack traffic of deep
+// searches.  The JAX version runs the batch in a lockstep while_loop
+// (one populate, trial or pop per read per iteration) and compacts
+// stragglers into a B/8 sub-batch after 48 iterations, because the
+// slowest read sets the loop's length; here each read follows its own
+// sequence of the same steps, in the same order, so neither is needed
+// and the results are the same.  The first port ran one thread per
+// read (8 warps per SM on a 32,768-read batch), probed a row's 32 slots
+// with scalar loads, evaluated the candidates one after another and
+// scanned `inter` byte by byte.  Here a group of 8 lanes owns a read: the
+// junction probe and its 4 candidates' windows run side by side
+// (junction.cuh group_probe), the next interesting anchor comes from a
+// ballot over 16-byte vectors of `inter` (common.cuh group_first), and
+// lane g holds the top frame's compacted candidate g & 3 (lanes c and
+// c + 4 the same one), so a trial takes its candidate by shuffle.  The
+// scalar DFS state is replicated on the group's lanes, which all take
+// the same branches; a group runs its own loop and leaves when its read
+// is done.
 //
-// The top frame lives in registers.  Spilled frames go to a scratch
-// stack of int32 [D, 32, B] (D = L-k+3, the depth bound) that the
-// wrapper allocates per batch: batch-minor, so the threads of a warp
-// that sit at the same depth touch neighbouring words.  A frame is
-// tci, tn, tacc, the sid chosen at that level, then 7 fields x 4
-// candidates (sid, miss, ended, ust, npos, next k-mer hi and lo); only
-// the tn valid candidates are written.  32 words x 4 B x D x B is 352 MB
-// at L=112, k=31, B=32,768.  Local memory instead would be reserved for
-// every resident thread at the largest D the kernel is compiled for.
-// There is no iteration cap: each push consumes at least one base, so
-// every search ends (dbgtpu runs it uncapped too).
+// Frames below the top go to a scratch stack of int32 [B, D, 32]
+// (D = L-k+3, the depth bound) that the wrapper allocates per batch:
+// read-major, so a frame is 128 contiguous bytes that the group writes
+// and reads as one 16-byte vector per lane.  Candidate slot c of a frame
+// is 8 words, (sid, miss, ended, ust | npos, next k-mer hi, lo, X_c),
+// with X = (tci, tn, tacc, the sid chosen at that level); lane g writes
+// and reads back half g >> 2 of slot g & 3.  32 words x 4 B x D x B is
+// 352 MB at L=112, k=31, B=32,768, as before: on chip, a frame per level
+// would need 10.75 KB of shared memory per read at D = 84, which leaves
+// room for a few reads per SM, and a shallow search touches only its
+// first frames, which stay in L2.  There is no iteration cap: each push
+// consumes at least one base, so every search ends (dbgtpu runs it
+// uncapped too).
 #include "junction.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int FRAME = 32;   // exhaustive.FRAME_WORDS
+constexpr int kThreads = 128;   // 16 reads per block
+constexpr int FRAME = 32;       // exhaustive.FRAME_WORDS
 
 // phases (exhaustive.py _FETCHX .. _DONEX)
 constexpr int FETCHX = 0, LDFS = 1, RDFS = 2, LDONE = 3, RDONE = 4,
               LRDY = 5, DONEX = 6;
+constexpr int F_CSID = 8 * 3 + 7;   // X_3: the sid chosen at a level
 
-// frame word offsets
-constexpr int F_CI = 0, F_N = 1, F_ACC = 2, F_CSID = 3, F_SID = 4,
-              F_MISS = 8, F_END = 12, F_UST = 16, F_NPOS = 20, F_NHI = 24,
-              F_NLO = 28;
-
-struct Top {   // the top frame's candidates, compacted (valid ones first)
-  int sid[4], miss[4], end[4], ust[4], npos[4];
-  uint64_t nk[4];
-};
-
-__global__ void exhaustive_kernel(
+__global__ void __launch_bounds__(kThreads) exhaustive_kernel(
     const uint8_t* __restrict__ inter, const int64_t* __restrict__ bug,
     const int32_t* __restrict__ lens, const uint32_t* __restrict__ rows,
     const __grid_constant__ dbg::Index ix, int B, int Lk, int RWr, int k,
@@ -56,18 +61,26 @@ __global__ void exhaustive_kernel(
     int32_t* __restrict__ offset_o, int32_t* __restrict__ llen_o,
     int32_t* __restrict__ rlen_o, int32_t* __restrict__ lbuf,
     int32_t* __restrict__ rbuf) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = dbg::read_index();
   if (b >= B) return;
+  const unsigned mask = dbg::group_mask();
+  const int g = dbg::group_lane();
+  const int cs = g & 3;          // this lane's candidate slot
+  const int half = g >> 2;       // and its half of the slot's words
   const int k1 = k - 1;
   const int len = lens[b];
   const uint32_t* rwf = rows + static_cast<size_t>(b) * RWr;
   const uint32_t* nmw = rwf + 2 * static_cast<size_t>(B) * RWr;
-  const uint8_t* it = inter + static_cast<size_t>(b) * Lk;
+  const dbg::ByteRow it = dbg::byte_row(inter + static_cast<size_t>(b) * Lk,
+                                        Lk);
   const int64_t* bg = bug + static_cast<size_t>(b) * Lk;
   int32_t* lb = lbuf + static_cast<size_t>(b) * D;
   int32_t* rb = rbuf + static_cast<size_t>(b) * D;
-  auto slot = [&](int d, int f) -> int32_t& {
-    return stack[(static_cast<size_t>(d) * FRAME + f) * B + b];
+  int32_t* frames = stack + static_cast<size_t>(b) * D * FRAME;
+  // this lane's 16-byte piece of frame d
+  auto piece = [&](int d) {
+    return reinterpret_cast<int4*>(frames + static_cast<size_t>(d) * FRAME +
+                                   8 * cs + 4 * half);
   };
 
   const int n_pos = len - k1 + 1;
@@ -77,11 +90,9 @@ __global__ void exhaustive_kernel(
   uint64_t ak = 0, tk = 0;
   int tpos = 0, tacc = 0, tci = 0, tn = 0;
   bool tpop = false;
-  Top t;
-  for (int c = 0; c < 4; ++c) {
-    t.sid[c] = t.miss[c] = t.end[c] = t.ust[c] = t.npos[c] = 0;
-    t.nk[c] = 0;
-  }
+  // the top frame's compacted candidate slot cs (valid ones first)
+  int t_sid = 0, t_miss = 0, t_end = 0, t_ust = 0, t_npos = 0;
+  uint64_t t_nk = 0;
 
   while (phase != DONEX) {
     // ---- bookkeepX ----
@@ -104,13 +115,8 @@ __global__ void exhaustive_kernel(
       }
     }
     if (phase == FETCHX) {          // advance to the next interesting anchor
-      int nxt = dbg::BIG;
-      for (int i = min(max(a, 0), Lk - 1); i < Lk; ++i) {
-        if (it[i]) {
-          nxt = i;
-          break;
-        }
-      }
+      // none: Lk, which is >= n_pos since len <= L
+      const int nxt = dbg::group_first(it, min(max(a, 0), Lk - 1), mask);
       if (nxt >= n_pos || a > len - k1) {
         status = dbg::STATUS_FAILED;
         phase = DONEX;
@@ -154,26 +160,21 @@ __global__ void exhaustive_kernel(
     if (tpop) {
       // populate the top frame: one junction probe, valid candidates
       // compacted in candidate order
-      const dbg::Junction j =
-          dbg::junction_lookup(ix, mL, !mL, tk, tpos, len, k1);
-      int n = 0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const dbg::Candidate o = dbg::probe_candidate(ix, j, c, rwf, nmw, RWr);
-        if (!o.valid) continue;
-#pragma unroll
-        for (int s = 0; s <= c; ++s) {   // slot n, by register select
-          if (s == n) {
-            t.sid[s] = o.sid;
-            t.miss[s] = o.miss;
-            t.end[s] = o.ended;
-            t.ust[s] = o.ust;
-            t.npos[s] = mL ? tpos - (o.ul - k1) : tpos + (o.ul - k1);
-            t.nk[s] = mL ? o.nxt_l : o.nxt_r;
-          }
-        }
-        ++n;
-      }
+      const dbg::Candidate o =
+          dbg::group_probe(ix, mL, !mL, tk, tpos, len, k1, rwf, nmw, RWr,
+                           mask);
+      const unsigned valid = dbg::group_ballot(o.valid, mask) & 0xFu;
+      const int n = __popc(valid);
+      // slot cs takes the (cs+1)-th valid candidate
+      unsigned rest = valid;
+      for (int j = 0; j < cs; ++j) rest &= rest - 1u;   // drop cs of them
+      const int src = cs < n ? __ffs(rest) - 1 : cs;
+      t_sid = dbg::group_bcast(o.sid, src, mask);
+      t_miss = dbg::group_bcast(o.miss, src, mask);
+      t_end = dbg::group_bcast(static_cast<int>(o.ended), src, mask);
+      t_ust = dbg::group_bcast(o.ust, src, mask);
+      t_npos = tpos + dbg::group_bcast(mL ? k1 - o.ul : o.ul - k1, src, mask);
+      t_nk = dbg::group_bcast(mL ? o.nxt_l : o.nxt_r, src, mask);
       tn = n;
       tci = 0;
       tpop = false;
@@ -181,49 +182,49 @@ __global__ void exhaustive_kernel(
       if (partial && !mL && sp == 0 && n == 0) best = 0;
     } else if (tci >= tn) {
       // pop: the stack underflows into LDONE / RDONE, or the parent frame
-      // comes back into the registers
+      // comes back: each lane reads its own piece and takes the other
+      // half of its slot from lane g ^ 4
       sp -= 1;
       if (sp < 0) {
         phase = mL ? LDONE : RDONE;
       } else {
-        const int d = min(sp, D - 1);
-        tci = slot(d, F_CI);
-        tn = slot(d, F_N);
-        tacc = slot(d, F_ACC);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (c >= tn) break;
-          t.sid[c] = slot(d, F_SID + c);
-          t.miss[c] = slot(d, F_MISS + c);
-          t.end[c] = slot(d, F_END + c);
-          t.ust[c] = slot(d, F_UST + c);
-          t.npos[c] = slot(d, F_NPOS + c);
-          t.nk[c] = dbg::join(slot(d, F_NHI + c), slot(d, F_NLO + c));
-        }
+        const int4 mine = *piece(min(sp, D - 1));
+        const int4 other{__shfl_xor_sync(mask, mine.x, 4),
+                         __shfl_xor_sync(mask, mine.y, 4),
+                         __shfl_xor_sync(mask, mine.z, 4),
+                         __shfl_xor_sync(mask, mine.w, 4)};
+        const int4& lo = half == 0 ? mine : other;
+        const int4& hi = half == 0 ? other : mine;
+        t_sid = lo.x;
+        t_miss = lo.y;
+        t_end = lo.z;
+        t_ust = lo.w;
+        t_npos = hi.x;
+        t_nk = dbg::join(hi.y, hi.z);
+        tci = dbg::group_bcast(hi.w, 0, mask);
+        tn = dbg::group_bcast(hi.w, 1, mask);
+        tacc = dbg::group_bcast(hi.w, 2, mask);
       }
     } else {
       // one candidate trial
       const int ci = min(tci, 3);
-      int c_sid = 0, c_miss = 0, c_end = 0, c_ust = 0, c_npos = 0;
-      uint64_t c_nk = 0;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {   // register select, no local memory
-        if (c == ci) {
-          c_sid = t.sid[c];
-          c_miss = t.miss[c];
-          c_end = t.end[c];
-          c_ust = t.ust[c];
-          c_npos = t.npos[c];
-          c_nk = t.nk[c];
-        }
-      }
+      const int c_sid = dbg::group_bcast(t_sid, ci, mask);
+      const int c_miss = dbg::group_bcast(t_miss, ci, mask);
+      const bool c_end = dbg::group_bcast(t_end, ci, mask) != 0;
+      const int c_ust = dbg::group_bcast(t_ust, ci, mask);
+      const int c_npos = dbg::group_bcast(t_npos, ci, mask);
+      const uint64_t c_nk = dbg::group_bcast(t_nk, ci, mask);
       const int total = tacc + c_miss;
       if (c_end && total < best) {
         // terminal candidate, strict improvement: snapshot the chain
+        // (the frames' chosen sids, written by lane 7; the barrier
+        // orders those writes, and earlier snapshots, before these)
         best = total;
         int32_t* dst = mL ? lb : rb;
-        for (int d = 0; d < sp && d < D; ++d) dst[d] = slot(d, F_CSID);
-        if (sp < D) dst[sp] = c_sid;
+        __syncwarp(mask);
+        for (int d = g; d < sp && d < D; d += dbg::GROUP)
+          dst[d] = frames[static_cast<size_t>(d) * FRAME + F_CSID];
+        if (g == 0 && sp < D) dst[sp] = c_sid;
         if (mL) {
           bllen = sp + 1;
           bloff = c_ust;
@@ -234,22 +235,12 @@ __global__ void exhaustive_kernel(
       tci += 1;   // a pop resumes after this candidate
       if (!c_end && total < best) {
         // viable non-terminal candidate: spill the top frame, descend
-        const int d = min(max(sp, 0), D - 1);
-        slot(d, F_CI) = tci;
-        slot(d, F_N) = tn;
-        slot(d, F_ACC) = tacc;
-        slot(d, F_CSID) = c_sid;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          if (c >= tn) break;
-          slot(d, F_SID + c) = t.sid[c];
-          slot(d, F_MISS + c) = t.miss[c];
-          slot(d, F_END + c) = t.end[c];
-          slot(d, F_UST + c) = t.ust[c];
-          slot(d, F_NPOS + c) = t.npos[c];
-          slot(d, F_NHI + c) = static_cast<int32_t>(dbg::khi(t.nk[c]));
-          slot(d, F_NLO + c) = static_cast<int32_t>(dbg::klo(t.nk[c]));
-        }
+        const int x = cs == 0 ? tci : cs == 1 ? tn : cs == 2 ? tacc : c_sid;
+        *piece(min(max(sp, 0), D - 1)) =
+            half == 0
+                ? make_int4(t_sid, t_miss, t_end, t_ust)
+                : make_int4(t_npos, static_cast<int>(dbg::khi(t_nk)),
+                            static_cast<int>(dbg::klo(t_nk)), x);
         sp += 1;
         tk = c_nk;
         tpos = c_npos;
@@ -258,10 +249,12 @@ __global__ void exhaustive_kernel(
       }
     }
   }
-  status_o[b] = status;
-  offset_o[b] = bloff;
-  llen_o[b] = bllen;
-  rlen_o[b] = brlen;
+  if (g == 0) {
+    status_o[b] = status;
+    offset_o[b] = bloff;
+    llen_o[b] = bllen;
+    rlen_o[b] = brlen;
+  }
 }
 
 }  // namespace
@@ -271,7 +264,10 @@ extern "C" int dbg_exhaustive_dfs(
     int B, int Lk, int RWr, const void* index, int k, int m, int partial,
     int D, void* stack, void* status, void* offset, void* llen, void* rlen,
     void* lbuf, void* rbuf, void* stream) {
-  exhaustive_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+  const long long threads = static_cast<long long>(B) * dbg::GROUP;
+  exhaustive_kernel<<<static_cast<unsigned>((threads + kThreads - 1) /
+                                            kThreads),
+                      kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(inter), static_cast<const int64_t*>(bug),
       static_cast<const int32_t*>(lens), static_cast<const uint32_t*>(rows),
@@ -282,3 +278,7 @@ extern "C" int dbg_exhaustive_dfs(
       static_cast<int32_t*>(lbuf), static_cast<int32_t*>(rbuf));
   DBG_RETURN_LAUNCH_STATUS();
 }
+
+// threads per block of this file's kernels (build.kernel_resources gives
+// ptxas's registers per kernel; with this, the warps per SM they allow)
+extern "C" int dbg_exhaustive_threads() { return kThreads; }

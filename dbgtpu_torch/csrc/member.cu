@@ -12,7 +12,7 @@
 //  (b) exact lookups of rep1 (member1) and of the std canonical rep2
 //      (member2) in the junction table: st_fused, or under the mphf
 //      layout the MPHF slot plus the stored-key verify in jrows
-//      (mphf.cuh junction_vals; core.py:434-435, 454-456).  The probe
+//      (mphf.cuh mphf_row; core.py:434-435, 454-456).  The probe
 //      table of path (a) is built under both layouts.
 // A second mode serves exhaustive mode (-b): one mask, `inter`
 // (dbgtpu/engine/exhaustive.py:118-152), in member1.  Path (a) is the
@@ -248,8 +248,8 @@ __global__ void __launch_bounds__(kThreads)
   for (uint32_t t = blockIdx.x * blockDim.x + threadIdx.x; t < n;
        t += stride) {
     const PosKeys pk = pos_keys(a, t, true);
-    const bool m1 = pk.valid && dbg::junction_vals(ix, pk.key1, nullptr);
-    const bool m2 = pk.need2 && dbg::junction_vals(ix, pk.key2, nullptr);
+    const bool m1 = pk.valid && dbg::mphf_row(ix.jm, 10, pk.key1) != nullptr;
+    const bool m2 = pk.need2 && dbg::mphf_row(ix.jm, 10, pk.key2) != nullptr;
     put_members(a, t, pk, m1, m2);
   }
 }
@@ -307,3 +307,7 @@ extern "C" int dbg_member(const void* rep1, const void* le1, const void* rep2,
     member_scan_kernel<<<grid_for(n_pos), kThreads, 0, st>>>(a, ix, hn);
   DBG_RETURN_LAUNCH_STATUS();
 }
+
+// threads per block of this file's kernels (build.kernel_resources gives
+// ptxas's registers per kernel; with this, the warps per SM they allow)
+extern "C" int dbg_member_threads() { return kThreads; }

@@ -26,14 +26,15 @@ __global__ void mphf_slots_kernel(const uint32_t* __restrict__ rows,
   slots[i] = dbg::mphf_slot(rows, frows, meta, dbg::khi(key), dbg::klo(key));
 }
 
+constexpr int kThreads = 256;
+
 }  // namespace
 
 extern "C" int dbg_mphf_slots(const void* rows, const void* frows,
                               const void* meta, const void* keys,
                               long long n, void* slots, void* stream) {
-  const int threads = 256;
-  const long long blocks = (n + threads - 1) / threads;
-  mphf_slots_kernel<<<static_cast<unsigned>(blocks), threads, 0,
+  const long long blocks = (n + kThreads - 1) / kThreads;
+  mphf_slots_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(rows), static_cast<const uint32_t*>(frows),
       *static_cast<const dbg::MphfMeta*>(meta),
@@ -48,3 +49,7 @@ extern "C" int dbg_sizeof_index() {
 extern "C" int dbg_sizeof_mphf_meta() {
   return static_cast<int>(sizeof(dbg::MphfMeta));
 }
+
+// threads per block of this file's kernels (build.kernel_resources gives
+// ptxas's registers per kernel; with this, the warps per SM they allow)
+extern "C" int dbg_mphf_threads() { return kThreads; }

@@ -3,8 +3,8 @@
 //
 // Replaces dbgtpu/engine/core.py _mphf_slot_arrays (:293) over the rows
 // of _fuse_mphf (:160), index/mphf.py device_lookup (:248), the MPHF
-// branch of _junction_vals (:409-412) and of dog._anchor_lookup
-// (dog.py:68-79).
+// branch of _junction_vals (:409-412; junction.cuh group_cands, K2's
+// per-position branch) and of dog._anchor_lookup (dog.py:68-79).
 //
 // A level lookup is one 20-byte rank-group row: word 0 is the rank of
 // the group's first bit (rank_base + sample), words 1..4 are 128 bits of
@@ -78,20 +78,6 @@ __device__ __forceinline__ const uint32_t* mphf_row(const Mphf& t, int cols,
   if (slot < 0 || slot >= t.meta.n_keys) return nullptr;
   const uint32_t* row = t.vrows + static_cast<size_t>(slot) * cols;
   return (row[0] == hi && row[1] == lo) ? row : nullptr;
-}
-
-// junction lookup under either layout (core._junction_vals): found, and
-// the 4 left + 4 right id slots when `vals8` is given (zeros when not
-// found)
-__device__ __forceinline__ bool junction_vals(const Index& ix, uint64_t key,
-                                              int32_t* vals8) {
-  if (!ix.jl_mphf)
-    return st_lookup(ix.st, ix.st_nb, ix.st_cols, ix.st_seed, key, vals8);
-  const uint32_t* row = mphf_row(ix.jm, 10, key);
-  if (vals8)
-    for (int v = 0; v < 8; ++v)
-      vals8[v] = row ? static_cast<int32_t>(row[2 + v]) : 0;
-  return row != nullptr;
 }
 
 }  // namespace dbg

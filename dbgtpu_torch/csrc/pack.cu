@@ -46,6 +46,8 @@ __global__ void pack_paths_kernel(const int32_t* __restrict__ status,
   out[static_cast<size_t>(b) * (pmax + 2) + c] = static_cast<T>(v);
 }
 
+constexpr int kThreads = 128;
+
 }  // namespace
 
 extern "C" int dbg_pack_paths(const void* status, const void* offset,
@@ -53,8 +55,7 @@ extern "C" int dbg_pack_paths(const void* status, const void* offset,
                               const void* lbuf, const void* rbuf, int B,
                               int P, int pmax, int out_int16, void* out,
                               void* stream) {
-  const int threads = 128;
-  const dim3 grid(B, (pmax + 2 + threads - 1) / threads);
+  const dim3 grid(B, (pmax + 2 + kThreads - 1) / kThreads);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const auto* st = static_cast<const int32_t*>(status);
   const auto* of = static_cast<const int32_t*>(offset);
@@ -63,13 +64,17 @@ extern "C" int dbg_pack_paths(const void* status, const void* offset,
   const auto* lb = static_cast<const int32_t*>(lbuf);
   const auto* rb = static_cast<const int32_t*>(rbuf);
   if (out_int16)
-    pack_paths_kernel<int16_t><<<grid, threads, 0, s>>>(
+    pack_paths_kernel<int16_t><<<grid, kThreads, 0, s>>>(
         st, of, ll, rl, lb, rb, P, pmax, static_cast<int16_t*>(out));
   else
-    pack_paths_kernel<int32_t><<<grid, threads, 0, s>>>(
+    pack_paths_kernel<int32_t><<<grid, kThreads, 0, s>>>(
         st, of, ll, rl, lb, rb, P, pmax, static_cast<int32_t*>(out));
   DBG_RETURN_LAUNCH_STATUS();
 }
+
+// threads per block of this file's kernels (build.kernel_resources gives
+// ptxas's registers per kernel; with this, the warps per SM they allow)
+extern "C" int dbg_pack_threads() { return kThreads; }
 
 // message of a status returned by any entry point above
 extern "C" const char* dbg_error_string(int err) {

@@ -82,6 +82,8 @@ __global__ void read_scan_kernel(const uint32_t* __restrict__ words, int Lw,
   }
 }
 
+constexpr int kThreads = 128;
+
 }  // namespace
 
 extern "C" int dbg_read_scan(const void* words, int Lw, const void* nmbits,
@@ -91,10 +93,9 @@ extern "C" int dbg_read_scan(const void* words, int Lw, const void* nmbits,
                              void* stream) {
   const int Lk = L - k1 + 1;
   const int RWr = 2 * Lw + 1;
-  const int threads = 128;
   const int span = Lk > RWr ? Lk : RWr;
-  const dim3 grid(B, (span + threads - 1) / threads);
-  read_scan_kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const dim3 grid(B, (span + kThreads - 1) / kThreads);
+  read_scan_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), Lw,
       static_cast<const uint32_t*>(nmbits), Lb,
       static_cast<const int32_t*>(lens), B, L, k1, Lk, RWr,
@@ -104,3 +105,7 @@ extern "C" int dbg_read_scan(const void* words, int Lw, const void* nmbits,
       static_cast<int32_t*>(has_n));
   DBG_RETURN_LAUNCH_STATUS();
 }
+
+// threads per block of this file's kernels (build.kernel_resources gives
+// ptxas's registers per kernel; with this, the warps per SM they allow)
+extern "C" int dbg_read_scan_threads() { return kThreads; }

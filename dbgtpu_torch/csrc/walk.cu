@@ -1,5 +1,5 @@
-// K3 greedy_walk: the greedy junction walk, one thread per read, walking
-// to completion, from one initial state per anchor.
+// K3 greedy_walk: the greedy junction walk, one lane group per read,
+// walking to completion, from one initial state per anchor.
 //
 // Replaces, in dbgtpu/engine/core.py: _run_walks (:1099: bookkeep :1163,
 // junction :1242, final flush :1408-1411) with the junction probe of
@@ -10,15 +10,25 @@
 //  - dbg_walk_inits reads per-anchor inits precomputed by K5 (dog mode,
 //    engine/dog.py; core.py:1112-1128 for their meaning).
 //
-// Bound on the card: dependent random row reads (st_fused row, or under
-// the mphf layout a level row and a jrows row, then up to 4 umeta rows
-// per junction step), i.e. memory latency; a read's
-// steps are serial.  The TPU design advanced the whole batch in
-// lockstep with staged tail compaction so that row gathers stayed
-// wide; here each thread runs its own read's state machine to the end,
-// so a read that finishes early frees its lane instead of idling in the
-// lockstep loop, and no compaction pass is needed.  Latency is hidden
-// by the many reads in flight (32k threads per batch).
+// Bound on the card: each junction step is a chain of dependent random
+// reads (the junction table row, then up to 4 umeta rows and their
+// window words; junction.cuh), and a read's steps are serial, so the
+// kernel waits on memory latency and needs many reads in flight.  The
+// TPU design advanced the whole batch in lockstep with staged tail
+// compaction so that row gathers stayed wide.  The first port ran one
+// thread per read in blocks of 128: 8 warps per SM on a 32,768-read
+// batch, each thread probing the 32 slots of a row with scalar loads and
+// its candidates one after another, and rescanning the member masks byte
+// by byte from the start at every anchor fetch.  Here a group of 8 lanes
+// owns a read (4 reads per warp: 8,192 warps per batch; 64 registers, 32
+// resident warps per SM): the group runs the junction probe of
+// junction.cuh (the row's keys as 16-byte vectors, the 4 candidates and
+// their windows side by side) and keeps the walk state replicated on its
+// lanes, which all take the same branches.  The greedy entry counts a
+// read's member bytes once as 16-byte vectors and finds each next anchor
+// from a cursor by ballot (common.cuh group_first / group_last), one pass
+// over each mask per read in all.  A group runs its own loop and leaves
+// when its read is done; the shuffles name the group's lanes only.
 //
 // The per-read loop keeps the lockstep order of the JAX engine: one
 // bookkeep, then one junction, per iteration, capped at max_iters
@@ -47,36 +57,32 @@ struct Walk {
   int pos, budget, offset, llen, rlen;
 };
 
-// greedy anchors: the (aidx+1)-th forward anchor (first member1 hits,
-// bug values), or the (aidx+1)-th RC anchor (member2 hits counted from
-// the end, at RC position len-k1-i, rc-of-std values)
+// greedy anchors, from cursors: next(0) is the next forward anchor (the
+// first member1 hits, bug values), next(1) the next RC anchor (member2
+// hits counted from the end, at RC position len-k1-i, rc-of-std values).
+// Each call continues from the last one's position: `fnext` (the next
+// forward position to look at) and `rnext` (one past the next RC
+// position).  No index: a call gives the anchor after the last one.
 struct GreedyAnchors {
-  const uint8_t* m1;
-  const uint8_t* m2;
+  dbg::ByteRow m1, m2;
   const int64_t* bug;
   const int64_t* rcs;
-  int Lk, len, k1, m;
+  int len, k1, m;
+  int fnext, rnext;
 
-  __device__ Init get(int orient, int aidx) const {
-    uint64_t val = 0;
-    int apos = 0;
-    int seen = 0;
+  __device__ Init next(int orient) {
+    int i, apos;
+    uint64_t val;
     if (orient == 0) {
-      for (int i = 0; i < Lk; ++i) {
-        if (m1[i] && seen++ == aidx) {
-          val = static_cast<uint64_t>(bug[i]);
-          apos = i;
-          break;
-        }
-      }
+      i = dbg::group_first(m1, fnext, dbg::group_mask());
+      fnext = i + 1;
+      val = static_cast<uint64_t>(bug[i]);
+      apos = i;
     } else {
-      for (int i = Lk - 1; i >= 0; --i) {
-        if (m2[i] && seen++ == aidx) {
-          val = static_cast<uint64_t>(rcs[i]);
-          apos = len - k1 - i;
-          break;
-        }
-      }
+      i = dbg::group_last(m2, rnext, dbg::group_mask());
+      rnext = i;
+      val = static_cast<uint64_t>(rcs[i]);
+      apos = len - k1 - i;
     }
     return Init{dbg::LEFT, val, apos, val, apos, m, 0, 0, 0};
   }
@@ -90,7 +96,7 @@ struct PlaneAnchors {
   __device__ int64_t at(int f, int orient, int aidx) const {
     return planes[((static_cast<size_t>(f) * 2 + orient) * B + b) * E + aidx];
   }
-  __device__ Init get(int orient, int aidx) const {
+  __device__ Init get(int orient, int aidx) {
     return Init{static_cast<int>(at(0, orient, aidx)),
                 static_cast<uint64_t>(at(1, orient, aidx)),
                 static_cast<int>(at(2, orient, aidx)),
@@ -103,12 +109,25 @@ struct PlaneAnchors {
   }
 };
 
+// the anchor w.aidx of orientation w.orient.  bookkeep fetches each
+// aidx of an orientation once, in order: aidx starts at 0 and grows by
+// one only when the walk from the last anchor failed (junction) or the
+// anchor was skipped, so the greedy anchors can come from their cursors.
+__device__ Init fetch(GreedyAnchors& a, const Walk& w) {
+  return a.next(w.orient);
+}
+__device__ Init fetch(PlaneAnchors& a, const Walk& w) {
+  return a.get(w.orient, w.aidx);
+}
+
+// every lane of the read's group runs bookkeep with the same state;
+// the group's lane 0 alone writes the output rows
 template <class Anchors>
-__device__ void bookkeep(Walk& w, const Anchors& anchors, int32_t* rbuf) {
+__device__ void bookkeep(Walk& w, Anchors& anchors, int32_t* rbuf) {
   if (w.phase == dbg::FETCH) {
     const int n_cur = w.orient == 0 ? w.n_f : w.n_r;
     if (w.aidx < n_cur) {
-      const Init in = anchors.get(w.orient, w.aidx);
+      const Init in = fetch(anchors, w);
       if (in.bud0 < 0) {
         // an anchor whose placement already failed: skip it
         w.aidx += 1;
@@ -122,7 +141,7 @@ __device__ void bookkeep(Walk& w, const Anchors& anchors, int32_t* rbuf) {
         w.budget = in.bud0;
         w.llen = 0;
         w.rlen = in.r0 != 0 ? 1 : 0;
-        if (in.r0 != 0) rbuf[0] = in.r0;
+        if (in.r0 != 0 && dbg::group_lane() == 0) rbuf[0] = in.r0;
         w.offset = in.off0;
       }
     } else if (w.orient == 0) {
@@ -161,51 +180,53 @@ __device__ void junction(Walk& w, const dbg::Index& ix, const uint32_t* rwf,
   const bool mL = w.phase == dbg::LEFT;
   const bool mRF = w.phase == dbg::RFIRST;
   if (!(mL || mRF || w.phase == dbg::RCONT)) return;
-  const dbg::Junction j =
-      dbg::junction_lookup(ix, mL, mRF, w.cur, w.pos, w.len, w.k1);
   // windowed compare against the orientation-selected read row; the
   // N-mask counts only for forward-oriented walks
-  const uint32_t* rrow = w.orient == 0 ? rwf : rwr;
-  const uint32_t* nrow = w.orient == 0 ? nmw : nullptr;
-  int best = 0x7fffffff;
-  dbg::Candidate b{};
-  for (int c = 0; c < 4; ++c) {
-    const dbg::Candidate o = dbg::probe_candidate(ix, j, c, rrow, nrow, RWr);
-    if (o.miss < best) {  // earliest index wins ties (jnp.argmin)
-      best = o.miss;
-      b = o;
-    }
-  }
+  const unsigned mask = dbg::group_mask();
+  const dbg::Candidate o = dbg::group_probe(
+      ix, mL, mRF, w.cur, w.pos, w.len, w.k1, w.orient == 0 ? rwf : rwr,
+      w.orient == 0 ? nmw : nullptr, RWr, mask);
+  const int bc = dbg::group_argmin(o.miss, mask);
+  const int best = dbg::group_bcast(o.miss, bc, mask);
   if (best > w.budget) {  // fail -> next anchor
     w.phase = dbg::FETCH;
     w.aidx += 1;
     return;
   }
-  if (mL) {
-    lbuf[min(max(w.llen, 0), P - 1)] = b.sid;
-    w.llen += 1;
-  } else {
-    rbuf[min(max(w.rlen, 0), P - 1)] = b.sid;
-    w.rlen += 1;
+  const int sid = dbg::group_bcast(o.sid, bc, mask);
+  const bool ended =
+      dbg::group_bcast(static_cast<int>(o.ended), bc, mask) != 0;
+  const int ul = dbg::group_bcast(o.ul, bc, mask);
+  const int ust = dbg::group_bcast(o.ust, bc, mask);
+  const uint64_t nxt = dbg::group_bcast(mL ? o.nxt_l : o.nxt_r, bc, mask);
+  if (dbg::group_lane() == 0) {
+    if (mL)
+      lbuf[min(max(w.llen, 0), P - 1)] = sid;
+    else
+      rbuf[min(max(w.rlen, 0), P - 1)] = sid;
   }
+  if (mL)
+    w.llen += 1;
+  else
+    w.rlen += 1;
   w.budget -= best;
   const int k1 = w.k1;
   if (mL) {
-    if (b.ended) {  // LEFT ended: record offset, restart right at the anchor
-      w.offset = b.ust;
+    if (ended) {  // LEFT ended: record offset, restart right at the anchor
+      w.offset = ust;
       w.cur = w.a;
       w.pos = w.a_pos;
       w.phase = dbg::RFIRST;
     } else {
-      w.pos -= b.ul - k1;
-      w.cur = b.nxt_l;
+      w.pos -= ul - k1;
+      w.cur = nxt;
     }
-  } else if (b.ended) {  // RIGHT ended: aligned
+  } else if (ended) {  // RIGHT ended: aligned
     w.status = w.orient == 0 ? dbg::STATUS_ALIGNED_FWD : dbg::STATUS_ALIGNED_RC;
     w.phase = dbg::DONE;
   } else {
-    w.pos += b.ul - k1;
-    w.cur = b.nxt_r;
+    w.pos += ul - k1;
+    w.cur = nxt;
     w.phase = dbg::RCONT;
   }
 }
@@ -217,7 +238,7 @@ struct Out {
 // the walk body both entries share: bookkeep + junction per iteration,
 // then the terminal flush
 template <class Anchors>
-__device__ void walk_read(Walk& w, const Anchors& anchors, const dbg::Index& ix,
+__device__ void walk_read(Walk& w, Anchors& anchors, const dbg::Index& ix,
                           const uint32_t* rows, int B, int RWr, int b,
                           int max_iters, int P, const Out& out) {
   w.phase = dbg::FETCH;
@@ -244,47 +265,47 @@ __device__ void walk_read(Walk& w, const Anchors& anchors, const dbg::Index& ix,
   }
   bookkeep(w, anchors, rb);
   bookkeep(w, anchors, rb);
-  out.status[b] = w.status;
-  out.orient[b] = w.orient;
-  out.offset[b] = w.offset;
-  out.llen[b] = w.llen;
-  out.rlen[b] = w.rlen;
+  if (dbg::group_lane() == 0) {
+    out.status[b] = w.status;
+    out.orient[b] = w.orient;
+    out.offset[b] = w.offset;
+    out.llen[b] = w.llen;
+    out.rlen[b] = w.rlen;
+  }
 }
 
-__global__ void greedy_walk_kernel(
+constexpr int kThreads = 128;   // 16 reads per block
+
+__global__ void __launch_bounds__(kThreads) greedy_walk_kernel(
     const uint8_t* __restrict__ member1, const uint8_t* __restrict__ member2,
     const int64_t* __restrict__ bug, const int64_t* __restrict__ rcs,
     const int32_t* __restrict__ lens, const uint32_t* __restrict__ rows,
     const __grid_constant__ dbg::Index ix, int B, int Lk, int RWr, int k,
     int m, int E,
     int max_iters, int P, Out out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  const int b = dbg::read_index();
   if (b >= B) return;
   const size_t o = static_cast<size_t>(b) * Lk;
   Walk w;
   w.len = lens[b];
   w.k = k;
   w.k1 = k - 1;
-  const GreedyAnchors anchors{member1 + o, member2 + o, bug + o, rcs + o,
-                              Lk,          w.len,       w.k1,    m};
-  int c1 = 0, c2 = 0;
-  for (int i = 0; i < Lk; ++i) {
-    c1 += anchors.m1[i];
-    c2 += anchors.m2[i];
-  }
-  w.n_f = min(c1, E);
-  w.n_r = min(c2, E);
+  GreedyAnchors anchors{dbg::byte_row(member1 + o, Lk),
+                        dbg::byte_row(member2 + o, Lk),
+                        bug + o, rcs + o, w.len, w.k1, m, 0, Lk};
+  w.n_f = min(dbg::group_count(anchors.m1, dbg::group_mask()), E);
+  w.n_r = min(dbg::group_count(anchors.m2, dbg::group_mask()), E);
   walk_read(w, anchors, ix, rows, B, RWr, b, max_iters, P, out);
 }
 
-__global__ void walk_inits_kernel(const int64_t* __restrict__ planes,
-                                  const int32_t* __restrict__ n,
-                                  const int32_t* __restrict__ lens,
-                                  const uint32_t* __restrict__ rows,
-                                  const __grid_constant__ dbg::Index ix,
-                                  int B, int RWr, int k, int E,
-                                  int max_iters, int P, Out out) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+__global__ void __launch_bounds__(kThreads)
+    walk_inits_kernel(const int64_t* __restrict__ planes,
+                      const int32_t* __restrict__ n,
+                      const int32_t* __restrict__ lens,
+                      const uint32_t* __restrict__ rows,
+                      const __grid_constant__ dbg::Index ix, int B, int RWr,
+                      int k, int E, int max_iters, int P, Out out) {
+  const int b = dbg::read_index();
   if (b >= B) return;
   Walk w;
   w.len = lens[b];
@@ -292,7 +313,7 @@ __global__ void walk_inits_kernel(const int64_t* __restrict__ planes,
   w.k1 = k - 1;
   w.n_f = n[b];
   w.n_r = n[B + b];
-  const PlaneAnchors anchors{planes, B, E, b};
+  PlaneAnchors anchors{planes, B, E, b};
   walk_read(w, anchors, ix, rows, B, RWr, b, max_iters, P, out);
 }
 
@@ -304,7 +325,11 @@ Out make_out(void* status, void* orient, void* offset, void* llen, void* rlen,
              static_cast<int32_t*>(rbuf)};
 }
 
-constexpr int kThreads = 128;
+// blocks for B reads
+unsigned blocks_for(int B) {
+  const long long threads = static_cast<long long>(B) * dbg::GROUP;
+  return static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+}
 
 }  // namespace
 
@@ -315,7 +340,7 @@ extern "C" int dbg_greedy_walk(
     void* status,
     void* orient, void* offset, void* llen, void* rlen, void* lbuf,
     void* rbuf, void* stream) {
-  greedy_walk_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+  greedy_walk_kernel<<<blocks_for(B), kThreads, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(member1),
       static_cast<const uint8_t*>(member2),
@@ -333,7 +358,7 @@ extern "C" int dbg_walk_inits(
     void* status,
     void* orient, void* offset, void* llen, void* rlen, void* lbuf,
     void* rbuf, void* stream) {
-  walk_inits_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0,
+  walk_inits_kernel<<<blocks_for(B), kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int64_t*>(planes), static_cast<const int32_t*>(n),
       static_cast<const int32_t*>(lens), static_cast<const uint32_t*>(rows),
@@ -341,3 +366,7 @@ extern "C" int dbg_walk_inits(
       make_out(status, orient, offset, llen, rlen, lbuf, rbuf));
   DBG_RETURN_LAUNCH_STATUS();
 }
+
+// threads per block of this file's kernels (build.kernel_resources gives
+// ptxas's registers per kernel; with this, the warps per SM they allow)
+extern "C" int dbg_walk_threads() { return kThreads; }

@@ -30,7 +30,9 @@ from ..constants import (
 from ..kernels import build
 from .index import IndexTensors, c_index_arg
 from .read_scan import Scan, unpack_fields
-from .walk import BIG, Walks, junction_probe_ref
+from .walk import (
+    BIG, Walks, count_probe, count_read_sectors, junction_probe_ref,
+)
 
 # phases (exhaustive.py _FETCHX .. _DONEX)
 FETCHX, LDFS, RDFS, LDONE, RDONE, LRDY, DONEX = 0, 1, 2, 3, 4, 5, 6
@@ -46,8 +48,12 @@ def depth_for(L: int, k: int) -> int:
 
 
 def exhaustive_ref(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
-                   m: int, partial: bool, L: int) -> Walks:
-    """Plain torch version of K6 (int64 lanes)."""
+                   m: int, partial: bool, L: int,
+                   counts: dict | None = None) -> Walks:
+    """Plain torch version of K6 (int64 lanes).  `counts`, when given,
+    gets what the DFS's junction evaluations (one per populated frame)
+    read, walk.count_probe's keys, and the sectors of bug that FETCHX
+    reads at its anchors (walk.count_read_sectors)."""
     k1 = k - 1
     B, Lk = scan.bug.shape
     dev = scan.bug.device
@@ -74,6 +80,7 @@ def exhaustive_ref(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
     for c in cand:
         s["tc_" + c] = z(4)
     bl_buf, br_buf, csid = z(D), z(D), z(D)
+    fetched = torch.zeros((B, Lk), dtype=torch.bool, device=dev)  # counts
     stack = {c: z(D) for c in ("ci", "n", "acc")}
     stack.update({c: z(D, 4) for c in cand})
 
@@ -110,6 +117,8 @@ def exhaustive_ref(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
         go = fx & ~none
         upd("a", go, nxt)
         upd("ak", go, scan.bug.gather(1, nxt.clamp(0, Lk - 1)[:, None])[:, 0])
+        if counts is not None:
+            fetched[ar[go], nxt[go]] = True
         upd("best", go, m + 1)
         upd("bllen", go, 0)
         upd("bloff", go, 0)
@@ -134,6 +143,8 @@ def exhaustive_ref(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
         # populate the top frame: the valid candidates, compacted in order
         p = junction_probe_ref(ix, mL, mR, s["tk"], s["tpos"], lens, codes,
                                nmask, k1=k1, L=L)
+        if counts is not None:
+            count_probe(ix, p, need_pop, counts)
         pv = p["valid"]
         vidx = pv.to(torch.int64).cumsum(1) - 1
         step_ = torch.where(mL[:, None], -(p["ul"] - k1), p["ul"] - k1)
@@ -200,6 +211,8 @@ def exhaustive_ref(ix: IndexTensors, scan: Scan, inter, lens, *, k: int,
         bookkeep()
         dfs_step()
     bookkeep()
+    if counts is not None:
+        count_read_sectors(scan.bug, fetched, counts)
     i32 = torch.int32
     return Walks(s["status"].to(i32), torch.zeros(B, dtype=i32, device=dev),
                  s["bloff"].to(i32), s["bllen"].to(i32), s["brlen"].to(i32),

@@ -133,14 +133,25 @@ class Inits(NamedTuple):
 
 
 def greedy_inits_ref(scan: Scan, member1, member2, lens, *, k: int, m: int,
-                     effort: int) -> Inits:
+                     effort: int, counts: dict | None = None) -> Inits:
     """Greedy inits (core.align_batch :1059-1091): the first E member1
     hits with their bug values, the last E member2 hits mapped to RC
-    positions with their rc values; LEFT at the anchor, budget m."""
+    positions with their rc values; LEFT at the anchor, budget m.
+    `counts`, when given, gets the sectors of bug and rcs read at those
+    anchors (count_read_sectors)."""
     E = effort
     lens = lens.to(torch.int64)
     apos_f, aval_f, n_f = _anchors(member1, scan.bug, E, from_end=False)
     col_r, aval_r, n_r = _anchors(member2, scan.rcs, E, from_end=True)
+    if counts is not None:
+        B = member1.shape[0]
+        rows = torch.arange(B, device=member1.device)[:, None].expand(B, E)
+        for plane, col, n in ((scan.bug, apos_f, n_f), (scan.rcs, col_r, n_r)):
+            used = torch.arange(E, device=col.device)[None, :] < n[:, None]
+            read = torch.zeros(plane.shape, dtype=torch.bool,
+                               device=plane.device)
+            read[rows[used], col[used]] = True
+            count_read_sectors(plane, read, counts)
     apos_r = lens[:, None] - (k - 1) - col_r
     cur = torch.stack([aval_f, aval_r])
     pos = torch.stack([apos_f, apos_r])
@@ -156,7 +167,9 @@ def junction_probe_ref(ix: IndexTensors, mL, mRF, cur, pos, lens, rcodes,
     neither): candidate lookup of the (k-1)-mer `cur` plus the windowed
     Hamming of its <= 4 candidates against the read codes `rcodes` [B, L]
     (N-mask `ncodes`).  Returns int64/bool [B, 4] arrays: valid, sid,
-    miss (BIG where invalid), ended, ul, ust, nxt_l, nxt_r."""
+    miss (BIG where invalid), ended, ul, ust, nxt_l, nxt_r, and for
+    counting what the probe reads (`count_probe`) found [B], cand (the
+    candidate ids), win (window lengths), is_fwd and uoff."""
     B = cur.shape[0]
     rc = rcb_ref(cur, k1)
     is_canon = cur <= rc
@@ -195,14 +208,78 @@ def junction_probe_ref(ix: IndexTensors, mL, mRF, cur, pos, lens, rcodes,
         ust=ustart,
         nxt_l=torch.where(is_fwd, beg, kmer(C_RCE_HI, C_RCE_LO)),
         nxt_r=torch.where(is_fwd, end, kmer(C_RCB_HI, C_RCB_LO)),
+        found=found, cand=cands, win=w, is_fwd=is_fwd, uoff=meta[..., C_UOFF],
     )
 
 
+SECTOR = 32       # bytes of one device memory sector
+HEADER_WORDS = 10  # umeta words a candidate reads: C_UOFF .. C_RCE_LO
+
+
+def _sectors(byte_lo, byte_hi):
+    """32-byte sectors spanned by the byte ranges [lo, hi) (hi > lo)."""
+    return (byte_hi - 1) // SECTOR - byte_lo // SECTOR + 1
+
+
+def count_probe(ix: IndexTensors, p: dict, evaluated, counts: dict) -> None:
+    """Add to `counts` what the junction evaluations of the reads in
+    `evaluated` [B] read (p: junction_probe_ref's result for them):
+    evals, the lookups that found their key, the valid candidates, their
+    16-base window words, and the 32-byte sectors of each valid
+    candidate's umeta header and window words (the unitig's embedded
+    words, or its pool chunk row's).  Sector addresses count from the
+    start of each table."""
+    ok = evaluated[:, None] & p["valid"]
+    cand, win, ust = p["cand"], p["win"], p["ust"]
+    nw = torch.where(win > 0, (win + 15) // 16, 0)
+    ucols = ix.umeta.shape[1]
+    row0 = 4 * cand * ucols
+    head = _sectors(row0, row0 + 4 * HEADER_WORDS)
+    SW = ix.seq_words
+    if SW > 0:
+        base = cand * ucols + META_COLS + torch.where(p["is_fwd"], 0, SW)
+        s0, nsrc = ust, SW
+    else:
+        RW = ix.pool_rows.shape[1]
+        g = p["uoff"] + ust
+        r = ((g >> CHUNK_SHIFT) + torch.where(p["is_fwd"], 0, ix.n_chunks)
+             ).clamp(min=0)
+        base = r * RW
+        s0, nsrc = g & ((1 << CHUNK_SHIFT) - 1), RW
+    # window_miss reads word i = s >> 4 of each 16-base step, and i + 1
+    # where the step is not word-aligned, inside [0, nsrc)
+    w_lo = (s0 >> 4).clamp(0, nsrc - 1)
+    w_hi = (((s0 + 16 * (nw - 1)) >> 4) + ((s0 & 15) != 0).to(torch.int64)
+            ).clamp(0, nsrc - 1)
+    b_lo, b_hi = 4 * (base + w_lo), 4 * (base + w_hi + 1)
+    wsec = torch.where(nw > 0, _sectors(b_lo, b_hi), 0)
+    if SW > 0:   # header and window share a sector where they meet
+        wsec = wsec - ((nw > 0) & ((row0 + 4 * HEADER_WORDS - 1) // SECTOR
+                                   == b_lo // SECTOR)).to(torch.int64)
+    for key, v in (("evals", evaluated), ("found", evaluated & p["found"]),
+                   ("cands", ok), ("words", torch.where(ok, nw, 0)),
+                   ("sectors", torch.where(ok, head + wsec, 0))):
+        counts[key] = counts.get(key, 0) + int(v.sum())
+
+
+def count_read_sectors(plane, read, counts: dict) -> None:
+    """Add to counts["anchor_sectors"] the 32-byte sectors of `plane`
+    [B, Lk] that reading its elements where `read` (bool [B, Lk]) is set
+    takes, each sector once: what a function that reads an input once
+    must move for those elements."""
+    flat = torch.nonzero(read.reshape(-1))[:, 0]
+    sectors = torch.unique(flat * plane.element_size() // SECTOR)
+    counts["anchor_sectors"] = (counts.get("anchor_sectors", 0)
+                                + int(sectors.numel()))
+
+
 def walk_inits_ref(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
-                   L: int) -> Walks:
+                   L: int, counts: dict | None = None) -> Walks:
     """Plain torch version of K3: the JAX engine's lockstep loop
     (bookkeep, junction) over the whole batch, int64 lanes.  rows is the
-    scan's packed [3, B, RWr] forward / RC / N-mask rows."""
+    scan's packed [3, B, RWr] forward / RC / N-mask rows.  `counts`, when
+    given, gets what the walk's junction evaluations (successful and
+    failed steps) read: count_probe's keys."""
     k1 = k - 1
     _, _, B, E = inits.planes.shape
     dev = rows.device
@@ -287,6 +364,8 @@ def walk_inits_ref(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
         p = junction_probe_ref(
             ix, mL, mRF, s["cur"], pos, lens, torch.where(o0, codes_f, codes_r),
             torch.where(o0, nmask, 0), k1=k1, L=L)
+        if counts is not None:
+            count_probe(ix, p, active, counts)
         bestj = p["miss"].argmin(dim=1, keepdim=True)     # first minimum
 
         def sel(x):
@@ -338,11 +417,14 @@ def walk_inits_ref(ix: IndexTensors, rows, lens, inits: Inits, *, k: int,
 
 
 def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
-             k: int, m: int, effort: int, L: int) -> Walks:
-    """Plain torch version of K3's greedy entry."""
+             k: int, m: int, effort: int, L: int,
+             counts: dict | None = None) -> Walks:
+    """Plain torch version of K3's greedy entry (`counts`: as
+    walk_inits_ref's, and the anchors' reads of bug and rcs)."""
     inits = greedy_inits_ref(scan, member1, member2, lens, k=k, m=m,
-                             effort=effort)
-    return walk_inits_ref(ix, scan.rows, lens, inits, k=k, L=L)
+                             effort=effort, counts=counts)
+    return walk_inits_ref(ix, scan.rows, lens, inits, k=k, L=L,
+                          counts=counts)
 
 
 def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,

@@ -6,7 +6,9 @@ then one link) with a plain C interface under `build/dbgtpu_torch/` at
 the repository root (see `_build_dir` for an installed copy), at first
 use, and again whenever a source changes (the library name carries a
 hash of the sources).  The library is bound
-with ctypes: pointers and the stream are passed as `c_void_p`.  Every C
+with ctypes: pointers and the stream are passed as `c_void_p`.  ptxas's
+report of the build (registers and spills per kernel) is kept beside
+the library (`kernel_resources`).  Every C
 entry point returns `cudaGetLastError()` from right after its launch,
 and `check` raises when it is not 0.
 
@@ -31,6 +33,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -54,7 +57,7 @@ def _build_dir() -> Path:
 BUILD_DIR = _build_dir()
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 KERNELS = ("read_scan", "member", "greedy_walk", "walk_inits", "pack_paths",
@@ -175,6 +178,38 @@ def library_path(csrc: Path = _CSRC) -> Path:
     return BUILD_DIR / f"libdbgtpu_torch.{source_hash(csrc)}.so"
 
 
+def ptxas_path(csrc: Path = _CSRC) -> Path:
+    """ptxas's report (-Xptxas -v) of the build of `csrc`'s library."""
+    return library_path(csrc).with_suffix(".ptxas.txt")
+
+
+def kernel_resources(csrc: Path = _CSRC) -> dict[str, dict]:
+    """Per kernel entry of `csrc`'s library, from ptxas's report of its
+    build: the source's stem, registers per thread and bytes of spill
+    stores and loads."""
+    out, name, stem = {}, None, None
+    text = ptxas_path(csrc).read_text() if ptxas_path(csrc).exists() else ""
+    for line in text.splitlines():
+        m = re.match(r"== (\S+)\.cu$", line)
+        if m:
+            stem, name = m.group(1), None
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {"source": stem}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
+
+
 def build(csrc: Path = _CSRC) -> Path:
     """Compile the kernels of `csrc` (default: this package's sources)
     unless a library for these sources exists."""
@@ -188,21 +223,25 @@ def build(csrc: Path = _CSRC) -> Path:
     for src in sorted(csrc.glob("*.cu")):
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
-        procs.append((cmd, subprocess.Popen(
+        procs.append((src, cmd, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
         objs.append(obj)
     tmp = so.with_name(f"{tag}.tmp.so")
     try:
-        for cmd, proc in procs:
-            _finish(cmd, proc.communicate()[0], proc.returncode)
+        report = []
+        for src, cmd, proc in procs:
+            output = proc.communicate()[0]
+            _finish(cmd, output, proc.returncode)
+            report.append(f"== {src.name}\n{output}")
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
                *[str(o) for o in objs]]
         res = subprocess.run(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True)
         _finish(cmd, res.stdout, res.returncode)
+        ptxas_path(csrc).write_text("".join(report))
         os.replace(tmp, so)
     finally:
-        for cmd, proc in procs:
+        for _, _, proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()

@@ -13,6 +13,19 @@ only at position len-k, efforts 1, 2 and 5, and planted N (which sends
 K2 down its per-position branch).  A batch holds 45 reads, so warps and
 lane groups end ragged.
 
+K3 (greedy_walk, walk_inits) and K6 (exhaustive_dfs) give each read a
+lane group that runs its own walk or DFS, probe a junction's <= 4
+candidates side by side and pick the best by shuffle.  Two more cases
+put reads across their edges: a graph with branches (junctions with 3
+and 4 right or left candidates that tie on misses where a read ends
+inside them, so the earliest must win; dead ends with 0 candidates
+where reads run past the genome's ends) and a graph of unitigs of k
+bases (each DFS level consumes one base, so a read's search runs to
+L-k+1 levels, two below the depth bound D = L-k+3; planted N).  In every
+case reads end at different steps within one warp, and the 45 reads
+leave the last warp ragged (4 reads per warp).  The cases of CASE_NAMES
+serve K2 and K5's CPU tests, those of WALK_CASE_NAMES (all) K3 and K6's.
+
 `edge_cases()` is numpy alone (no torch, no test helper): chip_smoke.py
 holds the kernels against their plain versions on it, and the CPU tests
 hold the plain versions against the JAX package on the same cases.
@@ -45,35 +58,117 @@ class EdgeCase:
         return self.L - self.k + 2
 
 
-# name, k, L, effort, plant N
+# name, k, L, effort, plant N, graph ("linear": a cover of the genome by
+# unitigs of k+1 to 2k+8 bases, "branch": that plus branch unitigs,
+# "stride1": unitigs of k, then k and k+1 bases over the first
+# STRIDE1_LEN)
 _CASES = (
-    ("k32_Lk33_E1", 32, 63, 1, False),
-    ("k32_Lk65_E5_N", 32, 95, 5, True),
-    ("k31_Lk32_E2", 31, 61, 2, False),
-    ("k21_Lk31_E2_N", 21, 50, 2, True),
+    ("k32_Lk33_E1", 32, 63, 1, False, "linear"),
+    ("k32_Lk65_E5_N", 32, 95, 5, True, "linear"),
+    ("k31_Lk32_E2", 31, 61, 2, False, "linear"),
+    ("k21_Lk31_E2_N", 21, 50, 2, True, "linear"),
+    ("k21_branch_E2", 21, 80, 2, False, "branch"),
+    ("k15_stride1_E2_N", 15, 64, 2, True, "stride1"),
 )
+STRIDE1_LEN = 1500
+BRANCH_SITES = 8     # junctions given branch unitigs, per side
 
-
-CASE_NAMES = tuple(c[0] for c in _CASES)
+CASE_NAMES = tuple(c[0] for c in _CASES[:4])
+WALK_CASE_NAMES = tuple(c[0] for c in _CASES)
 
 
 def _revcomp(s: bytes) -> bytes:
     return s.translate(_COMP)[::-1]
 
 
-def _unitigs(genome: bytes, k: int, rng) -> list[bytes]:
-    """A linear cover of the genome by unitigs of k+1 to 2k+8 bases that
-    overlap by k-1 (short, so reads cross many junctions), some stored
-    reverse-complemented."""
-    out, pos = [], 0
+def _cover(genome: bytes, k: int, rng, lo: int, hi: int):
+    """A linear cover of the genome by unitigs of lo to hi bases that
+    overlap by k-1, some stored reverse-complemented: (unitigs, their
+    start positions in the genome)."""
+    out, starts, pos = [], [], 0
     while pos + k <= len(genome):
-        n = min(int(rng.integers(k + 1, 2 * k + 9)), len(genome) - pos)
+        n = min(int(rng.integers(lo, hi + 1)), len(genome) - pos)
         if n < k:
             break
         u = genome[pos : pos + n]
         out.append(_revcomp(u) if rng.random() < 0.3 else u)
+        starts.append(pos)
         pos += n - (k - 1)
-    return out
+    return out, starts
+
+
+def _unitigs(genome: bytes, k: int, rng) -> list[bytes]:
+    """Unitigs of k+1 to 2k+8 bases (short, so reads cross many
+    junctions)."""
+    return _cover(genome, k, rng, k + 1, 2 * k + 8)[0]
+
+
+def _branches(genome: bytes, k: int, starts, rng):
+    """Branch unitigs at BRANCH_SITES junctions of the cover per side:
+    at a right site, 2 or 3 unitigs that begin with the junction
+    (k-1)-mer and follow the genome for `ly` bases, then leave it by one
+    base (with the cover's unitig: 3 or 4 right candidates); at a left
+    site the mirror image.  Returns (unitigs, right sites, left sites),
+    a site being (junction position, ly)."""
+    k1 = k - 1
+    bases = b"ACGT"
+    out, right, left = [], [], []
+    picks = rng.choice(np.arange(2, len(starts) - 2), 2 * BRANCH_SITES,
+                       replace=False)
+    for i, s in enumerate(picks):
+        p, ly = starts[int(s)], int(rng.integers(3, 13))
+        n_var = 2 + i % 2
+        if i < BRANCH_SITES:          # right: J + genome + a wrong base
+            body = genome[p : p + k1 + ly]
+            true = genome[p + k1 + ly]
+            ends = [b for b in bases if b != true][:n_var]
+            seqs = [body + bytes([b]) for b in ends]
+            right.append((p, ly))
+        else:                         # left: a wrong base + genome + J
+            body = genome[p - ly : p + k1]
+            true = genome[p - ly - 1]
+            ends = [b for b in bases if b != true][:n_var]
+            seqs = [bytes([b]) + body for b in ends]
+            left.append((p, ly))
+        out += [_revcomp(u) if rng.random() < 0.3 else u for u in seqs]
+    return out, right, left
+
+
+def _branch_reads(genome: bytes, k: int, L: int, right, left,
+                  rng) -> list[bytes]:
+    """Reads that end inside a right site's branch (or start inside a
+    left site's), where the candidates tie, some with an error there;
+    and reads that run past the genome's ends into random bases, where
+    the walks meet 0 candidates."""
+    k1 = k - 1
+
+    def rand(n):
+        return _BASES[rng.integers(0, 4, n)].tobytes()
+
+    def err(r: bytes, at: int) -> bytes:
+        r = bytearray(r)
+        r[at] = _BASES[(int(np.nonzero(_BASES == r[at])[0][0]) + 1) % 4]
+        return bytes(r)
+
+    def orient(r):
+        return _revcomp(r) if rng.random() < 0.5 else r
+
+    reads = []
+    for p, ly in right:
+        e = p + k1 + int(rng.integers(1, ly + 1))   # ends inside the branch
+        n = int(rng.integers(k1 + 2 + k, L + 1))
+        r = genome[max(e - n, 0) : e]
+        reads.append(orient(err(r, len(r) - 1) if rng.random() < 0.5 else r))
+    for p, ly in left:
+        s = p - int(rng.integers(1, ly + 1))        # starts inside it
+        n = int(rng.integers(k1 + 2 + k, L + 1))
+        r = genome[s : s + n]
+        reads.append(orient(err(r, 0) if rng.random() < 0.5 else r))
+    for _ in range(3):
+        n = int(rng.integers(k + 5, L - 5))
+        reads.append(orient(genome[-n:] + rand(int(rng.integers(3, L - n)))))
+        reads.append(orient(rand(int(rng.integers(3, L - n))) + genome[:n]))
+    return reads
 
 
 def _reads(genome: bytes, k: int, L: int, E: int, plant_n: bool,
@@ -117,11 +212,30 @@ def _reads(genome: bytes, k: int, L: int, E: int, plant_n: bool,
 
 
 def edge_cases(seed: int = EDGE_SEED) -> list[EdgeCase]:
-    """The cases of CASE_NAMES, in that order, from one seeded genome."""
+    """The cases of WALK_CASE_NAMES, in that order, from one seeded
+    genome."""
     rng = np.random.default_rng(seed)
     genome = _BASES[rng.integers(0, 4, GENOME_LEN)].tobytes()
     out = []
-    for name, k, L, E, plant_n in _CASES:
-        out.append(EdgeCase(name, k, L, E, tuple(_unitigs(genome, k, rng)),
-                            tuple(_reads(genome, k, L, E, plant_n, rng))))
+    for name, k, L, E, plant_n, shape in _CASES:
+        if shape == "stride1":
+            # unitigs of k bases over the first two thirds (one base per
+            # DFS level: a read of L bases goes L-k+1 = D-2 levels deep,
+            # the most it can), of k and k+1 over the rest (their first
+            # k-mer is a dog anchor)
+            g = genome[:STRIDE1_LEN]
+            cut = 2 * STRIDE1_LEN // 3
+            unitigs = (_cover(g[:cut], k, rng, k, k)[0]
+                       + _cover(g[cut - (k - 1):], k, rng, k, k + 1)[0])
+            reads = _reads(g, k, L, E, plant_n, rng)
+        elif shape == "branch":
+            unitigs, starts = _cover(genome, k, rng, k + 1, 2 * k + 8)
+            extra, right, left = _branches(genome, k, starts, rng)
+            unitigs += extra
+            reads = _branch_reads(genome, k, L, right, left, rng)
+            reads += _reads(genome, k, L, E, plant_n, rng)[: 45 - len(reads)]
+        else:
+            unitigs = _unitigs(genome, k, rng)
+            reads = _reads(genome, k, L, E, plant_n, rng)
+        out.append(EdgeCase(name, k, L, E, tuple(unitigs), tuple(reads)))
     return out

@@ -9,7 +9,8 @@ of dbgtpu's host modules (native C where available).  Output bytes
 equal dbgtpu's `run_pipeline` with `impl="python"` or `"jax"`, and this
 package's own spec pipeline (spec.py).  The path modes (-p) have no
 device engine in dbgtpu, which runs them on its python spec whatever
-`--impl` says; here they run on spec.py likewise and launch no kernel.
+`--impl` says; here they run on spec.py likewise and launch no kernel,
+as every mode does under `impl="python"`.
 """
 
 from __future__ import annotations
@@ -40,6 +41,7 @@ from .spec import (
 DEVICE_MODES = ("greedy", "anchors", "exhaustive")
 PATH_MODES = ("paths", "paths-exhaustive")     # host spec only
 HOST_SPEC = "host-spec"     # `device` of a run that launched no kernel
+IMPLS = ("auto", "python", "jax")   # dbgtpu's --impl choices
 
 
 @dataclass
@@ -208,6 +210,7 @@ def run_pipeline(
     process_id: int = 0,
     num_processes: int = 1,
     progress_every: int = 0,
+    impl: str = "auto",
 ):
     """Returns (paths_bytes, not_aligned_bytes, TorchRunStats).
 
@@ -216,7 +219,9 @@ def run_pipeline(
     is "greedy", "anchors" (-G) or "exhaustive" (-b); `partial` (-i)
     applies to exhaustive mode.  "paths" and "paths-exhaustive" (-p) run
     on the host spec and launch no kernel: their stats say `device` =
-    "host-spec".  `index_layout` is "scan" or "mphf" (the compact MPHF
+    "host-spec".  So does every mode under `impl` "python" (dbgtpu's
+    `--impl python`); "auto" and "jax" run the device modes' kernels on
+    `device`.  `index_layout` is "scan" or "mphf" (the compact MPHF
     junction table, and MPHF dog anchors at any size).  A graph passed in
     (a loaded index) for anchor mode must be built with dog_mode=True.
     `save_index` persists the graph with its device index in
@@ -227,6 +232,8 @@ def run_pipeline(
     `progress_every` prints a stats line every that many batches."""
     if mode not in DEVICE_MODES + PATH_MODES:
         raise ValueError(f"unknown mode {mode!r}")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}")
     device = torch.device(device)
     stats = TorchRunStats(device=str(device))
     t0 = time.monotonic()
@@ -241,7 +248,7 @@ def run_pipeline(
         def rec_range(n):
             return shard_ranges(n, num_processes)[process_id]
 
-    if mode in PATH_MODES:
+    if mode in PATH_MODES or impl == "python":
         stats.device = HOST_SPEC
         paths, na, host = spec_pipeline(
             reads_files, unitig_file, k, m=m, effort=effort, fastq=fastq,

@@ -18,12 +18,14 @@ import torch
 
 from dbgtpu.engine import core, exhaustive
 from dbgtpu.engine.kmer32 import pair_le, rcb_pair
+from dbgtpu.index.build import build_graph_from_seqs
 from dbgtpu.pipeline import run_pipeline as dbgtpu_pipeline
 from dbgtpu_torch.engine.core import align_batch
 from dbgtpu_torch.engine.exhaustive import depth_for, exhaustive_dfs
 from dbgtpu_torch.engine.index import index_tensors
 from dbgtpu_torch.engine.member import inter, inter_ref, member_ref
 from dbgtpu_torch.engine.read_scan import read_scan_ref
+from dbgtpu_torch.kernels.edge_batch import edge_cases
 from dbgtpu_torch.pipeline import run_pipeline
 
 from . import synth
@@ -152,6 +154,37 @@ def test_plain_k6_and_exhaustive_batch_match_jax(seed, k, m, n_frac, variant,
     assert not (got.orient.numpy()).any()        # no RC retry
     if not partial:
         assert (status == 5).any()
+
+
+_EDGE = {c.name: c for c in edge_cases()}
+
+
+@pytest.mark.parametrize("name,variant,partial", [
+    ("k21_branch_E2", "embedded", False),
+    ("k15_stride1_E2_N", "pool", True),
+])
+def test_edge_batch_exhaustive_matches_jax(name, variant, partial):
+    """The port's plain exhaustive batch (K1 -> K2 inter -> K6) on K6's
+    edge cases against align_batch_exhaustive: candidates that tie on
+    misses (the first achiever wins), 0 and 4 candidates, and DFS paths
+    of L-k+1 levels, two below the depth bound D (unitigs of k bases),
+    planted N, a pool-chunk index."""
+    case = _EDGE[name]
+    k, L = case.k, case.L
+    di = device_index(build_graph_from_seqs(list(case.unitigs), k), variant)
+    ix = index_tensors(di, "cpu")
+    codes, nm, lens, words, nmbits = batch(list(case.reads), L)
+    got = align_batch(ix, t32(words), t32(nmbits), t32(lens),
+                      mode="exhaustive", k=k, m=2, effort=2, L=L,
+                      partial=partial)
+    want = exhaustive.align_batch_exhaustive(
+        core.index_to_device(di), jnp.asarray(codes), jnp.asarray(nm),
+        jnp.asarray(lens), k=k, m=2, partial=partial, pmax=0,
+        jl_meta=core.jl_meta_of(di))
+    assert_walks_equal(got, want)
+    assert (got.status.numpy() == 1).any()
+    if name.startswith("k15_stride1"):
+        assert int(got.rlen.max()) == depth_for(L, k) - 2
 
 
 @pytest.mark.parametrize("partial", [False, True])

@@ -10,6 +10,7 @@ import re
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -199,30 +200,46 @@ def test_cli_mphf_layouts_equal_spec_and_jax_engine(tmp_path, flags, mode,
         assert 0 < hbm["anchor_table"] < 60 * want[2].read_number * 100
 
 
+_REFUSED = (["--mesh", "2"], ["--shard-index", "--mesh", "2"],
+            ["--profile-dir", "prof"],
+            ["--coordinator", "h:1", "--num-processes", "2"],
+            ["--resume", "--impl", "python"])
+
+
 @pytest.mark.parametrize("flags", [
     ["-p"], ["-b", "-p"],
     ["--mesh", "2"], ["--shard-index"], ["--num-processes", "2"],
     ["--coordinator", "localhost:1"], ["--merge-shards", "2"],
     ["--save-index", "x.npz"], ["--load-index", "x.npz"], ["--resume"],
     ["--profile-dir", "prof"],
+    ["--mesh", "0"], ["--shard-index", "--mesh", "2"],
+    ["--coordinator", "h:1", "--num-processes", "2"],
+    ["--impl", "python"], ["--impl", "jax"], ["--impl", "auto"],
+    ["--resume", "--impl", "python"], ["--impl", "python", "-b"],
 ])
 def test_cli_refuses_flags_outside_the_slice(tmp_path, monkeypatch, flags,
                                              capsys):
-    """The flags that need more than one card or a profiler exit 2 naming
-    the flag.  The flags the port used to refuse (path modes, persistence,
-    --resume, process sharding) now run: the same inputs give dbgtpu's
-    bytes."""
-    if flags[0] in ("--mesh", "--shard-index", "--coordinator",
-                    "--profile-dir"):
+    """dbgtpu's flags that need more than one card or a profiler exit 2
+    naming the flag, before reading input, wherever they would take
+    effect: a nonzero --mesh (with or without --shard-index), --coordinator
+    with more than one process, --profile-dir; and --resume refuses
+    --impl python as dbgtpu does.  Everything else runs and gives
+    dbgtpu's bytes on the same inputs: the flags the port used to refuse
+    (path modes, persistence, --resume, process sharding, --mesh 0,
+    --shard-index without a mesh, --coordinator with one process) and
+    --impl python|jax|auto.  --impl python runs on the host spec."""
+    if flags in _REFUSED:
         assert cli.main(["-r", "reads.fa", "-k", "21", "--device", "cpu"]
                         + flags) == 2
         assert flags[0] in capsys.readouterr().err
         return
     rf, uf = _files(tmp_path, 79, 21, 48, n_frac=0.1)
     monkeypatch.chdir(tmp_path)
-    base = ["-r", rf, "-k", "21", "-g", uf, "--device", "cpu"]
+    base = ["-r", rf, "-k", "21", "-g", uf, "--device", "cpu",
+            "--json-summary", "s.json"]
     mode = ("paths-exhaustive" if flags == ["-b", "-p"]
-            else "paths" if flags == ["-p"] else "greedy")
+            else "paths" if flags == ["-p"]
+            else "exhaustive" if "-b" in flags else "greedy")
     want = dbgtpu_pipeline([rf], uf, k=21, impl="python", mode=mode)
     if flags[0] == "--load-index":
         assert cli.main(base + ["--save-index", "x.npz"]) == 0
@@ -239,6 +256,9 @@ def test_cli_refuses_flags_outside_the_slice(tmp_path, monkeypatch, flags,
     assert want[2].aligned > 0
     if flags[0] == "--save-index":
         assert (tmp_path / "x.npz").exists()
+    device = json.loads((tmp_path / "s.json").read_text())["device"]
+    on_host = "-p" in flags or "python" in flags
+    assert (device == "host-spec") == on_host, device
 
 
 def test_cli_without_gpu_stops(tmp_path, monkeypatch, capsys):
@@ -361,6 +381,55 @@ def test_kernel_build_recipe(monkeypatch):
     monkeypatch.setenv("PATH", "")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         build.build()
+
+
+def test_kernel_resources_from_ptxas_report(monkeypatch, tmp_path):
+    """The build keeps ptxas's report (-Xptxas -v) beside the library,
+    each source's part after a line naming it; kernel_resources reads the
+    source, registers and spills per kernel entry from it, and
+    chip_smoke.py prints them with the warps per SM that the block size
+    the source's library reports (dbg_<source>_threads) allows."""
+    import chip_smoke
+    from dbgtpu_torch.kernels import build
+
+    assert build.NVCC_FLAGS[-2:] == ["-Xptxas", "-v"]
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    assert build.ptxas_path().parent == tmp_path
+    assert build.kernel_resources() == {}
+    build.ptxas_path().write_text(
+        "== walk.cu\n"
+        "ptxas info    : Compiling entry function '_Z18greedy_walk_kernelv'"
+        " for 'sm_90a'\n"
+        "ptxas info    : Function properties for _Z18greedy_walk_kernelv\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 64 registers, used 0 barriers, 472 bytes "
+        "cmem[0]\n"
+        "== gather.cu\n"
+        "ptxas info    : Compiling entry function '_Z6gatherv' for 'sm_90a'\n"
+        "ptxas info    : Used 30 registers, used 0 barriers\n")
+    got = build.kernel_resources()
+    assert got == {
+        "_Z18greedy_walk_kernelv": dict(source="walk", registers=64,
+                                        spill_stores=8, spill_loads=4),
+        "_Z6gatherv": dict(source="gather", registers=30)}
+
+    def dbg_walk_threads():
+        return 128
+
+    lines = []
+    monkeypatch.setattr(chip_smoke, "log", lines.append)
+    chip_smoke.log_resources("t", got, types.SimpleNamespace(
+        dbg_walk_threads=dbg_walk_threads))
+    assert lines == [
+        "[ptxas] t: gather.cu _Z6gatherv: 30 registers, spill stores 0 B, "
+        "loads 0 B; block size not reported",
+        "[ptxas] t: walk.cu _Z18greedy_walk_kernelv: 64 registers, spill "
+        "stores 8 B, loads 4 B; 32 warps per SM in blocks of 128 threads"]
+    # 65,536 registers per SM, allocated per warp in units of 256
+    assert chip_smoke.occupancy_warps(64, 128) == 32
+    assert chip_smoke.occupancy_warps(84, 128) == 20
+    assert chip_smoke.occupancy_warps(32, 256) == 64
 
 
 def test_kernel_build_dir_outside_a_checkout(monkeypatch, tmp_path):

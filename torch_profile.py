@@ -24,7 +24,8 @@ index tensors are on the card, beside the seconds the build took; the
 loaded tensors must equal the built ones.
 Then each kernel of the mode is timed against its plain version on the
 first 32,768-read batch with its bound, alone (back-to-back launches of
-its C entry point) and through its wrapper, and with `--baseline-csrc
+its C entry point, rotating over the cell's 4 batches) and through its
+wrapper, and with `--baseline-csrc
 DIR` beside the kernels built from DIR, in turns (chip_smoke.compare_kernels: the
 published memory rate; here also the bound at the measured rate; in an
 mphf cell also K2's per-position branch on the index without its probe
@@ -343,15 +344,13 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
     for n, (v, count) in list(by_name.items())[:10]:
         cs.log(f"{tag}   {v:.3f} ms in {count} events  {n[:100]}")
 
-    codes = np.zeros((B, L), np.uint8)
-    codes[:, :read_len] = codes_all[:B]
-    words, nmbits = cs.batch_tensors(codes, np.zeros((B, L), bool), device)
-    lens = torch.full((B,), read_len, dtype=torch.int32, device=device)
+    batches = cs.survey_batches(codes_all, L, device)
+    words, nmbits, lens = batches[0]
     perpos = (dataclasses.replace(ix, pt_rows=ix.pt_rows[:0])
               if layout == "mphf" and mode != "anchors" else None)
     res = cs.compare_kernels(ix, words, nmbits, lens, mode=mode, k=K, m=M,
                              effort=EFFORT, L=L, pmax=pmax, timed=True,
-                             perpos_ix=perpos)
+                             perpos_ix=perpos, more=batches[1:])
     if layout == "mphf" and mode == "greedy":
         jrows = di.mphf_junction.jrows
         res["mphf_slots"] = cs.compare_mphf(
@@ -370,11 +369,15 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
                 + ", ".join(f"{t:.4f}" for t in r["alone_turns_ms"]) + ")"
                 if "baseline_alone_ms" in r else "")
         cs.log(f"{tag} kernel {n}: == plain (err {r['max_abs_err']}), "
-               f"alone {r['alone_ms']:.4f} ms{base}, through the wrapper "
+               f"alone {r['alone_ms']:.4f} ms (rotating over "
+               f"{r.get('alone_batches', 1)} batches){base}, through the "
+               f"wrapper "
                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
                f"call {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
                f"{r['bound_at_copy_rate_ms']:.4f} ms at the measured copy "
-               f"rate) per {B}-read batch")
+               f"rate)" + (f", junction evaluations (plain version) "
+                           f"{r['evaluations']}" if "evaluations" in r
+                           else "") + f" per {B}-read batch")
 
     got = run_pipeline([str(td / "prefix.fa")], str(uf), k=K, m=M,
                        graph=graph, device=device, mode=mode,
