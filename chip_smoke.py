@@ -34,7 +34,12 @@ its own kernel), then:
      and without -i; scan, mphf and a pool-chunk index) against their
      plain versions on the edge batch (dbgtpu_torch/kernels/edge_batch.py:
      lane-group, window and chunk edges, ragged warps, tied and 0 / 4
-     candidates, dead ends, deep searches).  K7 mphf_slots itself
+     candidates, dead ends, deep searches).  K4 pack_paths and K8
+     compact_result against their plain versions at B = 1, 255, 256,
+     257, 32,768 and 262,144, pmax = 3, 30, 31, 62 and 120, int16 and
+     int32 (K4 on walks with llen / rlen 0 and plen > pmax, K8 on the
+     mixed, unaligned, over-pmax, equal-count and full cases).  K7
+     mphf_slots itself
      against its plain
      version on the survey junction MPHF, the survey anchor MPHF and a
      tight-gamma MPHF that uses the final table, each with keys of the
@@ -229,13 +234,20 @@ OPS_DOG_KMER = 2 * OPS_WORD_AT + 2 + 6 + 2 + OPS_RCB + 2
 # oriented position (3), joins and selects (10), the four-case geometry
 # (13), 9 plane stores of address (5) + value (1), one window word
 OPS_DOG_PLACE = 2 + 2 + 3 + 10 + 13 + 9 * 6 + OPS_WINDOW_WORD
-OPS_PACK_ELEM = 11   # pack.cu: plen (2), the case compares (4), source
-#                      index (3), output address (2)
-# compact.cu per row: row_count in passes 1 and 3 (address 2, 2 compares,
-# or, min: 6 each), the histogram add, match-any + popcounts + lane mask
-# (5), the rank adds (1 + 3.5 warps before, mean), the meta addresses (2);
-# per populated slot: the column offset add and the row address
-OPS_COMPACT_ROW, OPS_COMPACT_SLOT = 6 + 1 + 6 + 5 + 5 + 2, 2
+OPS_PACK_ELEM = 11   # pack.cu pack_value: the case compares (6), source
+#                      index (2), next column and row end (2), the pack (1)
+# compact.cu per row, in steps 1 and 4 each: row_count (row address 2, 2
+# compares, or, min), match-any + popcount + lane mask (4), the leader's
+# table index (2), the rank add (1); in step 4 its position (2) and the
+# meta copy (2 elements, address 2 each)
+OPS_COMPACT_ROW = 2 * (6 + 4 + 2 + 1) + 2 + 4
+
+
+def ops_compact_slot(pmax: int) -> int:
+    """compact.cu per populated slot: the binary search for its column
+    (compare, select and midpoint per level of ceil(log2 pmax)), the
+    position, the global rank (4 adds) and the source address (3)."""
+    return 3 * max(1, (pmax - 1).bit_length()) + 1 + 4 + 3
 
 
 KERNELS = (
@@ -806,7 +818,7 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                lambda fused=fused: compact_ref(fused, pmax),
                alone=compact_alone,
                stream=nbytes(fused, *ck),
-               ops=B * OPS_COMPACT_ROW + slots * OPS_COMPACT_SLOT)
+               ops=B * OPS_COMPACT_ROW + slots * ops_compact_slot(pmax))
     return out
 
 
@@ -949,6 +961,66 @@ def compare_edge_batch(device):
             f"(with and without -i; scan, mphf, pool chunks; deepest K6 "
             f"path {deepest} of D = {depth_for(L, k)}) == plain versions "
             f"(tolerance 0)")
+    return compared
+
+
+def compare_result_edges(device) -> int:
+    """K4 pack_paths and K8 compact_result against their plain versions
+    on CUDA inputs at their geometry edges (kernels/edge_batch.py), exact:
+    B in RESULT_BATCHES (one row, a tile +- 1, more tiles than the grid
+    holds at once), pmax in RESULT_PMAX (rows narrower and wider than a
+    warp; 120 > the walks' P), int16 and int32; K4 on the walk cases of
+    WALK_PACK_CASES (llen / rlen 0, plen > pmax), K8 on RESULT_CASES.
+    Returns the number of comparisons."""
+    import numpy as np
+    import torch
+
+    from dbgtpu_torch.engine.compact import compact_ref, compact_result
+    from dbgtpu_torch.engine.pack import pack_paths, pack_ref
+    from dbgtpu_torch.engine.walk import Walks
+    from dbgtpu_torch.kernels.edge_batch import (
+        RESULT_BATCHES, RESULT_CASES, RESULT_PMAX, WALK_PACK_CASES,
+        fused_rows, pack_walks,
+    )
+
+    dtypes = ((torch.int16, np.int16), (torch.int32, np.int32))
+    compared = 0
+    for B in RESULT_BATCHES:
+        t0 = time.monotonic()
+        for case in WALK_PACK_CASES:
+            w = pack_walks(B * 7 + len(case), B, case)
+            walks = Walks(*(torch.from_numpy(w[f]).to(device)
+                            for f in Walks._fields))
+            for pmax in RESULT_PMAX:
+                for tdt, _ in dtypes:
+                    got = pack_paths(walks, pmax=pmax, dtype=tdt)
+                    want = pack_ref(walks, pmax=pmax, dtype=tdt)
+                    torch.cuda.synchronize()
+                    err = _max_abs_err(got, want)
+                    if err:
+                        raise AssertionError(
+                            f"edge K4 {case}, B={B}, pmax={pmax}, {tdt}: "
+                            f"kernel != plain (max abs err {err})")
+                    compared += 1
+        for case in RESULT_CASES:
+            for pmax in RESULT_PMAX:
+                for tdt, ndt in dtypes:
+                    fused = torch.from_numpy(fused_rows(
+                        B * 31 + pmax, B, pmax, ndt, case)).to(device)
+                    got = compact_result(fused, pmax)
+                    want = compact_ref(fused, pmax)
+                    torch.cuda.synchronize()
+                    err = max(_max_abs_err(g, w_)
+                              for g, w_ in zip(got, want))
+                    if err:
+                        raise AssertionError(
+                            f"edge K8 {case}, B={B}, pmax={pmax}, {tdt}: "
+                            f"kernel != plain (max abs err {err})")
+                    compared += 2
+        log(f"[edge] K4 pack_paths (walks {', '.join(WALK_PACK_CASES)}) "
+            f"and K8 compact_result ({', '.join(RESULT_CASES)}) at B={B}, "
+            f"pmax {', '.join(map(str, RESULT_PMAX))}, int16 and int32 == "
+            f"plain versions (tolerance 0; {time.monotonic() - t0:.1f} s)")
     return compared
 
 
@@ -1300,9 +1372,10 @@ def main(argv=None) -> int:
                        f"{r['evaluations']}" if "evaluations" in r else "")
                     + f" per {B}-read batch (L={L}, pmax={pmax})")
 
-    # K2 and K5 on the edge batch (lane-group, window and chunk edges)
+    # K2, K3, K5 and K6 on the edge batch (lane-group, window and chunk
+    # edges), K4 and K8 at their tile and grid edges
     t0 = time.monotonic()
-    n_edge = compare_edge_batch(device)
+    n_edge = compare_edge_batch(device) + compare_result_edges(device)
     log(f"[edge] {n_edge} kernel outputs == plain versions "
         f"({time.monotonic() - t0:.1f} s)")
 

@@ -331,6 +331,19 @@ __device__ __forceinline__ int group_count(const ByteRow& r, unsigned mask) {
   return static_cast<int>(group_sum(c, mask));
 }
 
+// streaming multiprocessors of the current device (queried once per
+// device): what K4 and K8 size their grids by
+inline int sm_count() {
+  static int counts[64] = {0};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (counts[dev] == 0)
+    cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount,
+                           dev);
+  return counts[dev];
+}
+
 }  // namespace dbg
 
 // every entry point returns cudaGetLastError() right after its launch

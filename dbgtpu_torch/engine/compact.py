@@ -12,8 +12,8 @@ it rebuilds the padded rows from the counts alone, so the stable order
 is part of the format.
 
 The kernel is csrc/compact.cu (a counting sort over the counts and a
-scatter); `compact_ref` is its plain torch version (a stable argsort,
-cumulative sums and an indexed assignment).
+scatter, one cooperative launch); `compact_ref` is its plain torch
+version (a stable argsort, cumulative sums and an indexed assignment).
 """
 
 from __future__ import annotations
@@ -65,22 +65,50 @@ def compact_result(fused: torch.Tensor, pmax: int):
     return out
 
 
+def compact_scratch_ints(B: int, pmax: int) -> int:
+    """int32 scratch of K8's C entry point for B rows: (pmax + 1) x
+    (ceil(B / 256) + 1).  The one-launch kernel uses (pmax + 1) x grid of
+    it (its grid is at most one block per 256 rows); the three-pass
+    kernel of earlier trees, which a measurement may time beside it
+    through the same entry point, all of it."""
+    n_tiles = (B + build.COMPACT_TILE - 1) // build.COMPACT_TILE
+    return (pmax + 1) * (n_tiles + 1)
+
+
+# K8's scratch per (device, stream), grown as batches need: the kernel
+# reads only what it wrote in the same launch, so it needs no initial
+# value, and launches on one stream never overlap
+_scratch: dict = {}
+
+
+def _scratch_for(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (dev, stream)
+    buf = _scratch.get(key)
+    if buf is None or buf.numel() < n:
+        buf = _scratch[key] = torch.empty(n, dtype=torch.int32, device=dev)
+    return buf
+
+
 def compact_result_launch(fused: torch.Tensor, pmax: int):
-    """K8's allocation on checked CUDA tensors, its scratch included:
-    (build.Launch into the outputs, (meta, flat))."""
+    """K8's allocation on checked CUDA tensors: (build.Launch into the
+    outputs, (meta, flat)).  meta and flat are views of one allocation
+    (flat starts 16-byte aligned, as the kernel needs), the scratch is
+    kept per device and stream; fused is copied only where it does not
+    start 16-byte aligned."""
     dev = fused.device
     fused = fused.contiguous()
+    if fused.data_ptr() % 16:
+        fused = fused.clone()
     B = fused.shape[0]
-    meta = torch.empty((B, 2), dtype=fused.dtype, device=dev)
-    flat = torch.empty(B * pmax, dtype=fused.dtype, device=dev)
-    n_tiles = (B + build.COMPACT_TILE - 1) // build.COMPACT_TILE
-    scratch = torch.empty((pmax + 1) * (n_tiles + 1), dtype=torch.int32,
-                          device=dev)
+    lead = -(-2 * B // 8) * 8           # meta's elements, padded to 16 B
+    buf = torch.empty(lead + B * pmax, dtype=fused.dtype, device=dev)
+    meta, flat = buf[: 2 * B].view(B, 2), buf[lead:]
+    stream = build.stream_ptr(dev)
+    scratch = _scratch_for(dev, stream, compact_scratch_ints(B, pmax))
     launch = build.Launch("compact_result", "dbg_compact_result", (
         fused.data_ptr(), B, pmax, int(fused.dtype == torch.int16),
-        scratch.data_ptr(), meta.data_ptr(), flat.data_ptr(),
-        build.stream_ptr(dev),
-    ), (fused, meta, flat, scratch))
+        scratch.data_ptr(), meta.data_ptr(), flat.data_ptr(), stream,
+    ), (fused, buf, scratch))
     return launch, (meta, flat)
 
 

@@ -3,8 +3,9 @@
 Counterpart of dbgtpu/engine/core.py pack_paths and of the fused output
 of align_batch_packed: row b is [status, true plen, offset, reversed
 left ids, right ids], zero-padded to 2 + pmax columns, with
-plen = 1 + llen + rlen unclamped.  The kernel is csrc/pack.cu;
-`pack_ref` is its plain torch version.
+plen = 1 + llen + rlen unclamped.  The kernel is csrc/pack.cu (one
+16-byte chunk of the rows per thread); `pack_ref` is its plain torch
+version.
 """
 
 from __future__ import annotations

@@ -93,7 +93,7 @@ _ARGTYPES = {
 }
 
 MPHF_MAX_LEVELS = 25    # csrc/common.cuh; index/mphf.py build_mphf's cap
-COMPACT_TILE = 256      # csrc/compact.cu kTile: rows per block
+COMPACT_TILE = 256      # csrc/compact.cu kTile: K8's scratch unit (rows)
 
 
 class MphfMetaC(ctypes.Structure):

@@ -26,9 +26,16 @@ case reads end at different steps within one warp, and the 45 reads
 leave the last warp ragged (4 reads per warp).  The cases of CASE_NAMES
 serve K2 and K5's CPU tests, those of WALK_CASE_NAMES (all) K3 and K6's.
 
-`edge_cases()` is numpy alone (no torch, no test helper): chip_smoke.py
-holds the kernels against their plain versions on it, and the CPU tests
-hold the plain versions against the JAX package on the same cases.
+K4 (pack_paths) and K8 (compact_result) take no graph: `pack_walks`
+and `fused_rows` make their inputs at the batch sizes of
+RESULT_BATCHES (one row, K8's 256-row tile +- 1, and more tiles than
+the card holds blocks at once) and the pmax of RESULT_PMAX (rows
+narrower and wider than a warp).
+
+`edge_cases()`, `pack_walks` and `fused_rows` are numpy alone (no
+torch, no test helper): chip_smoke.py holds the kernels against their
+plain versions on them, and the CPU tests hold the plain versions
+against the JAX package on the same cases.
 """
 
 from __future__ import annotations
@@ -239,3 +246,80 @@ def edge_cases(seed: int = EDGE_SEED) -> list[EdgeCase]:
             reads = _reads(genome, k, L, E, plant_n, rng)
         out.append(EdgeCase(name, k, L, E, tuple(unitigs), tuple(reads)))
     return out
+
+
+# K4 pack_paths and K8 compact_result: rows narrower and wider than a
+# warp, batches of one row, of a tile +- 1 and of more tiles than a grid
+# holds at once.  The CPU tests take small B of these; chip_smoke.py all.
+RESULT_BATCHES = (1, 255, 256, 257, 32_768, 262_144)
+RESULT_PMAX = (3, 30, 31, 62, 120)
+RESULT_CASES = ("mixed", "unaligned", "over_pmax", "equal_counts", "full")
+WALK_PACK_CASES = ("mixed", "empty", "short", "long")
+PACK_P = 112            # walk buffer width: the survey's L (pmax 120 > P)
+
+
+def fused_rows(seed: int, B: int, pmax: int, dtype, case: str) -> np.ndarray:
+    """K8's input: result rows [B, 2 + pmax] of `dtype` as pack_paths
+    writes them (status, true plen, then plen path slots, nonzero, and a
+    zero tail).  Cases: "mixed" (every status, counts 1..pmax),
+    "unaligned" (no row holds a slot), "over_pmax" (a third of the rows
+    longer than pmax: full rows), "equal_counts" (every count 3: the
+    stable order decides), "full" (every row aligned, count pmax)."""
+    rng = np.random.default_rng(seed)
+    status = rng.choice([1, 2, 3, 4, 5], size=B, p=[.4, .3, .1, .1, .1])
+    plen = rng.integers(1, pmax + 1, size=B)
+    if case == "unaligned":
+        status = rng.choice([3, 4, 5], size=B)
+    elif case == "over_pmax":
+        # the true length exceeds the slots of the row: the row is full
+        plen[rng.random(B) < 0.3] = pmax + rng.integers(1, 40)
+    elif case == "equal_counts":
+        plen[:] = 3                      # ties everywhere: stability decides
+    elif case == "full":
+        status = rng.choice([1, 2], size=B)
+        plen[:] = pmax
+    elif case != "mixed":
+        raise ValueError(case)
+    hi = 30000 if dtype == np.int16 else 2_000_000
+    slots = rng.integers(1, hi, size=(B, pmax)) * rng.choice([-1, 1],
+                                                             size=(B, pmax))
+    aligned = (status == 1) | (status == 2)
+    live = aligned[:, None] & (np.arange(pmax)[None, :] < plen[:, None])
+    fused = np.zeros((B, 2 + pmax), dtype)
+    fused[:, 0] = status
+    fused[:, 1] = np.where(aligned, plen, 0)
+    fused[:, 2:] = np.where(live, slots, 0)
+    return fused
+
+
+def pack_walks(seed: int, B: int, case: str, P: int = PACK_P) -> dict:
+    """K4's input: the seven int32 walk outputs (engine/walk.py Walks
+    fields) of B reads, buffers [B, P] filled with nonzero ids past llen /
+    rlen too (only [:llen] and [:rlen] may reach a row).  Cases: "mixed"
+    (every status, llen and rlen in [0, P], a quarter of each 0),
+    "empty" (llen = rlen = 0: the offset alone), "short" (llen, rlen <=
+    2), "long" (llen, rlen near P: plen beyond any pmax of the set)."""
+    rng = np.random.default_rng(seed)
+    status = rng.integers(0, 6, size=B)
+    if case == "mixed":
+        llen = np.where(rng.random(B) < 0.25, 0, rng.integers(0, P + 1, B))
+        rlen = np.where(rng.random(B) < 0.25, 0, rng.integers(0, P + 1, B))
+    elif case == "empty":
+        llen = rlen = np.zeros(B, np.int64)
+    elif case == "short":
+        llen, rlen = rng.integers(0, 3, B), rng.integers(0, 3, B)
+    elif case == "long":
+        llen, rlen = rng.integers(P - 8, P + 1, B), rng.integers(P - 8, P + 1, B)
+    else:
+        raise ValueError(case)
+
+    def ids():
+        return (rng.integers(1, 30000, size=(B, P))
+                * rng.choice([-1, 1], size=(B, P))).astype(np.int32)
+
+    i32 = np.int32
+    return dict(status=status.astype(i32),
+                orient=rng.integers(0, 2, B).astype(i32),
+                offset=rng.integers(0, P, B).astype(i32),
+                llen=llen.astype(i32), rlen=rlen.astype(i32),
+                lbuf=ids(), rbuf=ids())

@@ -12,38 +12,12 @@ import torch
 
 from dbgtpu.engine import core
 from dbgtpu_torch.engine.compact import (
-    compact_counts, compact_ref, compact_result, expand_compact,
+    _scratch_for, compact_counts, compact_ref, compact_result,
+    compact_scratch_ints, expand_compact,
 )
-
-
-def _fused(seed: int, B: int, pmax: int, dtype, case: str) -> np.ndarray:
-    """Result rows [B, 2 + pmax] as pack_paths writes them: status, true
-    plen, then plen path slots (nonzero) and a zero tail."""
-    rng = np.random.default_rng(seed)
-    status = rng.choice([1, 2, 3, 4, 5], size=B, p=[.4, .3, .1, .1, .1])
-    plen = rng.integers(1, pmax + 1, size=B)
-    if case == "unaligned":
-        status = rng.choice([3, 4, 5], size=B)
-    elif case == "over_pmax":
-        # the true length exceeds the slots of the row: the row is full
-        plen[rng.random(B) < 0.3] = pmax + rng.integers(1, 40)
-    elif case == "equal_counts":
-        plen[:] = 3                      # ties everywhere: stability decides
-    elif case == "full":
-        status = rng.choice([1, 2], size=B)
-        plen[:] = pmax
-    else:
-        assert case == "mixed", case
-    hi = 30000 if dtype == np.int16 else 2_000_000
-    slots = rng.integers(1, hi, size=(B, pmax)) * rng.choice([-1, 1],
-                                                             size=(B, pmax))
-    aligned = (status == 1) | (status == 2)
-    live = aligned[:, None] & (np.arange(pmax)[None, :] < plen[:, None])
-    fused = np.zeros((B, 2 + pmax), dtype)
-    fused[:, 0] = status
-    fused[:, 1] = np.where(aligned, plen, 0)
-    fused[:, 2:] = np.where(live, slots, 0)
-    return fused
+from dbgtpu_torch.kernels.edge_batch import (
+    RESULT_BATCHES, RESULT_PMAX, fused_rows,
+)
 
 
 @pytest.mark.parametrize("dtype", [np.int16, np.int32])
@@ -55,9 +29,16 @@ def _fused(seed: int, B: int, pmax: int, dtype, case: str) -> np.ndarray:
     ("equal_counts", 130, 8),
     ("full", 40, 5),
     ("mixed", 1, 30),
+    # the kernel's tile (256 rows) +- 1, rows wider than a warp
+    ("mixed", 255, 31),
+    ("mixed", 257, 62),
+    ("over_pmax", 256, 120),
+    ("equal_counts", 257, 31),
+    ("full", 255, 62),
+    ("unaligned", 257, 120),
 ])
 def test_compact_ref_and_rebuild_match_jax(dtype, case, B, pmax):
-    fused = _fused(B * 31 + pmax, B, pmax, dtype, case)
+    fused = fused_rows(B * 31 + pmax, B, pmax, dtype, case)
     meta, flat = compact_ref(torch.from_numpy(fused), pmax)
     jmeta, jflat = core._compact_result(jnp.asarray(fused), pmax)
     assert meta.numpy().dtype == dtype and flat.numpy().dtype == dtype
@@ -99,6 +80,28 @@ def test_compact_order_is_stable_by_row_index():
 
 
 def test_compact_result_wrapper_uses_plain_version_only_on_cpu():
-    fused = torch.from_numpy(_fused(3, 8, 5, np.int16, "mixed"))
+    fused = torch.from_numpy(fused_rows(3, 8, 5, np.int16, "mixed"))
     with pytest.raises(ValueError, match="no compact_result kernel"):
         compact_result(fused.to("meta"), 5)
+
+
+def test_compact_scratch_holds_both_kernel_designs():
+    """The scratch of K8's C entry point: the three-pass kernel takes
+    (pmax + 1) x (tiles + 1) ints, the one-launch kernel (pmax + 1) x its
+    grid, at most one block per 256 rows."""
+    for B in RESULT_BATCHES:
+        for pmax in RESULT_PMAX:
+            tiles = -(-B // 256)
+            n = compact_scratch_ints(B, pmax)
+            assert n == (pmax + 1) * (tiles + 1)
+            assert n >= (pmax + 1) * tiles + (pmax + 1)
+
+
+def test_compact_scratch_is_kept_per_device_and_stream():
+    dev = torch.device("cpu")
+    a = _scratch_for(dev, 0, 100)
+    assert a.dtype == torch.int32 and a.numel() == 100
+    assert _scratch_for(dev, 0, 60) is a            # reused, not shrunk
+    b = _scratch_for(dev, 0, 300)                   # grown
+    assert b.numel() == 300 and _scratch_for(dev, 0, 100) is b
+    assert _scratch_for(dev, 1, 10) is not b        # another stream
