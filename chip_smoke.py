@@ -47,15 +47,19 @@ its own kernel), then:
      it is timed on the stored keys of each survey table, the shape the
      main path gives it (the check of a table at upload), through its
      wrapper and alone (back-to-back launches through the C entry point).
-     The gather kernels K9 gather_rows (G=1 and G=8), K10 gather_rowsum,
      K11 gather_rows_sum and K12 gather_take_sum against their plain
-     versions at the full geometries of the experiment scripts
-     (dbgtpu_torch/tools/exp_gather.py "scripts"), each timed alone
-     (back-to-back launches through its C entry point) and through its
-     wrapper, beside the one PyTorch gather that computes the same
-     function; then
-     `tools.exp_gather.main()` itself, the entry point that runs them
-     (counts set to 0 just before, each of the four launched > 0 times);
+     versions at the edges of their plan (kernels/edge_batch.py
+     gather_edges: direct and bucketed paths, B = 1, J = 1 to 128, slice
+     and switch edges, one bucket, 64-bit entries, unaligned tables,
+     indices outside the table; reps 0, 1, 8).  Then `tools.exp_gather.main()`, the entry point of
+     the gather kernels (counts set to 0 just before, each of the four
+     launched > 0 times): K9 gather_rows (G=1 and G=8), K10
+     gather_rowsum, K11 and K12 against their plain versions and the one
+     PyTorch gather that computes the same function at the "scripts" and
+     "beyond_l2" geometries (dbgtpu_torch/tools/exp_gather.py), each
+     timed alone (back-to-back launches through its C entry point; with
+     `--baseline-csrc` in turns with DIR's) and through its wrapper; K11
+     and K12 with their plan and, bucketed, each pass alone;
   3. maps the survey workload (2 Mbp genome, ~30.7k unitigs of 40-150
      bp, 131,072 reads of 100 bp, k=31, m=2, e=2, batch 32,768) through
      `dbgtpu_torch.cli.main` in greedy mode, with -G and with -b, under
@@ -86,7 +90,8 @@ its own kernel), then:
      run and that run's batch timings, and `<kernel>@mphf` entries for
      K2, K3, walk_inits, K5 and K6 with the launches of the
      `--index-layout mphf` runs and the timings on the mphf index; K9-K12
-     carry the launches of the `tools.exp_gather.main()` run.
+     carry the launches of the `tools.exp_gather.main()` run and their
+     "scripts" timings.
 Any failure raises, and the script exits non-zero without a result.
 
 Bounds.  `bound_ms` is the larger of bytes / 3.35e12 B/s (the H100's
@@ -1093,27 +1098,95 @@ def compare_mphf(label, mphf, device, extra_keys, timed: bool):
     return res
 
 
-def compare_gathers(device):
-    """K9-K12 against their plain versions at the experiment scripts'
-    full geometries (exact), each timed alone beside its plain version
-    and the one PyTorch gather computing the same function
-    (tools/exp_gather.py run).  Returns {kernel name: result dict}; K9's
-    entry is its G=1 run."""
-    from dbgtpu_torch.tools import exp_gather
+def compare_gather_edges(device) -> int:
+    """K11 gather_rows_sum (rows of 16 words) and K12 gather_take_sum
+    against their plain versions on CUDA inputs at the edges of their
+    plan (kernels/edge_batch.py gather_edges, at every reps of
+    GATHER_REPS), exact; the plain version takes the indices the kernels
+    take (an index outside the table as its last row: `in_table`).
+    Returns the number of comparisons."""
+    import numpy as np
+    import torch
+
+    from dbgtpu_torch.engine import gather as G
+    from dbgtpu_torch.kernels.edge_batch import (
+        GATHER_REPS, gather_edge_inputs, gather_edges,
+    )
+
+    sms, optin = G._card_of(device)
+    compared = 0
+    for label, W, wrapper, plain in (
+            ("K11 gather_rows_sum", 16, G.gather_rows_sum,
+             G.gather_rows_sum_ref),
+            ("K12 gather_take_sum", 1, G.gather_take_sum,
+             G.gather_take_sum_ref)):
+        t0 = time.monotonic()
+        direct_max = G.direct_rows_max(W, optin)
+        S = G.gather_plan(direct_max + 1, W, 300, 128, sms, optin).S
+        paths = set()
+        for n, case in enumerate(gather_edges(direct_max, S)):
+            buf, idx_np = gather_edge_inputs(SEED + n, case, W, S)
+            words = torch.from_numpy(buf.view(np.int32)).to(device)
+            tbl = words[case.offset:]
+            tbl = tbl.view(case.NB, W) if W > 1 else tbl
+            idx = torch.from_numpy(idx_np).to(device)
+            plan = G.plan_for(tbl, idx)
+            paths.add("direct" if plan.direct
+                      else f"bucketed ({plan.entry_bits}-bit entries)")
+            for reps in GATHER_REPS:
+                got = wrapper(tbl, idx, reps)
+                want = plain(tbl, G.in_table(idx, case.NB), reps)
+                torch.cuda.synchronize()
+                err = _max_abs_err(got, want)
+                if err:
+                    raise AssertionError(
+                        f"edge {label} {case.name} (NB={case.NB}, B={case.B}"
+                        f", J={case.J}, reps={reps}): kernel != plain (max "
+                        f"abs err {err})")
+                compared += 1
+        log(f"[edge] {label}: {len(gather_edges(direct_max, S))} cases "
+            f"(direct up to {direct_max} rows, slices of {S}; "
+            f"{', '.join(sorted(paths))}) at reps "
+            f"{', '.join(map(str, GATHER_REPS))} == plain versions "
+            f"(tolerance 0; {time.monotonic() - t0:.1f} s)")
+    return compared
+
+
+def report_gathers(results) -> dict:
+    """Log K9-K12's results of one `tools.exp_gather.main()` run (both
+    geometries: equal to the plain version and to the one PyTorch gather
+    computing the same function, timed alone beside them; K11 and K12
+    with their plan and, bucketed, each pass alone).  Returns {kernel
+    name: result dict} of the "scripts" geometry; K9's entry is its G=1
+    run."""
+    from dbgtpu_torch.tools.exp_gather import plan_line
 
     out = {}
-    for r in exp_gather.run("scripts", device, timed=True):
-        log(f"[kernel] {r['label']}: == plain version (max abs err "
-            f"{r['max_abs_err']}, tolerance 0) and == the library call; "
-            f"kernel alone {r['ms']:.4f} ms (50 back-to-back launches "
+    for r in results:
+        if "plan" in r:
+            log(f"[kernel] {r['geometry']} {r['label']} plan: "
+                f"{plan_line(r['plan'])}"
+                + ("; passes alone (50 back-to-back launches each) "
+                   + ", ".join(f"{k} {v:.4f} ms"
+                               for k, v in r["pass_ms"].items())
+                   if "pass_ms" in r else ""))
+        log(f"[kernel] {r['geometry']} {r['label']}: == plain version (max "
+            f"abs err {r['max_abs_err']}, tolerance 0) and == the library "
+            f"call; kernel alone {r['ms']:.4f} ms (50 back-to-back launches "
             f"through the C entry point, {r['rows'] / r['ms'] / 1e3:.0f}M "
-            f"rows/s), one launch through the wrapper "
+            f"rows/s)"
+            + (f", baseline kernel alone {r['baseline_ms']:.4f} ms (turns "
+               f"baseline, this, this, baseline: "
+               + ", ".join(f"{t:.4f}" for t in r["turns_ms"]) + ")"
+               if "baseline_ms" in r else "")
+            + f", one launch through the wrapper "
             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library call {r['library_ms']:.4f} ms "
             f"({r['library_ms'] / r['ms']:.2f}x the kernel's time), bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {r['bound_bytes']} B, "
             f"{r['bound_ops']} operations)")
-        out.setdefault(r["name"], dict(r, alone_ms=r["ms"]))
+        if r["geometry"] == "scripts":
+            out.setdefault(r["name"], dict(r, alone_ms=r["ms"]))
     return out
 
 
@@ -1254,8 +1327,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--baseline-csrc", metavar="DIR",
                     help="also build the kernels of DIR (another tree's "
-                         "dbgtpu_torch/csrc) and time each mapping kernel "
-                         "alone beside this tree's, in turns")
+                         "dbgtpu_torch/csrc) and time each kernel alone "
+                         "beside this tree's, in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1411,19 +1484,27 @@ def main(argv=None) -> int:
     compare_mphf("the survey anchor MPHF, its stored keys", ma.mphf, device,
                  table_keys(ma.arows), True)
 
-    # K9-K12 at the experiment scripts' geometries, then the entry point
-    # that runs them, with its launches
+    # K11 and K12 at the edges of their plan; then K9-K12 through the
+    # entry point that runs them (both geometries, timed), with its
+    # launches
+    t0 = time.monotonic()
+    n_edge = compare_gather_edges(device)
+    log(f"[edge] {n_edge} gather outputs == plain versions "
+        f"({time.monotonic() - t0:.1f} s)")
     from dbgtpu_torch.tools import exp_gather
 
-    gather_results = compare_gathers(device)
     build.reset_launches()
     t0 = time.monotonic()
-    rc = exp_gather.main([])
+    exp_results = []
+    rc = exp_gather.main(
+        ["--baseline-csrc", args.baseline_csrc] if args.baseline_csrc
+        else [], results=exp_results)
     gather_launches = dict(build.launches)
     if rc != 0:
         raise AssertionError(f"tools.exp_gather.main exited {rc}")
     log(f"[gather] python -m dbgtpu_torch.tools.exp_gather: "
         f"{time.monotonic() - t0:.1f} s, launches {gather_launches}")
+    gather_results = report_gathers(exp_results)
     for name, _, _ in GATHER_KERNELS:
         if gather_launches[name] <= 0:
             raise AssertionError(f"exp_gather did not launch {name}")

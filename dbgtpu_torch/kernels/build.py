@@ -88,8 +88,9 @@ _ARGTYPES = {
     "dbg_compact_result": [_P, _I, _I, _I, _P, _P, _P, _P],
     "dbg_gather_rows": [_P, _P, _LL, _I, _I, _P, _P],
     "dbg_gather_rowsum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "dbg_gather_rows_sum": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dbg_gather_rows_sum": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I,
+                            _P, _P],
+    "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
 }
 
 MPHF_MAX_LEVELS = 25    # csrc/common.cuh; index/mphf.py build_mphf's cap
@@ -132,6 +133,13 @@ class IndexC(ctypes.Structure):
         ("jl_mphf", ctypes.c_int32), ("al_mphf", ctypes.c_int32),
         ("jm", MphfC), ("am", MphfC),
     ]
+
+
+class GatherPlanC(ctypes.Structure):
+    """csrc/gather.cu GatherPlan (engine/gather.py GatherPlan)."""
+    _fields_ = [(f, ctypes.c_int32) for f in (
+        "S", "sbits", "P", "share", "grid", "threads", "entry64", "tiles",
+        "tile", "smem", "scatter_smem", "buf_words", "acc")]
 
 
 _lib: ctypes.CDLL | None = None
@@ -282,8 +290,11 @@ def _open(path: Path) -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.dbg_error_string.argtypes = [ctypes.c_int]
     lib.dbg_error_string.restype = ctypes.c_char_p
-    for fn, ours in ((lib.dbg_sizeof_index, IndexC),
-                     (lib.dbg_sizeof_mphf_meta, MphfMetaC)):
+    sizes = [(lib.dbg_sizeof_index, IndexC),
+             (lib.dbg_sizeof_mphf_meta, MphfMetaC)]
+    if hasattr(lib, "dbg_sizeof_gather_plan"):   # not in older sources
+        sizes.append((lib.dbg_sizeof_gather_plan, GatherPlanC))
+    for fn, ours in sizes:
         fn.argtypes, fn.restype = [], ctypes.c_int
         if fn() != ctypes.sizeof(ours):
             raise RuntimeError(

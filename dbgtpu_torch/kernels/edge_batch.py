@@ -323,3 +323,77 @@ def pack_walks(seed: int, B: int, case: str, P: int = PACK_P) -> dict:
                 offset=rng.integers(0, P, B).astype(i32),
                 llen=llen.astype(i32), rlen=rlen.astype(i32),
                 lbuf=ids(), rbuf=ids())
+
+
+# K11 gather_rows_sum and K12 gather_take_sum: the edges of their plan
+# (engine/gather.py gather_plan) for rows of W words, where tables of up
+# to `direct_max` rows take the direct path and larger ones slices of S
+# rows.  Each case runs at every reps of GATHER_REPS.
+GATHER_REPS = (0, 1, 8)
+
+
+@dataclass(frozen=True)
+class GatherEdge:
+    name: str
+    NB: int             # table rows (K12: words)
+    B: int
+    J: int
+    pattern: str = "uniform"   # "one_slice": every index in slice 2;
+    #                            "ends": only rows 0 and NB - 1;
+    #                            "out_of_range": a quarter of them outside
+    #                            [0, NB) (taken as NB - 1)
+    offset: int = 0     # the table starts this many words into its buffer
+
+
+def gather_edges(direct_max: int, S: int) -> list[GatherEdge]:
+    """B = 1 and J = 1, 31, 33, 128 on both paths; NB = 1; NB one above
+    and one below a multiple of the slice and on both sides of the direct
+    / bucketed switch; one bucket taking every entry; indices 0 and NB - 1
+    only; B too large for a shared-memory copy of out; entries of 64 bits
+    (B * S > 2^32); tables off a 16-byte boundary on both paths; indices
+    outside the table (NB, NB + 1, -1, the int32 extremes) on both
+    paths."""
+    m = direct_max // S + 2             # m * S rows: bucketed, m + 1 slices
+    sizes = (("direct", direct_max // 2), ("bucketed", m * S + 1))
+    return [
+        *(GatherEdge(f"B1_{path}", nb, 1, 128) for path, nb in sizes),
+        *(GatherEdge(f"J{J}_{path}", nb, 257, J)
+          for path, nb in sizes for J in (1, 31, 33, 128)),
+        GatherEdge("NB1", 1, 64, 33),
+        GatherEdge(f"NB{m}S-1", m * S - 1, 300, 128),
+        GatherEdge(f"NB{m}S+1", m * S + 1, 300, 128),
+        GatherEdge("direct_max", direct_max, 300, 128),
+        GatherEdge("direct_max+1", direct_max + 1, 300, 128),
+        GatherEdge("one_slice", m * S, 500, 128, "one_slice"),
+        GatherEdge("ends", m * S + 5, 300, 128, "ends"),
+        GatherEdge("out_beyond_shared", m * S + 1, 50_000, 3),
+        GatherEdge("entries64", m * S + 1, (1 << 32) // S + 1, 1),
+        *(GatherEdge(f"unaligned_{path}", nb, 300, 33, offset=1 + 2 * i)
+          for i, (path, nb) in enumerate(sizes)),
+        *(GatherEdge(f"out_of_range_{path}", nb, 300, 33, "out_of_range")
+          for path, nb in sizes),
+    ]
+
+
+def gather_edge_inputs(seed: int, case: GatherEdge, W: int, S: int):
+    """(buffer, idx): uint32 words [offset + NB * W] whose table is
+    buffer[offset:] viewed as [NB, W] (K12: W = 1, [NB]), and int32
+    indices [B, J] of the case's pattern."""
+    rng = np.random.default_rng(seed)
+    buf = rng.integers(0, 1 << 32, size=case.offset + case.NB * W,
+                       dtype=np.uint64).astype(np.uint32)
+    shape = (case.B, case.J)
+    if case.pattern == "one_slice":
+        idx = rng.integers(2 * S, 3 * S, size=shape)
+    elif case.pattern == "ends":
+        idx = np.where(rng.random(shape) < 0.5, 0, case.NB - 1)
+    elif case.pattern == "uniform":
+        idx = rng.integers(0, case.NB, size=shape)
+    elif case.pattern == "out_of_range":
+        stray = np.array([case.NB, case.NB + 1, -1, (1 << 31) - 1, -1 << 31])
+        idx = np.where(rng.random(shape) < 0.25,
+                       stray[rng.integers(0, stray.size, size=shape)],
+                       rng.integers(0, case.NB, size=shape))
+    else:
+        raise ValueError(case.pattern)
+    return buf, idx.astype(np.int32)

@@ -4,6 +4,8 @@ scripts/archive/exp_pallas_gather.py, asked of one NVIDIA GPU.
 
     python -m dbgtpu_torch.tools.exp_gather [--device cpu]
                                             [--geometries scripts,beyond_l2]
+                                            [--baseline-csrc DIR]
+                                            [--turns N]
 
 Runs the four gather kernels K9-K12 (engine/gather.py, csrc/gather.cu) on
 inputs made from numpy `default_rng(7)`:
@@ -17,7 +19,14 @@ inputs made from numpy `default_rng(7)`:
   beyond_l2  the same index counts into tables far beyond the L2: 2^22
              rows x 24 words (403 MB; K9, K10), 2^22 rows x 16 words
              (268 MB; K11) and 2^22 words (16.8 MB, more than a block's
-             shared memory, so K12 gathers through the L2).
+             shared memory).
+
+K11 and K12 gather from shared memory under a plan (engine/gather.py
+gather_plan): the table whole in every block where it fits one (K12 at
+"scripts"), else cut into slices with the indices bucketed per slice
+first.  On a CUDA device a line before each of their results gives the
+plan and, for a bucketed plan, the time of each pass alone (count; scan
+and scatter; gather: each 50 back-to-back launches of that pass alone).
 
 Each kernel must equal its plain torch version exactly (integers,
 tolerance 0).  On a CUDA device each is then timed beside its plain
@@ -29,14 +38,20 @@ allocated once, which must equal the wrapper's result; one call through
 the wrapper, with its checks and allocations, is printed beside it.  The
 rows per second of kernel and library call count the function's rows
 once on both sides (K11 and K12 read them 8 times over), and the bound
-is printed last.  With `--device cpu` the wrappers take their plain
-versions and only the control flow is checked: a small geometry, no
-timing.
+is printed last.  `--baseline-csrc DIR` builds the kernels of DIR (another
+tree's dbgtpu_torch/csrc, older K11 / K12 entry points included) and
+times them alone in turns with these (baseline, this, this, baseline).
+`--turns N` times each kernel alone and its library call in N pairs of
+turns (kernel first in even pairs, the library call first in odd ones)
+and prints how many pairs the kernel won, with the spread of both.
+With `--device cpu` the wrappers take their plain versions and only the
+control flow is checked: a small geometry, no timing.
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import sys
 
 import numpy as np
@@ -94,12 +109,44 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# K11 and K12 in kernel sources from before the slice plan (what
+# --baseline-csrc may name): one pass, no plan and no scratch
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SINGLE_PASS_ARGTYPES = {
+    "dbg_gather_rows_sum": [_P, _P, _I, _I, _I, _I, _P, _P],
+    "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+}
+
+
+def _single_pass(lib, entry: str, tbl, idx, out):
+    """launch(): `entry` of an older library, which took (tbl, idx, B, J,
+    W, reps, out, stream) for K11 and (tbl1, NB, idx, B, J, reps, blocks,
+    shared memory limit, out, stream) for K12."""
+    from ..engine import gather as G
+    from ..kernels import build
+
+    fn = lib[entry]                  # a fresh binding: its own argtypes
+    fn.argtypes, fn.restype = _SINGLE_PASS_ARGTYPES[entry], ctypes.c_int
+    B, J = idx.shape
+    stream = build.stream_ptr(idx.device)
+    if entry == "dbg_gather_rows_sum":
+        args = (tbl.data_ptr(), idx.data_ptr(), B, J, tbl.shape[1], REPS,
+                out.data_ptr(), stream)
+    else:
+        sms, smem = G._card_of(idx.device)
+        args = (tbl.data_ptr(), tbl.shape[0], idx.data_ptr(), B, J, REPS,
+                sms, smem, out.data_ptr(), stream)
+    return lambda: build.check(fn(*args), entry)
+
+
 def cases(inp: dict) -> list[dict]:
     """One entry per kernel run on `inp`: its wrapper, plain version and
-    library call; `alone()` -> (launch, out), the bare C entry point on
-    outputs allocated once (CUDA only); the rows of the function; and the
-    cost that bounds it (`bound`: bytes streamed once, bytes of table
-    rows touched, the table's bytes, integer operations)."""
+    library call; `alone(lib=None)` -> (launch, out), the bare C entry
+    point of `lib` (default: this tree's kernels) on outputs and scratch
+    allocated once (CUDA only); K11 and K12 also their `plan()`; the rows
+    of the function; and the cost that bounds it (`bound`: bytes streamed
+    once, bytes of table rows touched, the table's bytes, integer
+    operations)."""
     import torch
 
     from ..engine import gather as G
@@ -117,35 +164,40 @@ def cases(inp: dict) -> list[dict]:
     def empty(*shape):
         return torch.empty(shape, dtype=i32, device=idx.device)
 
-    def alone_rows(ix, g):
+    def alone_rows(ix, g, lib=None):
         out = empty(ix.shape[0] * g, W)
-        return (lambda: G.launch_gather_rows(tbl, ix, g, out)), out
+        return (lambda: G.launch_gather_rows(tbl, ix, g, out, lib)), out
 
-    def alone_rowsum():
+    def alone_rowsum(lib=None):
         split = G.rowsum_split(N // CH, CH, idx.device)
         part = empty(N // CH * split if split > 1 else 0)
         out = empty(N // CH, 1)
         return (lambda: G.launch_gather_rowsum(tbl, idx, CH, split, part,
-                                               out)), out
+                                               out, lib)), out
 
-    def alone_rows_sum():
+    def alone_sum(entry, t, ix, lib=None):
+        """K11 / K12 alone: launch(passes) through `lib`'s entry point
+        (passes: one of plan.passes(), for that pass alone), its
+        arguments bound once."""
         out = empty(B)
-        return (lambda: G.launch_gather_rows_sum(tbl2, idx2, REPS, out)), out
-
-    def alone_take_sum():
-        out = empty(B)
-        return (lambda: G.launch_gather_take_sum(tbl1, idx1, REPS, out)), out
+        if lib is not None and not hasattr(lib, "dbg_sizeof_gather_plan"):
+            return _single_pass(lib, entry, t, ix, out), out
+        plan = G.plan_for(t, ix)
+        scratch = G.gather_scratch(plan, ix)
+        go = {bit: G.sum_launch(t, ix, REPS, out, plan, *scratch, bit)
+              for bit in (G.ALL_PASSES, *plan.passes().values())}
+        return (lambda passes=G.ALL_PASSES: go[passes](lib)), out
 
     return [
         dict(name="gather_rows", label="K9 gather_rows G=1",
              kernel=lambda: G.gather_rows(tbl, idx, 1),
-             alone=lambda: alone_rows(idx, 1),
+             alone=lambda lib=None: alone_rows(idx, 1, lib),
              plain=lambda: G.gather_rows_ref(tbl, idx, 1),
              library=lambda: tbl[i64], rows=N,
              bound=(nbytes(idx) + N * W * 4, N * W * 4, nbytes(tbl), 0)),
         dict(name="gather_rows", label="K9 gather_rows G=8",
              kernel=lambda: G.gather_rows(tbl, idx8, 8),
-             alone=lambda: alone_rows(idx8, 8),
+             alone=lambda lib=None: alone_rows(idx8, 8, lib),
              plain=lambda: G.gather_rows_ref(tbl, idx8, 8),
              library=lambda: tbl_blocks[i8_64], rows=N8,
              bound=(nbytes(idx8) + N8 * W * 4, N8 * W * 4, nbytes(tbl), 0)),
@@ -160,7 +212,9 @@ def cases(inp: dict) -> list[dict]:
                     N * W)),
         dict(name="gather_rows_sum", label=f"K11 gather_rows_sum x{REPS}",
              kernel=lambda: G.gather_rows_sum(tbl2, idx2, REPS),
-             alone=alone_rows_sum,
+             alone=lambda lib=None: alone_sum("dbg_gather_rows_sum", tbl2,
+                                              idx2, lib),
+             plan=lambda: G.plan_for(tbl2, idx2),
              plain=lambda: G.gather_rows_sum_ref(tbl2, idx2, REPS),
              library=lambda: tbl2[i2_64].sum((1, 2), dtype=i32) * REPS,
              rows=B * J,
@@ -168,7 +222,9 @@ def cases(inp: dict) -> list[dict]:
                     REPS * B * J * W2)),
         dict(name="gather_take_sum", label=f"K12 gather_take_sum x{REPS}",
              kernel=lambda: G.gather_take_sum(tbl1, idx1, REPS),
-             alone=alone_take_sum,
+             alone=lambda lib=None: alone_sum("dbg_gather_take_sum", tbl1,
+                                              idx1, lib),
+             plan=lambda: G.plan_for(tbl1, idx1),
              plain=lambda: G.gather_take_sum_ref(tbl1, idx1, REPS),
              library=lambda: tbl1[i1_64].sum(1, dtype=i32) * REPS,
              rows=B * J,
@@ -177,9 +233,17 @@ def cases(inp: dict) -> list[dict]:
     ]
 
 
-def run(geometry: str, device, timed: bool) -> list[dict]:
+def run(geometry: str, device, timed: bool, baseline=None,
+        turns: int = 0) -> list[dict]:
     """Every kernel on one geometry: equal to its plain version, or an
-    AssertionError; timed on a CUDA device when `timed`."""
+    AssertionError; timed on a CUDA device when `timed`: alone, through
+    the wrapper, plain and the library call, and for a bucketed K11 / K12
+    plan each pass alone (`pass_ms`).  With `baseline` (a kernel library
+    of other sources, kernels.build.load_from) its kernels are timed
+    alone too, in turns with these (baseline, this, this, baseline), and
+    their outputs must equal the plain version's as well.  With `turns`,
+    the kernel alone and the library call also in that many pairs of
+    turns (`library_turns`: [(kernel ms, library ms)])."""
     import torch
 
     results = []
@@ -199,14 +263,41 @@ def run(geometry: str, device, timed: bool) -> list[dict]:
                    plain_ms=None, library_ms=None,
                    bound_bytes=stream + min(touched, table), bound_ops=ops)
         res["bound_ms"], res["bound_by"] = bound_ms(*case["bound"])
+        if "plan" in case and torch.device(device).type == "cuda":
+            res["plan"] = case["plan"]()
         if timed:
             launch, out = case["alone"]()
-            res["ms"] = cuda_ms(launch, 5, launches=50)
-            if not torch.equal(out, want):
-                raise AssertionError(
-                    f"{case['label']} on {geometry}: the kernel through its "
-                    "C entry point differs from its plain version")
-            del launch, out
+            outs = [(out, "the kernel")]
+            if baseline is None:
+                res["ms"] = cuda_ms(launch, 5, launches=50)
+            else:
+                base, base_out = case["alone"](baseline)
+                outs.append((base_out, "the baseline kernel"))
+                times = [cuda_ms(f, 5, launches=50)
+                         for f in (base, launch, launch, base)]
+                res.update(ms=(times[1] + times[2]) / 2,
+                           baseline_ms=(times[0] + times[3]) / 2,
+                           turns_ms=times)
+            if "plan" in res and not res["plan"].direct:
+                res["pass_ms"] = {
+                    name: cuda_ms(lambda bit=bit: launch(bit), 5, launches=50)
+                    for name, bit in res["plan"].passes().items()}
+                launch()            # the passes alone leave out unfinished
+            pairs = []
+            for k in range(turns):
+                order = ((launch, 50), (case["library"], 1))
+                ms = {f: cuda_ms(f, 5, launches=n)
+                      for f, n in (order if k % 2 == 0 else order[::-1])}
+                pairs.append((ms[launch], ms[case["library"]]))
+            if pairs:
+                res["library_turns"] = pairs
+            torch.cuda.synchronize()
+            for o, who in outs:
+                if not torch.equal(o, want):
+                    raise AssertionError(
+                        f"{case['label']} on {geometry}: {who} through its "
+                        "C entry point differs from its plain version")
+            del launch, out, outs
             res["wrapper_ms"] = cuda_ms(case["kernel"], 20)
             res["plain_ms"] = cuda_ms(case["plain"], 3)
             res["library_ms"] = cuda_ms(case["library"], 5)
@@ -214,7 +305,19 @@ def run(geometry: str, device, timed: bool) -> list[dict]:
     return results
 
 
-def main(argv: list[str] | None = None) -> int:
+def plan_line(plan) -> str:
+    """A K11 / K12 plan in words."""
+    if plan.direct:
+        return (f"direct: the table staged whole by each of {plan.grid} "
+                f"blocks of {plan.threads}")
+    return (f"bucketed: {plan.P} slices of {plan.S} rows, {plan.share} work "
+            f"item(s) per slice, {plan.grid} blocks of {plan.threads}, "
+            f"{plan.entry_bits}-bit entries, {plan.tiles} count tiles")
+
+
+def main(argv: list[str] | None = None, results: list | None = None) -> int:
+    """The command line; `results`, when given, receives every result
+    dict of the run (what chip_smoke.py reports)."""
     import torch
 
     ap = argparse.ArgumentParser(
@@ -225,6 +328,13 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument("--geometries", default=None,
                     help="comma separated (scripts,beyond_l2 on a GPU; "
                          "small on the CPU)")
+    ap.add_argument("--baseline-csrc", metavar="DIR",
+                    help="also build the kernels of DIR (another tree's "
+                         "dbgtpu_torch/csrc) and time them alone in turns "
+                         "with these (CUDA only)")
+    ap.add_argument("--turns", type=int, default=0, metavar="N",
+                    help="also time each kernel alone and its library call "
+                         "in N pairs of turns (CUDA only)")
     args = ap.parse_args(argv)
     device = torch.device(args.device)
     on_gpu = device.type == "cuda"
@@ -232,11 +342,20 @@ def main(argv: list[str] | None = None) -> int:
         print("exp_gather: no CUDA device is available; pass --device cpu "
               "for the plain versions on a small geometry", file=sys.stderr)
         return 1
+    if (args.baseline_csrc or args.turns) and not on_gpu:
+        ap.error("--baseline-csrc and --turns need a CUDA device")
     names = (args.geometries.split(",") if args.geometries
              else ["scripts", "beyond_l2"] if on_gpu else ["small"])
     for name in names:
         if name not in GEOMETRIES:
             ap.error(f"unknown geometry {name!r}")
+    baseline = None
+    if args.baseline_csrc:
+        from pathlib import Path
+
+        from ..kernels import build
+
+        baseline = build.load_from(Path(args.baseline_csrc))
     if on_gpu:
         print(f"device {torch.cuda.get_device_name(device)}")
     for name in names:
@@ -245,7 +364,13 @@ def main(argv: list[str] | None = None) -> int:
               f"({g['NB'] * g['W'] * 4 >> 20} MB), {g['N']} gathers; "
               f"{g['B']} x {g['J']} indices into {g['NB2']} x {g['W2']} "
               f"words and into {g['NB1']} words")
-        for r in run(name, device, timed=on_gpu):
+        for r in run(name, device, timed=on_gpu, baseline=baseline,
+                     turns=args.turns):
+            if "plan" in r:
+                print(f"[{name}] {r['label']:<28} plan: {plan_line(r['plan'])}"
+                      + ("; passes alone " + ", ".join(
+                          f"{k} {v:.4f} ms" for k, v in r["pass_ms"].items())
+                         if "pass_ms" in r else ""))
             line = f"[{name}] {r['label']:<28} == plain version (exact)"
             if r["ms"] is not None:
                 line += (
@@ -259,7 +384,21 @@ def main(argv: list[str] | None = None) -> int:
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
                     f"{r['bound_bytes']} B, {r['bound_ops']} operations; the "
                     f"kernel takes {r['ms'] / r['bound_ms']:.2f}x its bound)")
+            if "baseline_ms" in r:
+                line += (f"; baseline kernel alone {r['baseline_ms']:.4f} ms "
+                         f"(turns baseline, this, this, baseline: "
+                         + ", ".join(f"{t:.4f}" for t in r["turns_ms"]) + ")")
             print(line, flush=True)
+            if "library_turns" in r:
+                k_ms, l_ms = zip(*r["library_turns"])
+                won = sum(k < lib for k, lib in r["library_turns"])
+                print(f"[{name}] {r['label']:<28} kernel alone vs library "
+                      f"call in {len(k_ms)} pairs of turns: the kernel is "
+                      f"faster in {won}; kernel {min(k_ms):.4f}-"
+                      f"{max(k_ms):.4f} ms, library {min(l_ms):.4f}-"
+                      f"{max(l_ms):.4f} ms", flush=True)
+            if results is not None:
+                results.append(r)
     return 0
 
 

@@ -304,3 +304,219 @@ def test_exp_gather_bounds_count_what_the_function_needs():
         335, 3015, 3015, 0)
     ms, by = measure.bound_ms(335, 10 ** 9, 3015, 0)
     assert by == "bytes" and abs(ms - 1e-6) < 1e-15
+
+
+# ---- K11 / K12: the plan and the bucketed schedule -----------------------
+
+H100 = dict(sms=132, smem_optin=232448)   # torch.cuda.get_device_properties
+
+
+def bucketed_schedule(tbl, idx, reps, plan):
+    """The bucketed path of csrc/gather.cu in plain torch, step by step:
+    (a) count the indices of each tile per slice; (b) scan the counts
+    and scatter each index as one entry (b, slice-local row) into
+    slice-major order, tile by tile; (c) take each entry's row from its
+    slice `reps` times over and add the sums per b (mod 2^32).  An index
+    outside the table is taken as its last row, as on the card.  Returns
+    (out, entries, start)."""
+    B, J = idx.shape
+    S, N = plan.S, idx.numel()
+    flat = G.in_table(idx, tbl.shape[0]).reshape(-1).to(torch.int64)
+    p = flat >> plan.sbits
+    pos = torch.arange(N)
+    tile = pos // plan.tile
+    assert N == 0 or int(tile.max()) < plan.tiles
+    hist = torch.zeros(plan.tiles, plan.P, dtype=torch.int64)
+    hist.index_put_((tile, p), torch.ones(N, dtype=torch.int64),
+                    accumulate=True)
+    rel = hist.cumsum(0) - hist                   # earlier tiles' entries
+    start = torch.cat([torch.zeros(1, dtype=torch.int64),
+                       hist.sum(0).cumsum(0)])
+    # a tile's entries of one slice land at start[p] + rel[tile, p] + rank
+    order = torch.argsort(p * plan.tiles + tile, stable=True)
+    rank = torch.empty(N, dtype=torch.int64)
+    rank[order] = torch.arange(N)
+    within = rank - start[p] - rel[tile, p]
+    assert bool(((within >= 0) & (within < hist[tile, p])).all())
+    b, row = pos // J, flat & (S - 1)
+    shift = 32 if plan.entry_bits == 64 else plan.sbits
+    entries = ((b << shift) | row)[order]
+    # (c) slice by slice: the entries of slice q are start[q]:start[q+1]
+    out = torch.zeros(B, dtype=torch.int64)
+    for q in range(plan.P):
+        e = entries[start[q]:start[q + 1]]
+        eb, erow = e >> shift, e & ((1 << shift) - 1)
+        table = tbl[q * S:(q + 1) * S].to(torch.int64) & G.M32
+        acc = torch.zeros(e.numel(), dtype=torch.int64)
+        for _ in range(reps):                 # every round gathers again
+            t = table[erow]
+            acc += t.sum(1) if t.dim() == 2 else t
+        out.index_add_(0, eb, acc)
+    return G._wrap32(out), entries, start
+
+
+def small_plan(tbl, idx):
+    """A bucketed plan at the test's small sizes: a card with little
+    shared memory."""
+    B, J = idx.shape
+    W = tbl.shape[1] if tbl.dim() == 2 else 1
+    plan = G.gather_plan(tbl.shape[0], W, B, J, sms=4,
+                         smem_optin=G.STATIC_SMEM + (256 if W > 1 else 128))
+    assert not plan.direct and plan.P > 1
+    return plan
+
+
+@pytest.mark.parametrize("entry_bits", [32, 64])
+def test_bucketed_schedule_equals_plain_and_pallas(entry_bits):
+    import dataclasses
+
+    tbl, tbl1, idx = _archive_inputs(21)
+    for t, pallas, ref in ((tbl, pallas_rows_sum, G.gather_rows_sum_ref),
+                           (tbl1, pallas_take_sum, G.gather_take_sum_ref)):
+        plan = dataclasses.replace(small_plan(t32(t), t32(idx)),
+                                   entry_bits=entry_bits)
+        got, entries, start = bucketed_schedule(t32(t), t32(idx), REPS, plan)
+        assert entries.numel() == idx.size and int(start[-1]) == idx.size
+        np.testing.assert_array_equal(as_u32(got),
+                                      as_u32(ref(t32(t), t32(idx), REPS)))
+        np.testing.assert_array_equal(as_u32(got), pallas(t, idx)[:, 0])
+        for reps in (0, 1):
+            got, _, _ = bucketed_schedule(t32(t), t32(idx), reps, plan)
+            np.testing.assert_array_equal(
+                as_u32(got), as_u32(ref(t32(t), t32(idx), reps)))
+
+
+# (name, NB, W, B, J): direct or bucketed, slice S, slices P, entry bits,
+# shared-memory copy of out, on an H100 (132 SMs, 227 KB per block)
+PLAN_CASES = [
+    ("K12 scripts", 1 << 15, 1, 32768, 128, dict(
+        direct=True, S=1 << 15, P=1, entry_bits=0, acc=0, grid=132)),
+    ("K12 beyond_l2", 1 << 22, 1, 32768, 128, dict(
+        direct=False, S=8192, P=512, entry_bits=32, acc=1, grid=132)),
+    ("K11 scripts", 1 << 15, 16, 32768, 128, dict(
+        direct=False, S=512, P=64, entry_bits=32, acc=1, share=2,
+        grid=128)),
+    ("K11 beyond_l2", 1 << 22, 16, 32768, 128, dict(
+        direct=False, S=1024, P=4096, entry_bits=32, acc=0, grid=396)),
+    ("K12 small", 1 << 9, 1, 256, 128, dict(direct=True, P=1)),
+    ("K11 small", 1 << 9, 16, 256, 128, dict(direct=True, P=1)),
+]
+
+
+@pytest.mark.parametrize("name,NB,W,B,J,want", PLAN_CASES,
+                         ids=[c[0] for c in PLAN_CASES])
+def test_gather_plan_at_the_geometries(name, NB, W, B, J, want):
+    plan = G.gather_plan(NB, W, B, J, **H100)
+    assert plan.direct == want.pop("direct")
+    for key, value in want.items():
+        assert getattr(plan, key) == value, key
+    _plan_invariants(plan, NB, W, B, J)
+
+
+def _plan_invariants(plan, NB, W, B, J):
+    optin = H100["smem_optin"]
+    assert plan.smem + G.STATIC_SMEM <= optin
+    assert plan.buf_words * 4 >= (plan.S * W + 3) * 4
+    assert (plan.P - 1) * plan.S < NB <= plan.P * plan.S
+    assert plan.grid <= plan.P * plan.share
+    if plan.direct:
+        assert plan.S == NB and plan.acc == 0 and plan.count_words() == 0
+        return
+    assert plan.S == 1 << plan.sbits and plan.S * W * 4 <= G.SLICE_BYTES
+    assert plan.entry_bits == (32 if B * plan.S <= 1 << 32 else 64)
+    assert plan.tiles * plan.tile >= B * J
+    assert plan.tile <= G.SCATTER_PER * G.COUNT_THREADS
+    assert plan.scatter_smem <= optin and plan.P <= G.MAX_SLICES
+    assert sum(plan.passes().values()) == G.ALL_PASSES
+    if plan.acc:
+        assert plan.smem == 8 * plan.buf_words + 4 * -(-B // 4) * 4
+
+
+def _gather_edges(W):
+    from dbgtpu_torch.kernels.edge_batch import gather_edges
+
+    D = G.direct_rows_max(W, H100["smem_optin"])
+    S = G.gather_plan(D + 1, W, 300, 128, **H100).S
+    return D, S, gather_edges(D, S)
+
+
+@pytest.mark.parametrize("W", [1, 16])
+def test_gather_plan_at_the_edges(W):
+    """chip_smoke's edge set (kernels/edge_batch.py gather_edges) takes
+    the paths it is named after."""
+    from dbgtpu_torch.kernels.edge_batch import gather_edge_inputs
+
+    D, S, edges = _gather_edges(W)
+    assert G.gather_plan(D, W, 300, 128, **H100).direct
+    assert not G.gather_plan(D + 1, W, 300, 128, **H100).direct
+    plans = {}
+    for case in edges:
+        plan = plans[case.name] = G.gather_plan(case.NB, W, case.B, case.J,
+                                                **H100)
+        _plan_invariants(plan, case.NB, W, case.B, case.J)
+        assert plan.direct == (case.name.endswith("direct")
+                               or case.name in ("NB1", "direct_max")), case
+        buf, idx = gather_edge_inputs(7, case, W, S)
+        assert buf.size == case.offset + case.NB * W
+        assert idx.shape == (case.B, case.J)
+        inside = (0 <= idx) & (idx < case.NB)
+        if case.pattern == "out_of_range":
+            assert inside.any() and not inside.all()
+            assert {case.NB, -1, -1 << 31} <= set(np.unique(idx[~inside]))
+        else:
+            assert inside.all()
+        if case.pattern == "one_slice":
+            assert (idx // S == 2).all()
+        if case.pattern == "ends":
+            assert set(np.unique(idx)) == {0, case.NB - 1}
+    assert plans["entries64"].entry_bits == 64
+    assert plans["out_beyond_shared"].acc == 0
+    assert plans["NB5S+1"].P == plans["NB5S-1"].P + 1
+    assert {p.acc for p in plans.values() if not p.direct} == {0, 1}
+    names = {c.name for c in edges}
+    assert {"B1_direct", "B1_bucketed", "J1_direct", "J31_bucketed",
+            "J33_bucketed", "J128_direct", "unaligned_direct",
+            "unaligned_bucketed", "out_of_range_direct",
+            "out_of_range_bucketed"} <= names
+
+
+@pytest.mark.parametrize("W", [1, 16])
+def test_bucketed_schedule_at_the_edges(W):
+    """The schedule restated in torch equals the plain versions on the
+    edge set under the H100's plans (K11's 4M-row 64-bit case is left to
+    the card: its plain version alone needs half a gigabyte here)."""
+    from dbgtpu_torch.kernels.edge_batch import (
+        GATHER_REPS, gather_edge_inputs,
+    )
+
+    D, S, edges = _gather_edges(W)
+    ref = G.gather_rows_sum_ref if W > 1 else G.gather_take_sum_ref
+    for n, case in enumerate(edges):
+        plan = G.gather_plan(case.NB, W, case.B, case.J, **H100)
+        if plan.direct or (W > 1 and case.name == "entries64"):
+            continue
+        buf, idx = gather_edge_inputs(n, case, W, S)
+        tbl = t32(buf)[case.offset:]
+        tbl = tbl.view(case.NB, W) if W > 1 else tbl
+        taken = G.in_table(t32(idx), case.NB)
+        for reps in GATHER_REPS:
+            got, _, _ = bucketed_schedule(tbl, t32(idx), reps, plan)
+            assert torch.equal(got, ref(tbl, taken, reps)), (case, reps)
+
+
+@pytest.mark.parametrize("NB", [1, 5, 1 << 20])
+def test_in_table_takes_stray_indices_as_the_last_row(NB):
+    idx = torch.tensor([[0, NB - 1, NB, NB + 7, -1, (1 << 31) - 1, -1 << 31]],
+                       dtype=torch.int32)
+    got = G.in_table(idx, NB)
+    assert got.dtype == torch.int32 and got.shape == idx.shape
+    assert got.tolist() == [[0] + [NB - 1] * 6]
+
+
+def test_gather_plan_refuses_what_the_kernels_do_not_take():
+    with pytest.raises(ValueError):
+        G.gather_plan(1 << 20, 1, 1 << 16, 1 << 15, **H100)   # 2^31 indices
+    with pytest.raises(ValueError):
+        G.gather_plan(1 << 30, 16, 1024, 128, **H100)        # too many slices
+    with pytest.raises(ValueError):
+        G.gather_plan(10, 1 << 15, 4, 4, **H100)             # a 128 KB row
