@@ -9,7 +9,9 @@ kernels from dbgtpu_torch/csrc (K1-K8; K3 has two entry points, each
 its own kernel), then:
   1. prints the card's name and power limit, the kernel build time and
      ptxas's registers and spills per mapping kernel (with the warps per
-     SM they allow); the native parser / formatter must build too;
+     SM they allow; with `--baseline-csrc`, those of K2, K3, K5 and K6,
+     which run K7's device function inline, beside the baseline's); the
+     native parser / formatter must build too;
   2. runs the kernels of each mode's path and their plain torch versions
      on the same CUDA inputs (the first 32,768-read batch of the survey
      workload) and requires exactly equal integer outputs; prints each
@@ -38,28 +40,41 @@ its own kernel), then:
      compact_result against their plain versions at B = 1, 255, 256,
      257, 32,768 and 262,144, pmax = 3, 30, 31, 62 and 120, int16 and
      int32 (K4 on walks with llen / rlen 0 and plen > pmax, K8 on the
-     mixed, unaligned, over-pmax, equal-count and full cases).  K7
-     mphf_slots itself
-     against its plain
-     version on the survey junction MPHF, the survey anchor MPHF and a
-     tight-gamma MPHF that uses the final table, each with keys of the
-     set, keys outside it and the all-ones key, and on an empty MPHF;
-     it is timed on the stored keys of each survey table, the shape the
-     main path gives it (the check of a table at upload), through its
-     wrapper and alone (back-to-back launches through the C entry point).
-     K11 gather_rows_sum and K12 gather_take_sum against their plain
+     mixed, unaligned, over-pmax, equal-count and full cases); K4 is
+     also timed alone by the graph timer (its launches captured into a
+     CUDA graph and replayed: the device's own pace, where the
+     back-to-back timer from Python reads the host's launch rate),
+     beside the floor of both timers, a kernel that does nothing.  K7
+     mphf_slots itself against its plain version on the survey junction
+     MPHF, the survey anchor MPHF and a tight-gamma MPHF that uses the
+     final table, each with keys of the set, keys outside it and the
+     all-ones key, and on an empty MPHF; it is timed on the stored keys
+     of each survey table, the shape the main path gives it, by both
+     timers (with `--baseline-csrc`, in turns with DIR's K7) and through
+     its wrapper, and in its check mode on each survey table (the check
+     of a table at upload: one launch, a count of the keys at the wrong
+     slot) by both timers and through `check_mphf_table`.  The check
+     mode against its plain version on tables of 0, 1, 31 and 33 keys, a
+     tight-gamma MPHF whose keys reach the final table, and each survey
+     table with two rows swapped (a count of exactly 2).  K11
+     gather_rows_sum and K12 gather_take_sum against their plain
      versions at the edges of their plan (kernels/edge_batch.py
      gather_edges: direct and bucketed paths, B = 1, J = 1 to 128, slice
      and switch edges, one bucket, 64-bit entries, unaligned tables,
-     indices outside the table; reps 0, 1, 8).  Then `tools.exp_gather.main()`, the entry point of
-     the gather kernels (counts set to 0 just before, each of the four
+     indices outside the table; reps 0, 1, 8), K10 gather_rowsum at the
+     edges of its one-launch schedule (rowsum_edges: CH = 1 to 4,097,
+     chunk counts around the grid's warp count, warp ranges that end on
+     or cross chunk boundaries, W = 1 to 25, an unaligned table, stray
+     indices, sums that wrap).  Then `tools.exp_gather.main()`, the entry
+     point of the gather kernels (counts set to 0 just before, each of the four
      launched > 0 times): K9 gather_rows (G=1 and G=8), K10
      gather_rowsum, K11 and K12 against their plain versions and the one
      PyTorch gather that computes the same function at the "scripts" and
      "beyond_l2" geometries (dbgtpu_torch/tools/exp_gather.py), each
-     timed alone (back-to-back launches through its C entry point; with
-     `--baseline-csrc` in turns with DIR's) and through its wrapper; K11
-     and K12 with their plan and, bucketed, each pass alone;
+     timed alone (back-to-back launches through its C entry point; K10
+     also by the graph timer; with `--baseline-csrc` in turns with
+     DIR's) and through its wrapper; K11 and K12 with their plan and,
+     bucketed, each pass alone;
   3. maps the survey workload (2 Mbp genome, ~30.7k unitigs of 40-150
      bp, 131,072 reads of 100 bp, k=31, m=2, e=2, batch 32,768) through
      `dbgtpu_torch.cli.main` in greedy mode, with -G and with -b, under
@@ -67,8 +82,9 @@ its own kernel), then:
      across the layouts, and requires each path's kernels to be launched
      > 0 times in its own run and no other kernel launched (counts set
      to 0 just before each run).  mphf_slots counts only launches of the
-     standalone K7 kernel: one per MPHF table of the run's index (per
-     4,194,304 stored keys of it), none under the scan layout.  Then
+     standalone K7 kernel: one per MPHF table of the run's index (its
+     check at upload, whatever the table's size), none under the scan
+     layout.  Then
      `--save-index` followed by `--load-index` in greedy/scan, -G/mphf
      and -b/scan:
      bytes equal to the built run, the mode's kernels launched,
@@ -139,7 +155,8 @@ from pathlib import Path
 # the timer and the bound convention, shared with torch_profile.py and
 # dbgtpu_torch/tools/exp_gather.py
 from dbgtpu_torch.kernels.measure import (  # noqa: F401
-    HBM_BYTES_PER_S, INT_OPS_PER_S, cuda_ms,
+    HBM_BYTES_PER_S, INT_OPS_PER_S, cuda_ms, graph_ms, in_turns,
+    launch_floor_ms, on, turns,
 )
 from dbgtpu_torch.kernels.measure import bound_ms as bound_of
 
@@ -405,9 +422,10 @@ def walks_pairs(wk, wr):
 # chip_smoke.py / torch_profile.py get --baseline-csrc (build.load_from)
 BASELINE = {"lib": None}
 ALONE_LAUNCHES, ALONE_REPS = 50, 5
+TIMED_LAUNCHES = 200    # time_both: launches a run of a short kernel
 
 
-def time_alone(name, alones) -> dict:
+def time_alone(name, alones, graph: bool = False) -> dict:
     """Kernel `name` alone: ALONE_LAUNCHES back-to-back launches of its C
     entry point, the median of ALONE_REPS runs.  `alones` holds one
     (prep, pairs_of) per batch of the run: prep() gives the kernel's
@@ -418,13 +436,19 @@ def time_alone(name, alones) -> dict:
     after another); each batch's outputs must then equal the wrapper's.
     With a baseline library, the baseline and this tree's kernel in
     turns (baseline, this, this, baseline) on the same inputs, and the
-    baseline's outputs must equal the wrapper's too."""
+    baseline's outputs must equal the wrapper's too.  `graph`: also the
+    same rotation captured into a CUDA graph (`graph_rotation`, in
+    turns with the baseline's kernel when there is one)."""
     import torch
 
     preps = [(prep(), pairs_of) for prep, pairs_of in alones]
+    base = BASELINE["lib"]
+    graphed = in_turns(lambda lib: graph_rotation(name, alones, lib), base,
+                       "graph_") if graph else {}
 
     def timed(lib):
         turn = itertools.count()
+        lib = this_or(lib)
 
         def launch():
             (go, _), _ = preps[next(turn) % len(preps)]
@@ -440,19 +464,52 @@ def time_alone(name, alones) -> dict:
                 raise AssertionError(f"{name}: {who} alone != the "
                                      f"wrapper's result (max abs err {err})")
 
-    base = BASELINE["lib"]
-    if base is None:
-        alone_ms = timed(None)
-        check("the kernel")
-        return dict(alone_ms=alone_ms, alone_batches=len(preps))
-    turns = [timed(base), timed(None), timed(None), timed(base)]
+    alone = in_turns(timed, base, "alone_")
     check("the kernel")
-    for (go, _), _ in preps:
-        go(base)
-    check("the baseline kernel")
-    return dict(alone_ms=(turns[1] + turns[2]) / 2,
-                baseline_alone_ms=(turns[0] + turns[3]) / 2,
-                alone_turns_ms=turns, alone_batches=len(preps))
+    if base is not None:
+        for (go, _), _ in preps:
+            go(base)
+        check("the baseline kernel")
+    return dict(**alone, alone_batches=len(preps), **graphed)
+
+
+def this_or(lib):
+    """`lib`, or this tree's kernel library for None, looked up once: a
+    timer of launches from Python must not charge this tree's launches a
+    library lookup (`build.load`, a lock) that the baseline's skip."""
+    from dbgtpu_torch.kernels import build
+
+    return build.load() if lib is None else lib
+
+
+def graph_rotation(name, alones, lib) -> float:
+    """`time_alone`'s rotation over the batches captured into a CUDA
+    graph (ALONE_LAUNCHES launches, each batch's outputs and launch bound
+    inside the capture) and replayed: ms a launch; every batch's outputs
+    of the replays must equal the wrapper's."""
+    runs = []
+
+    def bind():
+        runs[:] = [(prep(), pairs_of) for prep, pairs_of in alones]
+        turn = itertools.count()
+
+        def launch():
+            (go, _), _ = runs[next(turn) % len(runs)]
+            go(lib)
+
+        tensors = []
+        for (_, outputs), _ in runs:
+            tensors.extend(outputs if isinstance(outputs, (tuple, list))
+                           else (outputs,))
+        return launch, tensors
+
+    ms, _ = graph_ms(bind, ALONE_REPS, ALONE_LAUNCHES)
+    for (_, outputs), pairs_of in runs:
+        err = max(_max_abs_err(g, w) for g, w in pairs_of(outputs))
+        if err:
+            raise AssertionError(f"{name}: the graph's launches != the "
+                                 f"wrapper's result (max abs err {err})")
+    return ms
 
 
 def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
@@ -539,11 +596,12 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     sk, wk, pk = c0.sk, c0.wk, c0.pk
 
     def record(name, pairs, fk, fr, *, stream, touched=0, table=0, ops,
-               alone, reps_k=20, reps_r=3, min_stream=None):
+               alone, reps_k=20, reps_r=3, min_stream=None, graph=False):
         """`alone(c)` = (prep, pairs_of) on the batch of chain c: prep()
         allocates the kernel's outputs once and gives (its build.Launch,
         those outputs); pairs_of(outputs) pairs them with the wrapper's
-        result on that batch."""
+        result on that batch.  `graph`: the alone time by the graph
+        timer too."""
         torch.cuda.synchronize()
         err = max(_max_abs_err(g, w) for g, w in pairs)
         if err:
@@ -562,7 +620,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
             out[name]["bound_min_bytes_ms"] = bound_of(
                 min_stream, 0, 0, 0)[0]
         if timed:
-            out[name].update(time_alone(name, [alone(c) for c in chains]))
+            out[name].update(time_alone(name, [alone(c) for c in chains],
+                                        graph=graph))
 
     def walk_out_bytes(w):
         return 5 * B * 4 + 4 * int(w.llen.sum() + w.rlen.sum())
@@ -795,6 +854,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
            alone=lambda c: (
                lambda: pack_paths_launch(c.wk, pmax=pmax, dtype=dtype),
                lambda o: [(o, c.pk)]),
+           # K4's launch is shorter than a launch from Python
+           graph=True,
            stream=walk_out_bytes(wk) - B * 4 + nbytes(pk),
            ops=B * (pmax + 2) * OPS_PACK_ELEM)
     if dtype == torch.int16:
@@ -1029,14 +1090,119 @@ def compare_result_edges(device) -> int:
     return compared
 
 
+def time_both(bind, check, entry: str) -> dict:
+    """A kernel alone by both timers: TIMED_LAUNCHES back-to-back launches
+    from Python (cuda_ms: `alone_ms`) and the same launches captured once
+    into a CUDA graph (graph_ms: `graph_ms`), the median of ALONE_REPS
+    runs each.  bind(lib) -> (launch, outputs) binds the launch on `lib`
+    (None: this tree's library) into outputs of its own, its stream at
+    the call (the graph timer calls it inside the capture);
+    check(outputs) raises unless they are right.  With a baseline library
+    that has the C entry point `entry`, each timer in turns (baseline,
+    this, this, baseline): `baseline_alone_ms`, `alone_turns_ms`,
+    `baseline_graph_ms`, `graph_turns_ms`."""
+    import torch
+
+    def plain(lib):
+        launch, outputs = bind(this_or(lib))
+        ms = cuda_ms(launch, ALONE_REPS, launches=TIMED_LAUNCHES)
+        torch.cuda.synchronize()
+        check(outputs)
+        return ms
+
+    def graph(lib):
+        ms, outputs = graph_ms(lambda: bind(lib), ALONE_REPS, TIMED_LAUNCHES)
+        check(outputs)
+        return ms
+
+    base = BASELINE["lib"]
+    return {**in_turns(plain, base, "alone_", entry),
+            **in_turns(graph, base, "graph_", entry)}
+
+
+def plan_turns(what, n, plan, bind_plan, check) -> dict:
+    """K7's plan (`plan`, engine/mphf.py mphf_plan, for n keys) against
+    each other plan it could have taken (1, 2 or 4 keys a thread in
+    blocks of mphf_block's size, and its own keys a thread in blocks of
+    MPHF_THREADS), by the graph timer in turns (chosen, other, other,
+    chosen): {"<per_thread>x<threads>": (chosen ms, other ms, the four
+    times)}.  bind_plan(plan) -> (launch, outputs) as time_both's
+    bind."""
+    import torch
+
+    from dbgtpu_torch.engine.gather import _card_of
+    from dbgtpu_torch.engine.mphf import MPHF_THREADS, MphfPlan, mphf_block
+
+    sms = _card_of(torch.device("cuda"))[0]
+    others = {MphfPlan(q, mphf_block(n, q, sms)) for q in (1, 2, 4)}
+    others.add(MphfPlan(plan.per_thread, MPHF_THREADS))
+    others.discard(plan)
+
+    def timer(p):
+        ms, outputs = graph_ms(lambda: bind_plan(p), ALONE_REPS,
+                               TIMED_LAUNCHES)
+        check(outputs)
+        return ms
+
+    out = {}
+    for other in sorted(others, key=lambda p: (p.per_thread, p.threads)):
+        out[f"{other.per_thread}x{other.threads}"] = res = turns(
+            lambda: timer(plan), lambda: timer(other))
+        log(f"[plan] K7 {what}: the plan, {plan.per_thread} key(s) a thread "
+            f"in blocks of {plan.threads}, {res[0]:.4f} ms against "
+            f"{other.per_thread} in blocks of {other.threads} "
+            f"{res[1]:.4f} ms by the graph timer (turns plan, other, other, "
+            f"plan: " + ", ".join(f"{t:.4f}" for t in res[2]) + ")")
+    return out
+
+
+def key_sector_bytes(n: int, cols: int) -> int:
+    """Bytes of the 32-byte sectors that hold the first 8 bytes (the key)
+    of each of n rows of `cols` words: what reading the keys in place
+    moves."""
+    import numpy as np
+
+    start = np.arange(n, dtype=np.int64) * cols * 4
+    return np.union1d(start // SECTOR_BYTES,
+                      (start + 7) // SECTOR_BYTES).size * SECTOR_BYTES
+
+
+def graph_part(r) -> str:
+    """The graph timer of a result in words ("" if it has none)."""
+    if "graph_ms" not in r:
+        return ""
+    return (f", replayed from a CUDA graph {r['graph_ms']:.4f} ms"
+            + (f" (baseline {r['baseline_graph_ms']:.4f} ms; turns "
+               + ", ".join(f"{t:.4f}" for t in r["graph_turns_ms"]) + ")"
+               if "baseline_graph_ms" in r else ""))
+
+
+def timers_line(r) -> str:
+    """Both timers of a `time_both` result in words."""
+    def one(key, what):
+        line = f"{what} {r[f'{key}_ms']:.4f} ms"
+        if f"baseline_{key}_ms" in r:
+            line += (f" (baseline {r[f'baseline_{key}_ms']:.4f} ms; turns "
+                     f"baseline, this, this, baseline: " + ", ".join(
+                         f"{t:.4f}" for t in r[f"{key}_turns_ms"]) + ")")
+        return line
+
+    return (one("alone", "kernel alone, back-to-back launches from Python")
+            + "; " + one("graph", "replayed from a CUDA graph"))
+
+
 def compare_mphf(label, mphf, device, extra_keys, timed: bool):
     """K7 against its plain version (and, for keys of the build set,
-    against the host lookup) on one host MPHF."""
+    against the host lookup) on one host MPHF.  Timed: alone by both
+    timers (`time_both`, with the baseline's kernel in turns) on these
+    keys, and its plan against the other plans (`plan_turns`)."""
     import numpy as np
     import torch
 
     from dbgtpu_torch.engine.index import fuse_mphf, mphf_meta_of, to_device
-    from dbgtpu_torch.engine.mphf import mphf_slot_ref, mphf_slots
+    from dbgtpu_torch.engine.mphf import (
+        mphf_slot_ref, mphf_slots, mphf_slots_launch, plan_mphf,
+    )
     from dbgtpu_torch.kernels import build
 
     rows_np, frows_np = fuse_mphf(mphf)
@@ -1058,44 +1224,208 @@ def compare_mphf(label, mphf, device, extra_keys, timed: bool):
         raise AssertionError(f"{label}: K7 != plain version (err {err}) or "
                              "!= the host lookup")
     n = keys.numel()
-    res = dict(max_abs_err=err, ms=None, alone_ms=None, plain_ms=None,
-               library_ms=None)
     # per key: the thread's index (2) and the lookup without the verify
     ops = n * (2 + ops_mphf_lookup(0, verify=False))
+    res = dict(max_abs_err=err, bound_ops=ops,
+               bound_bytes=n * 12 + min(n * 20, nbytes(rows, frows)))
     res["bound_ms"], res["bound_by"] = bound_of(
         n * 12, n * 20, nbytes(rows, frows), ops)
-    res["bound_bytes"] = n * 12 + min(n * 20, nbytes(rows, frows))
-    res["bound_ops"] = ops
+    line = ""
     if timed and n:
-        # the kernel alone: back-to-back launches through the C entry
-        # point into one output (one call's wrapper outlasts the kernel)
-        lib = build.load()
-        alone = torch.empty_like(got)
-        args = (rows.data_ptr(), frows.data_ptr(),
-                ctypes.addressof(meta.c_struct), keys.data_ptr(), n,
-                alone.data_ptr(), build.stream_ptr(device))
+        plan = plan_mphf(n, keys.device)
 
-        def launch():
-            build.check(lib.dbg_mphf_slots(*args), "mphf_slots")
+        def bind_plan(p, lib=None):
+            out = torch.empty_like(got)
+            launch = on(lib, mphf_slots_launch(rows, frows, meta, keys, out,
+                                               p))
+            return launch, (out,)
 
-        res["ms"] = res["alone_ms"] = cuda_ms(launch, 5, launches=200)
-        if not torch.equal(alone, got):
-            raise AssertionError(f"{label}: K7 through its C entry point "
-                                 "differs from K7 through its wrapper")
+        def same(outputs):
+            if not torch.equal(outputs[0], got):
+                raise AssertionError(f"{label}: K7 alone differs from K7 "
+                                     "through its wrapper")
+
+        res.update(time_both(lambda lib: bind_plan(plan, lib), same,
+                             "dbg_mphf_slots"))
+        res["plans"] = plan_turns(f"lookup on {label}", n, plan, bind_plan,
+                                  same)
         res["wrapper_ms"] = cuda_ms(
             lambda: mphf_slots(rows, frows, meta, keys), 20)
         res["plain_ms"] = cuda_ms(
             lambda: mphf_slot_ref(rows, frows, meta, keys), 3)
+        line = (f"; plan {plan.per_thread} key(s) a thread in blocks of "
+                f"{plan.threads}; {timers_line(res)} ({TIMED_LAUNCHES} "
+                f"launches a run), one launch through the wrapper "
+                f"{res['wrapper_ms']:.4f} ms, plain {res['plain_ms']:.4f} "
+                f"ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
     log(f"[kernel] mphf_slots on {label}: {n} keys ({int(found.sum())} of "
         f"the set), {meta.n_levels} levels, final table "
         f"{meta.final_nb} buckets: == plain version and host lookup "
-        f"(max abs err {err}, tolerance 0)"
-        + (f"; kernel alone {res['ms']:.4f} ms (200 back-to-back launches "
-           f"through the C entry point), one launch through the wrapper "
-           f"{res['wrapper_ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, "
-           f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})"
-           if res["ms"] is not None else ""))
+        f"(max abs err {err}, tolerance 0)" + line)
     return res
+
+
+def time_mphf_check(label, mphf, vrows, device) -> dict:
+    """K7's check mode at the shape the main path gives it: the check of
+    an MPHF-backed table at upload (`vrows`, uint32 [n, cols], n > 0;
+    engine/mphf.py check_mphf_table), against its plain version; alone
+    by both timers (in turns with the baseline's, where its library has
+    the check), its plan against the other plans, one call of
+    `check_mphf_table` (launch and 4-byte read) and, beside it, the check
+    it replaced (the keys built from the table by torch ops, a lookup of
+    every key, an arange and torch.equal).  The bound: the sectors that
+    hold each row's key, the level rows (at most the tables) and the
+    count."""
+    import torch
+
+    from dbgtpu_torch.engine.index import fuse_mphf, mphf_meta_of, to_device
+    from dbgtpu_torch.engine.kmer import M32
+    from dbgtpu_torch.engine.mphf import (
+        check_mphf_table, mphf_check, mphf_check_launch, mphf_check_ref,
+        mphf_slots, plan_mphf,
+    )
+
+    rows, frows = (to_device(a, device) for a in fuse_mphf(mphf))
+    meta, table = mphf_meta_of(mphf), to_device(vrows, device)
+    n, cols = table.shape
+    got, want = mphf_check(rows, frows, table, meta), mphf_check_ref(
+        rows, frows, table, meta)
+    if got or want:
+        raise AssertionError(f"{label}: the check counts {got} keys at the "
+                             f"wrong slot, its plain version {want}")
+    # per key: the thread's index (2), the lookup without the verify and
+    # the compare (1)
+    ops = n * (3 + ops_mphf_lookup(0, verify=False))
+    stream = key_sector_bytes(n, cols) + 4
+    res = dict(max_abs_err=abs(got - want), library_ms=None,
+               bound_bytes=stream + min(n * 20, nbytes(rows, frows)),
+               bound_ops=ops)
+    res["bound_ms"], res["bound_by"] = bound_of(
+        stream, n * 20, nbytes(rows, frows), ops)
+    plan = plan_mphf(n, table.device)
+
+    def bind_plan(p, lib=None):
+        bad = torch.empty(1, dtype=torch.int32, device=device)
+        return on(lib, mphf_check_launch(rows, frows, table, meta, bad,
+                                         p)), (bad,)
+
+    def none_bad(outputs):
+        if int(outputs[0].item()) != 0:
+            raise AssertionError(f"{label}: the check mode counts "
+                                 f"{int(outputs[0].item())} keys at the "
+                                 "wrong slot")
+
+    res.update(time_both(lambda lib: bind_plan(plan, lib), none_bad,
+                         "dbg_mphf_check"))
+    res["plans"] = plan_turns(f"check mode on {label}", n, plan, bind_plan,
+                              none_bad)
+    # one call through the wrapper: check_mphf_table
+    res["ms"] = res["wrapper_ms"] = cuda_ms(lambda: check_mphf_table(
+        rows, frows, table, meta, label), 20)
+    res["plain_ms"] = cuda_ms(lambda: mphf_check_ref(
+        rows, frows, table, meta), 3)
+
+    def lookup_and_compare():
+        # the check this one replaced: the stored keys built by torch
+        # ops, a lookup of every key, an arange and a compare (a sync)
+        part = table[:, :2].to(torch.int64) & M32
+        got = mphf_slots(rows, frows, meta, (part[:, 0] << 32) | part[:, 1])
+        return torch.equal(got, torch.arange(
+            got.shape[0], dtype=torch.int32, device=device))
+
+    res["replaced_ms"] = cuda_ms(lookup_and_compare, 20)
+    log(f"[kernel] mphf_slots check mode on {label} ({n} rows of {cols} "
+        f"words): 0 keys at the wrong slot == plain version; plan "
+        f"{plan.per_thread} key(s) a thread in blocks of {plan.threads}; "
+        f"{timers_line(res)} ({TIMED_LAUNCHES} launches a run), plain "
+        f"{res['plain_ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}); check_mphf_table (one launch and a 4-byte "
+        f"read) {res['wrapper_ms']:.4f} ms, the lookup of every key and "
+        f"compare it replaced {res['replaced_ms']:.4f} ms")
+    return res
+
+
+def compare_mphf_check_edges(device, survey) -> int:
+    """K7's check mode on the card against its plain version on the same
+    CUDA tensors (kernels/edge_batch.py mphf_check_tables: tables of 0,
+    1, 31 and 33 keys, a tight-gamma MPHF whose keys reach the final
+    table), each a count of 0 through one launch (none for 0 keys); and
+    `survey` (name, host MPHF, uint32 rows) with two rows swapped: the
+    count must be exactly 2 on both.  Returns the number of
+    comparisons."""
+    from dbgtpu_torch.engine.index import fuse_mphf, mphf_meta_of, to_device
+    from dbgtpu_torch.engine.mphf import mphf_check, mphf_check_ref
+    from dbgtpu_torch.kernels import build
+    from dbgtpu_torch.kernels.edge_batch import mphf_check_tables
+
+    compared = 0
+    cases = [(name, m, v, 0) for name, m, v in mphf_check_tables()]
+    for name, m, v in survey:
+        swapped = v.copy()
+        swapped[[3, v.shape[0] - 2]] = swapped[[v.shape[0] - 2, 3]]
+        cases.append((f"{name}, rows 3 and {v.shape[0] - 2} swapped", m,
+                      swapped, 2))
+    for name, m, v, bad in cases:
+        rows, frows = (to_device(a, device) for a in fuse_mphf(m))
+        meta, table = mphf_meta_of(m), to_device(v, device)
+        before = build.launches["mphf_slots"]
+        got = mphf_check(rows, frows, table, meta)
+        launched = build.launches["mphf_slots"] - before
+        want = mphf_check_ref(rows, frows, table, meta)
+        if got != bad or want != bad or launched != int(v.shape[0] > 0):
+            raise AssertionError(
+                f"edge K7 check on {name}: kernel {got}, plain {want}, want "
+                f"{bad} keys at the wrong slot ({launched} launches)")
+        log(f"[edge] K7 check mode on {name} ({v.shape[0]} keys, "
+            f"{meta.n_levels} levels, final table {meta.final_nb} buckets): "
+            f"{got} keys at the wrong slot == plain version, {launched} "
+            f"launch")
+        compared += 1
+    return compared
+
+
+def compare_rowsum_edges(device) -> int:
+    """K10 gather_rowsum against its plain version on CUDA inputs at the
+    edges of its one-launch schedule (kernels/edge_batch.py
+    rowsum_edges, around the warp count of this card's grid), exact; the
+    plain version takes the indices the kernel takes (an index outside
+    the table as its last row: `in_table`).  Returns the number of
+    comparisons."""
+    import numpy as np
+    import torch
+
+    from dbgtpu_torch.engine import gather as G
+    from dbgtpu_torch.kernels.edge_batch import (
+        rowsum_edge_inputs, rowsum_edges,
+    )
+
+    sms = G._card_of(device)[0]
+    resident = G._rowsum_resident(device.index or 0, True)
+    warps = G.rowsum_plan(1 << 30, 1, sms, resident).warps
+    t0 = time.monotonic()
+    edges = rowsum_edges(warps)
+    paths = set()
+    for n, case in enumerate(edges):
+        buf, idx_np = rowsum_edge_inputs(SEED + n, case)
+        words = torch.from_numpy(buf.view(np.int32)).to(device)
+        tbl = words[case.offset:].view(case.NB, case.W)
+        idx = torch.from_numpy(idx_np).to(device)
+        plan = G.plan_rowsum(tbl, idx, case.CH)
+        paths.add(("16-byte vectors" if G.rowsum_vec(tbl) else "words")
+                  + (", full grid" if plan.warps == warps else ""))
+        got = G.gather_rowsum(tbl, idx, case.CH)
+        want = G.gather_rowsum_ref(tbl, G.in_table(idx, case.NB), case.CH)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        if err:
+            raise AssertionError(
+                f"edge K10 gather_rowsum {case.name} (NB={case.NB}, "
+                f"W={case.W}, CH={case.CH}, {case.n_chunks} chunks, "
+                f"{plan.warps} warps): kernel != plain (max abs err {err})")
+    log(f"[edge] K10 gather_rowsum: {len(edges)} cases (grid of {warps} "
+        f"warps, {resident} blocks per SM; {'; '.join(sorted(paths))}) == "
+        f"plain versions (tolerance 0; {time.monotonic() - t0:.1f} s)")
+    return len(edges)
 
 
 def compare_gather_edges(device) -> int:
@@ -1179,6 +1509,7 @@ def report_gathers(results) -> dict:
                f"baseline, this, this, baseline: "
                + ", ".join(f"{t:.4f}" for t in r["turns_ms"]) + ")"
                if "baseline_ms" in r else "")
+            + graph_part(r)
             + f", one launch through the wrapper "
             f"{r['wrapper_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
             f"library call {r['library_ms']:.4f} ms "
@@ -1237,6 +1568,33 @@ def log_resources(who, resources, lib) -> None:
         log(f"[ptxas] {who}: {r['source']}.cu {entry}: {r['registers']} "
             f"registers, spill stores {r.get('spill_stores', 0)} B, loads "
             f"{r.get('spill_loads', 0)} B; {occ}")
+
+
+def log_resource_pairs(ours, base, sources) -> None:
+    """ptxas's registers and spills of each kernel entry of `sources`
+    (file stems) in this tree's library beside the baseline's, and
+    whether they moved.  Entries are matched without the hash that names
+    a file's anonymous namespace (it differs between trees)."""
+    import re
+
+    def key(entry):
+        return re.sub(r"_GLOBAL__N__[0-9a-f]{8}_\d+_\w+?_cu_[0-9a-f]{8}", "",
+                      entry)
+
+    base = {key(e): r for e, r in base.items()}
+    for entry, r in sorted(ours.items()):
+        if r.get("source") not in sources or "registers" not in r:
+            continue
+        b = base.get(key(entry), {})
+
+        def of(x):
+            return (x.get("registers"), x.get("spill_stores", 0),
+                    x.get("spill_loads", 0))
+
+        log(f"[ptxas] {r['source']}.cu {entry}: this tree / baseline "
+            f"registers {of(r)[0]} / {of(b)[0]}, spill stores {of(r)[1]} / "
+            f"{of(b)[1]} B, loads {of(r)[2]} / {of(b)[2]} B"
+            + ("" if of(r) == of(b) else " (moved)"))
 
 
 def batch_tensors(codes, nmask, device):
@@ -1343,7 +1701,6 @@ def main(argv=None) -> int:
 
     from dbgtpu_torch import cli, native
     from dbgtpu_torch.engine.index import index_tensors
-    from dbgtpu_torch.engine.mphf import CHECK_CHUNK
     from dbgtpu_torch.engine.runner import (
         _bucket_len, _pmax_cap, _pmax_for, get_device_index,
     )
@@ -1372,8 +1729,12 @@ def main(argv=None) -> int:
         log(f"[build] baseline kernels from {args.baseline_csrc}: "
             f"{build.library_path(Path(args.baseline_csrc).resolve()).name}"
             f", {time.monotonic() - t0:.1f} s")
-        log_resources("baseline", build.kernel_resources(
-            Path(args.baseline_csrc).resolve()), BASELINE["lib"])
+        base_resources = build.kernel_resources(
+            Path(args.baseline_csrc).resolve())
+        log_resources("baseline", base_resources, BASELINE["lib"])
+        # the kernels that run K7's device function inline
+        log_resource_pairs(build.kernel_resources(), base_resources,
+                           ("member", "walk", "dog", "exhaustive"))
     t0 = time.monotonic()
     if not native.available():
         raise AssertionError("the native parser / formatter did not build "
@@ -1434,6 +1795,7 @@ def main(argv=None) -> int:
                        f"this, this, baseline: " + ", ".join(
                            f"{t:.4f}" for t in r["alone_turns_ms"]) + ")"
                        if "baseline_alone_ms" in r else "")
+                    + graph_part(r)
                     + f", one call through the wrapper {r['ms']:.4f} ms, "
                     f"plain {r['plain_ms']:.4f} ms, bound "
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']}: "
@@ -1451,6 +1813,12 @@ def main(argv=None) -> int:
     n_edge = compare_edge_batch(device) + compare_result_edges(device)
     log(f"[edge] {n_edge} kernel outputs == plain versions "
         f"({time.monotonic() - t0:.1f} s)")
+
+    # the timers' floor: a kernel that does nothing
+    floor = launch_floor_ms()
+    log(f"[floor] a kernel that does nothing (one block of one warp), 200 "
+        f"launches a run: {floor[0]:.4f} ms a launch back to back from "
+        f"Python, {floor[1]:.4f} ms replayed from a CUDA graph")
 
     # K7 alone: keys of the set, keys outside it, the all-ones key
     rng = np.random.default_rng(SEED)
@@ -1477,18 +1845,31 @@ def main(argv=None) -> int:
     compare_mphf("an empty MPHF", build_mphf(np.zeros(0, np.uint64)), device,
                  np.concatenate([outside[:1000], ones]), False)
     # timed at the shape the main path gives it: the check of a table at
-    # upload looks up every stored key (engine/mphf.py check_mphf_table)
-    results["mphf", "greedy"]["mphf_slots"] = compare_mphf(
-        "the survey junction MPHF, its stored keys", mj.mphf, device,
-        table_keys(mj.jrows), True)
-    compare_mphf("the survey anchor MPHF, its stored keys", ma.mphf, device,
-                 table_keys(ma.arows), True)
+    # upload (engine/mphf.py check_mphf_table) in the check mode that
+    # runs there; the JSON line's entry is the junction table's (the one
+    # MPHF table of the greedy run), its lookup of the same keys beside it
+    lookups = [compare_mphf(f"the survey {what} MPHF, its stored keys",
+                            m.mphf, device, table_keys(v), True)
+               for what, m, v in (("junction", mj, mj.jrows),
+                                  ("anchor", ma, ma.arows))]
+    checks = [time_mphf_check(f"the survey {what} MPHF", m.mphf, v, device)
+              for what, m, v in (("junction", mj, mj.jrows),
+                                 ("anchor", ma, ma.arows))]
+    results["mphf", "greedy"]["mphf_slots"] = dict(checks[0], lookup={
+        key: lookups[0][key] for key in ("alone_ms", "graph_ms", "bound_ms",
+                                         "bound_by")})
+    t0 = time.monotonic()
+    n_edge = compare_mphf_check_edges(device, [
+        ("the survey junction MPHF", mj.mphf, mj.jrows),
+        ("the survey anchor MPHF", ma.mphf, ma.arows)])
+    log(f"[edge] {n_edge} K7 check counts == plain versions "
+        f"({time.monotonic() - t0:.1f} s)")
 
     # K11 and K12 at the edges of their plan; then K9-K12 through the
     # entry point that runs them (both geometries, timed), with its
     # launches
     t0 = time.monotonic()
-    n_edge = compare_gather_edges(device)
+    n_edge = compare_gather_edges(device) + compare_rowsum_edges(device)
     log(f"[edge] {n_edge} gather outputs == plain versions "
         f"({time.monotonic() - t0:.1f} s)")
     from dbgtpu_torch.tools import exp_gather
@@ -1528,8 +1909,8 @@ def main(argv=None) -> int:
             summary, launches); `suffix` is what the run appends to its
             output files' names (a shard).  Fails unless the run's output
             matches its stats, each kernel of the mode's path was launched,
-            mphf_slots once per CHECK_CHUNK stored keys of each MPHF
-            table of the run's index, and no other kernel."""
+            mphf_slots once per MPHF table of the run's index that
+            holds keys (its check at upload), and no other kernel."""
             flags = MODE_FLAGS[mode] + ["--index-layout", layout, *extra]
             js = td / "summary.json"
             argv = ["-r", str(reads), "-k", str(k), "-g", str(uf),
@@ -1579,13 +1960,11 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{tag} aligned no read")
             want = PATH_KERNELS[mode] + (
                 ("mphf_slots",) if layout == "mphf" else ())
-            # one K7 launch per CHECK_CHUNK stored keys of each MPHF
-            # table of the run's index, at its upload
+            # one K7 launch per MPHF table of the run's index, at its
+            # upload, whatever the table's size
             ix = ixs[layout, mode == "anchors"]
-            checks = sum(
-                -(-meta.n_keys // CHECK_CHUNK)
-                for meta in (ix.mph_meta, ix.amph_meta)
-                if meta is not None)
+            checks = sum(1 for meta in (ix.mph_meta, ix.amph_meta)
+                         if meta is not None and meta.n_keys)
             if counts["mphf_slots"] != checks:
                 raise AssertionError(
                     f"{tag} mphf_slots launched {counts['mphf_slots']} "
@@ -1864,7 +2243,9 @@ def main(argv=None) -> int:
         r = results[run][name]
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=launches[run][name],
-                            **{key: r[key] for key in KERNEL_KEYS}))
+                            **{key: r[key] for key in KERNEL_KEYS},
+                            **({"lookup": r["lookup"]} if "lookup" in r
+                               else {})))
     sources = {name: source for name, source, _ in KERNELS}
     for name, (mode, replaces) in MPHF_ENTRIES.items():
         r = results["mphf", mode][name]

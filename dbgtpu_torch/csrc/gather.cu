@@ -16,12 +16,27 @@
 // double-buffered row DMA (K9), and a 12.6 MB table sat whole in VMEM
 // (K10-K12).  Here blocks run in any order on 132 SMs, a block has at
 // most 227 KB of shared memory, and the 50 MB L2 is what holds a 12.6 MB
-// table.  So: each thread reads its own index; rows move as 16-byte
+// table.  So: K9's threads read their own index; rows move as 16-byte
 // vectors, neighbouring threads on neighbouring vectors of one row (a
-// 96-byte row is 6 vectors, a 64-byte row 4); K10 splits a chunk over
-// several blocks (224 chunks alone would leave most of the card idle) and
-// finishes with a second pass over the partial sums (integer adds: any
-// order gives the same bits).
+// 96-byte row is 6 vectors, a 64-byte row 4).
+//
+// K10 is one launch of a persistent grid (its occupancy times the SMs,
+// engine/gather.py rowsum_plan): the N rows are cut into equal
+// contiguous ranges, one per warp, so no block waits in a second wave.
+// A warp takes its range in tiles of 32 rows: it loads the tile's
+// indices with one coalesced word per lane, hands them out by shuffle
+// and issues the 16-byte vectors (or words) of every row of the tile,
+// kBatch loads per lane, before it adds any of them; the next tile's
+// indices load meanwhile.  224 chunks of 4,096 rows would leave most of
+// the card idle, so a warp's range crosses chunk boundaries: a tile
+// ends at a boundary, the warp sums each chunk's segment of its range
+// by one warp reduction and adds it into out (zeroed by the C entry
+// point) with one red.  Integer adds mod 2^32: any order gives the same
+// bits.  Measured slower on an H100: tiles of 64 rows (two index
+// windows, 12 vectors in flight per lane: 80 registers, 3 blocks per SM
+// against 4); partial sums per segment in fixed slots, summed into out
+// by the last block to finish behind a fence and an atomic ticket (its
+// tail cost more than the memset).
 //
 // K11 and K12 do the gather REPS times, as the TPU bodies do (their
 // fori_loop re-reads the table every round): a compiler barrier between
@@ -48,8 +63,8 @@
 // by those bytes; K10 to K12 read idx once and touch at most the table,
 // so their byte bound is small and what holds them is the L2 and
 // shared-memory gather rate; K11's adds (one per word summed, REPS times)
-// outweigh its bytes.  K9 and K10 do not range-check their indices: an
-// index outside the table reads outside it.  K11 and K12 take an index
+// outweigh its bytes.  K9 does not range-check its indices: an index
+// outside the table reads outside it.  K10, K11 and K12 take an index
 // outside [0, NB) (a negative one too) as NB - 1, so a stray index gives
 // that row's sum and every read and write stays inside the kernels'
 // buffers.
@@ -61,23 +76,6 @@ constexpr int kThreads = 256;
 
 __device__ __forceinline__ uint32_t sum4(uint4 v) {
   return v.x + v.y + v.z + v.w;
-}
-
-__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
-  for (int d = 16; d > 0; d >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, d);
-  return v;
-}
-
-// sum of `v` over the block, valid in thread 0; sh holds one word per warp
-__device__ __forceinline__ uint32_t block_sum(uint32_t v, uint32_t* sh) {
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) sh[warp] = v;
-  __syncthreads();
-  const int n_warps = (blockDim.x + 31) >> 5;
-  v = (threadIdx.x < n_warps) ? sh[threadIdx.x] : 0u;
-  if (warp == 0) v = warp_sum(v);
-  return v;
 }
 
 // ---- K9: one thread per 16-byte vector (VEC) or per word of the output
@@ -103,43 +101,91 @@ __global__ void gather_rows_kernel(const uint32_t* __restrict__ tbl,
   }
 }
 
-// ---- K10 pass 1: block (c, s) sums rows [s*sub, (s+1)*sub) of chunk c
+// ---- K10: one launch; warp w sums rows [N w / n_warps, N (w + 1) /
+// n_warps) chunk segment by chunk segment into out
+constexpr int kRowsumThreads = 256;
+constexpr int kRowsumWarps = kRowsumThreads / 32;
+// loads a lane issues before it adds: one tile of 32 rows of 96 bytes in
+// 16-byte vectors (32 x 6 / 32), or 8 words
 template <bool VEC>
-__global__ void gather_rowsum_kernel(const uint32_t* __restrict__ tbl,
-                                     const int32_t* __restrict__ idx,
-                                     int CH, int sub, int W,
-                                     uint32_t* __restrict__ part) {
-  __shared__ uint32_t sh[32];
-  const int c = blockIdx.x, s = blockIdx.y;
-  const int t0 = s * sub;
-  const int n = min(sub, CH - t0);              // rows of this block
-  const int32_t* my = idx + static_cast<long long>(c) * CH + t0;
-  const int per_row = VEC ? W / 4 : W;
-  uint32_t acc = 0;
-  for (int e = threadIdx.x; e < n * per_row; e += blockDim.x) {
-    const int t = e / per_row, u = e - t * per_row;
-    const long long row = my[t];
-    if (VEC) {
-      acc += sum4(reinterpret_cast<const uint4*>(tbl)[row * per_row + u]);
-    } else {
-      acc += tbl[row * W + u];
-    }
-  }
-  acc = block_sum(acc, sh);
-  if (threadIdx.x == 0)
-    part[static_cast<long long>(c) * gridDim.y + s] = acc;
+struct RowsumUnit {
+  static constexpr int kBatch = 6;
+  using T = uint4;
+  static __device__ __forceinline__ T zero() { return make_uint4(0, 0, 0, 0); }
+  static __device__ __forceinline__ uint32_t sum(T v) { return sum4(v); }
+};
+template <>
+struct RowsumUnit<false> {
+  static constexpr int kBatch = 8;
+  using T = uint32_t;
+  static __device__ __forceinline__ T zero() { return 0u; }
+  static __device__ __forceinline__ uint32_t sum(T v) { return v; }
+};
+
+// lane l's index of the tile at row t (row t + l below r1, taken into the
+// table)
+__device__ __forceinline__ uint32_t rowsum_window(
+    const int32_t* __restrict__ idx, long long t, long long r1,
+    uint32_t last_row) {
+  const long long r = t + (threadIdx.x & 31);
+  return r < r1 ? min(static_cast<uint32_t>(idx[r]), last_row) : 0u;
 }
 
-// ---- K10 pass 2: out[c] = sum of the chunk's `split` partial sums
-__global__ void gather_rowsum_finish_kernel(const uint32_t* __restrict__ part,
-                                            int n_chunks, int split,
-                                            uint32_t* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_chunks) return;
+// upr = units (16-byte vectors, or words) per row
+template <bool VEC>
+__global__ void __launch_bounds__(kRowsumThreads)
+    gather_rowsum_kernel(const uint32_t* __restrict__ tbl, uint32_t last_row,
+                         const int32_t* __restrict__ idx, long long N, int CH,
+                         int upr, int n_warps, uint32_t* __restrict__ out) {
+  using U = RowsumUnit<VEC>;
+  using T = typename U::T;
+  constexpr int kB = U::kBatch;
+  const unsigned full = 0xFFFFFFFFu;
+  const int lane = threadIdx.x & 31;
+  const int w = blockIdx.x * kRowsumWarps + (threadIdx.x >> 5);
+  const T* units = reinterpret_cast<const T*>(tbl);
+  if (w >= n_warps) return;
+  const long long r0 = N * w / n_warps, r1 = N * (w + 1) / n_warps;
+  // unit e = lane + 32 k of a tile is unit u of its row `row`; e + 32
+  // moves them by (dq, dr)
+  const int row0 = lane / upr, u0 = lane - row0 * upr;
+  const int dq = 32 / upr, dr = 32 - dq * upr;
+  long long c = r0 / CH;
+  long long seg_end = min(r1, (c + 1) * CH);
+  uint32_t x = rowsum_window(idx, r0, r1, last_row);
   uint32_t acc = 0;
-  for (int s = 0; s < split; ++s)
-    acc += part[static_cast<long long>(c) * split + s];
-  out[c] = acc;
+  for (long long t = r0; t < r1;) {
+    const int rows = static_cast<int>(min(seg_end - t, 32LL));
+    // the next tile's indices, loaded while this tile's rows are in flight
+    const uint32_t next = rowsum_window(idx, t + rows, r1, last_row);
+    int row = row0, u = u0;
+    for (int k0 = 0; k0 * 32 < rows * upr; k0 += kB) {
+      T v[kB];
+#pragma unroll
+      for (int j = 0; j < kB; ++j) {
+        const uint32_t r = __shfl_sync(full, x, row & 31);
+        v[j] = row < rows ? units[static_cast<long long>(r) * upr + u]
+                          : U::zero();
+        row += dq;
+        u += dr;
+        if (u >= upr) {
+          u -= upr;
+          ++row;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < kB; ++j) acc += U::sum(v[j]);
+    }
+    t += rows;
+    x = next;
+    if (t == seg_end) {                 // chunk c's segment is done
+      const uint32_t s = __reduce_add_sync(full, acc);
+      if (lane == 0 && s) atomicAdd(out + c, s);
+      acc = 0;
+      ++c;
+      seg_end = min(r1, (c + 1) * CH);
+    }
+  }
 }
 
 // ---- K11 / K12: one slice-bucketed gather from shared memory
@@ -636,31 +682,43 @@ extern "C" int dbg_gather_rows(const void* tbl, const void* idx,
   DBG_RETURN_LAUNCH_STATUS();
 }
 
-// out [n_chunks] from idx [n_chunks * CH]; `split` blocks share a chunk and
-// write part [n_chunks * split] (unused when split == 1)
-extern "C" int dbg_gather_rowsum(const void* tbl, const void* idx,
-                                 int n_chunks, int CH, int W, int split,
-                                 void* part, void* out, void* stream) {
+// K10: out [n_chunks] from idx [n_chunks * CH] and tbl [NB, W] in one
+// launch of `blocks` blocks whose first n_warps warps take a range of
+// rows each (engine/gather.py rowsum_plan), after a memset of out
+extern "C" int dbg_gather_rowsum(const void* tbl, int NB, const void* idx,
+                                 int n_chunks, int CH, int W, int blocks,
+                                 int n_warps, void* out, void* stream) {
   const bool vec = vec_ok(tbl, nullptr, W);
   auto* t = static_cast<const uint32_t*>(tbl);
   auto* i = static_cast<const int32_t*>(idx);
+  auto* o = static_cast<uint32_t*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  auto* dst = static_cast<uint32_t*>(split == 1 ? out : part);
-  const int sub = (CH + split - 1) / split;
-  const dim3 grid(n_chunks, split);
+  const long long N = static_cast<long long>(n_chunks) * CH;
+  const uint32_t last_row = static_cast<uint32_t>(NB - 1);
+  if (n_warps < 1 || n_warps > blocks * kRowsumWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int err = static_cast<int>(
+      cudaMemsetAsync(o, 0, static_cast<size_t>(n_chunks) * 4, s));
+  if (err) return err;
   if (vec)
-    gather_rowsum_kernel<true><<<grid, kThreads, 0, s>>>(t, i, CH, sub, W,
-                                                         dst);
+    gather_rowsum_kernel<true><<<blocks, kRowsumThreads, 0, s>>>(
+        t, last_row, i, N, CH, W / 4, n_warps, o);
   else
-    gather_rowsum_kernel<false><<<grid, kThreads, 0, s>>>(t, i, CH, sub, W,
-                                                          dst);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0 || split == 1) return err;
-  gather_rowsum_finish_kernel<<<(n_chunks + kThreads - 1) / kThreads, kThreads,
-                                0, s>>>(static_cast<const uint32_t*>(part),
-                                        n_chunks, split,
-                                        static_cast<uint32_t*>(out));
+    gather_rowsum_kernel<false><<<blocks, kRowsumThreads, 0, s>>>(
+        t, last_row, i, N, CH, W, n_warps, o);
   DBG_RETURN_LAUNCH_STATUS();
+}
+
+// K10's resident blocks per SM (its occupancy at kRowsumThreads threads),
+// for 16-byte vectors (vec) or words
+extern "C" int dbg_gather_rowsum_occupancy(int vec) {
+  int n = 0;
+  const cudaError_t e =
+      vec ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, gather_rowsum_kernel<true>, kRowsumThreads, 0)
+          : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                &n, gather_rowsum_kernel<false>, kRowsumThreads, 0);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
 }
 
 namespace {

@@ -20,31 +20,46 @@
 
 namespace dbg {
 
-// key (hi, lo) -> slot in [0, n), or a negative value: not found.  A key
-// outside the build set may alias another key's slot; callers verify
-// against the key stored at the slot.
-__device__ __forceinline__ int mphf_slot(const uint32_t* __restrict__ rows,
-                                         const uint32_t* __restrict__ frows,
-                                         const MphfMeta& mt, uint32_t hi,
-                                         uint32_t lo) {
-  for (int lvl = 0; lvl < mt.n_levels; ++lvl) {
-    const uint32_t pos =
-        mix32(hi ^ mt.seed_hi[lvl], lo ^ mt.seed_lo[lvl]) & mt.mask[lvl];
-    const uint32_t w = pos >> 5;
-    const uint32_t sh = pos & 31u;
-    const uint32_t* row =
-        rows + (static_cast<size_t>(mt.row_off[lvl]) + (w >> 2)) * 5;
-    const int wsel = static_cast<int>(w & 3u);
-    const uint32_t word = row[1 + wsel];
-    if ((word >> sh) & 1u) {
-      // rank = bits set before pos: the group's base, the full words
-      // below the selected one, and the selected word below bit sh
-      int rank = static_cast<int>(row[0]);
-      for (int j = 0; j < wsel; ++j) rank += __popc(row[1 + j]);
-      rank += __popc(word & ((1u << sh) - 1u));
-      return rank;
-    }
-  }
+// The lookup in two steps, so that a thread can have the row loads of
+// several keys in flight before it tests any of them (csrc/mphf.cu):
+// the address step (`mphf_probe`): the key's rank-group row at a level
+// and the word and bit of its position there; the test step
+// (`mphf_hit`, then `mphf_rank`): whether that bit is set in the row's
+// word 1 + wsel, and the slot it gives.  `mphf_slot` is the same two
+// steps level after level.
+struct MphfProbe {
+  const uint32_t* row;
+  int wsel;
+  uint32_t sh;
+};
+
+__device__ __forceinline__ MphfProbe mphf_probe(
+    const uint32_t* __restrict__ rows, const MphfMeta& mt, int lvl,
+    uint32_t hi, uint32_t lo) {
+  const uint32_t pos =
+      mix32(hi ^ mt.seed_hi[lvl], lo ^ mt.seed_lo[lvl]) & mt.mask[lvl];
+  const uint32_t w = pos >> 5;
+  return {rows + (static_cast<size_t>(mt.row_off[lvl]) + (w >> 2)) * 5,
+          static_cast<int>(w & 3u), pos & 31u};
+}
+
+// `word`: the probe's row word 1 + wsel
+__device__ __forceinline__ bool mphf_hit(const MphfProbe& p, uint32_t word) {
+  return (word >> p.sh) & 1u;
+}
+
+// rank = bits set before the position: the group's base, the full words
+// below the selected one, and the selected word below bit sh
+__device__ __forceinline__ int mphf_rank(const MphfProbe& p, uint32_t word) {
+  int rank = static_cast<int>(p.row[0]);
+  for (int j = 0; j < p.wsel; ++j) rank += __popc(p.row[1 + j]);
+  return rank + __popc(word & ((1u << p.sh) - 1u));
+}
+
+// the two-choice final table of the keys that miss every level
+__device__ __forceinline__ int mphf_final(const uint32_t* __restrict__ frows,
+                                          const MphfMeta& mt, uint32_t hi,
+                                          uint32_t lo) {
   int fval = -1;
   if (mt.has_final) {
     // values of every matching slot are summed, as the JAX masked
@@ -67,6 +82,29 @@ __device__ __forceinline__ int mphf_slot(const uint32_t* __restrict__ rows,
     }
   }
   return fval;
+}
+
+// the lookup from level `first` on: the first level whose bit is set,
+// else the final table
+__device__ __forceinline__ int mphf_slot_from(
+    const uint32_t* __restrict__ rows, const uint32_t* __restrict__ frows,
+    const MphfMeta& mt, uint32_t hi, uint32_t lo, int first) {
+  for (int lvl = first; lvl < mt.n_levels; ++lvl) {
+    const MphfProbe p = mphf_probe(rows, mt, lvl, hi, lo);
+    const uint32_t word = p.row[1 + p.wsel];
+    if (mphf_hit(p, word)) return mphf_rank(p, word);
+  }
+  return mphf_final(frows, mt, hi, lo);
+}
+
+// key (hi, lo) -> slot in [0, n), or a negative value: not found.  A key
+// outside the build set may alias another key's slot; callers verify
+// against the key stored at the slot.
+__device__ __forceinline__ int mphf_slot(const uint32_t* __restrict__ rows,
+                                         const uint32_t* __restrict__ frows,
+                                         const MphfMeta& mt, uint32_t hi,
+                                         uint32_t lo) {
+  return mphf_slot_from(rows, frows, mt, hi, lo, 0);
 }
 
 // the row of `t.vrows` (`cols` words wide) at the key's slot when the

@@ -23,19 +23,22 @@ tests hold equal to the Pallas body in interpret mode.  Two `out_shape`s
 of the scripts are not carried over: `kern` declares N // G output rows
 while its grid writes G rows per step, and both archive calls declare one
 tile of output while their grid has B // TILE steps; the outputs here are
-[n * G, W] and [B].  The kernels are csrc/gather.cu; K11 and K12 do the
-gather `reps` times, as the Pallas bodies do, from shared memory, under
-a plan made here on the host (`gather_plan`: the table in slices, the
-direct or the bucketed path, the entry width, the grids).  On the card,
-K9 and K10 do not range-check their indices; K11 and K12 take an index
-outside [0, NB) as NB - 1 (`in_table`), so that a stray one stays
-inside their buffers.  The plain versions index as torch does.
+[n * G, W] and [B].  The kernels are csrc/gather.cu.  K10 is one launch
+of a persistent grid whose warps take equal ranges of rows
+(`rowsum_plan`); K11 and K12 do the gather `reps` times, as the Pallas
+bodies do, from shared memory, under a plan made here on the host
+(`gather_plan`: the table in slices, the direct or the bucketed path,
+the entry width, the grids).  On the card, K9 does not range-check its
+indices; K10, K11 and K12 take an index outside [0, NB) as NB - 1
+(`in_table`), so that a stray one stays inside their buffers.  The
+plain versions index as torch does.
 
 Each wrapper checks its arguments, allocates its output (K11 and K12
 also their plan's scratch, `gather_scratch`) and calls its `launch_*`
-function, which is the bound C entry point on tensors the caller holds
-and nothing more: what a measurement of the kernel alone calls back to
-back (tools/exp_gather.py).  Only the wrappers count launches.
+function (K10: `rowsum_launch`), which is the bound C entry point on
+tensors the caller holds and nothing more: what a measurement of the
+kernel alone calls back to back (tools/exp_gather.py).  Only the
+wrappers count launches.
 """
 
 from __future__ import annotations
@@ -49,10 +52,10 @@ import torch
 from ..kernels import build
 from .kmer import M32
 
-# K10: blocks per SM aimed at when a chunk is split, and the fewest rows
-# a block is given
-ROWSUM_BLOCKS_PER_SM = 8
-ROWSUM_MIN_ROWS = 64
+# K10: warps per block (csrc/gather.cu kRowsumThreads / 32) and the rows
+# of one index window, the fewest a warp is given where N allows
+ROWSUM_WARPS = 8
+ROWSUM_WINDOW = 32
 # rows of idx gathered at a time by the plain K11 (bounds its int64 rows)
 _REF_ROWS = 4096
 # K11 / K12 (`gather_plan`)
@@ -115,8 +118,8 @@ def gather_take_sum_ref(tbl1: torch.Tensor, idx: torch.Tensor,
 
 
 def in_table(idx: torch.Tensor, NB: int) -> torch.Tensor:
-    """The indices K11 and K12 take on the card for idx into a table of
-    NB rows: any outside [0, NB) as NB - 1."""
+    """The indices K10, K11 and K12 take on the card for idx into a table
+    of NB rows: any outside [0, NB) as NB - 1."""
     return torch.where((idx < 0) | (idx >= NB), NB - 1, idx)
 
 
@@ -163,11 +166,52 @@ def _card_of(dev: torch.device) -> tuple[int, int]:
                  else dev.index)
 
 
-def rowsum_split(n_chunks: int, CH: int, dev: torch.device) -> int:
-    """Blocks that share one chunk of K10 on `dev`."""
-    sms = _card_of(dev)[0]
-    return max(1, min(CH // ROWSUM_MIN_ROWS,
-                      -(-ROWSUM_BLOCKS_PER_SM * sms // n_chunks)))
+@dataclass(frozen=True)
+class RowsumPlan:
+    """K10's one launch: `blocks` blocks of ROWSUM_WARPS warps, of which
+    the first `warps` take rows [N w / warps, N (w + 1) / warps) each and
+    add the sum of each chunk's segment of them into out."""
+    blocks: int
+    warps: int
+
+
+def rowsum_plan(N: int, CH: int, sms: int, resident: int) -> RowsumPlan:
+    """K10 over N = n_chunks * CH rows on a card of `sms` SMs that holds
+    `resident` of its blocks per SM: a persistent grid of resident x sms
+    blocks (one wave), fewer where N would give a warp less than one
+    index window of rows."""
+    if CH < 1 or N < CH or N % CH:
+        raise ValueError(f"{N} rows are not a whole number of chunks of "
+                         f"{CH}")
+    if resident < 1:
+        raise ValueError("the K10 kernel fits no block on an SM")
+    warps = max(1, min(resident * sms * ROWSUM_WARPS,
+                       -(-N // ROWSUM_WINDOW)))
+    return RowsumPlan(blocks=-(-warps // ROWSUM_WARPS), warps=warps)
+
+
+def rowsum_vec(tbl: torch.Tensor) -> bool:
+    """K10 moves 16-byte vectors (else words): csrc/gather.cu vec_ok."""
+    return tbl.shape[1] % 4 == 0 and tbl.data_ptr() % 16 == 0
+
+
+@functools.lru_cache(maxsize=None)
+def _rowsum_resident(index: int, vec: bool) -> int:
+    """K10's resident blocks per SM on CUDA device `index` (its own
+    occupancy), asked once per device and load width."""
+    with torch.cuda.device(index):
+        n = build.load().dbg_gather_rowsum_occupancy(int(vec))
+    if n < 0:
+        build.check(-n, "gather_rowsum occupancy")
+    return n
+
+
+def plan_rowsum(tbl: torch.Tensor, idx: torch.Tensor, CH: int) -> RowsumPlan:
+    """K10's plan for tbl and idx on idx's card."""
+    dev = idx.device
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    return rowsum_plan(idx.shape[0], CH, _card(index)[0],
+                       _rowsum_resident(index, rowsum_vec(tbl)))
 
 
 def launch_gather_rows(tbl, idx, G: int, out, lib=None) -> None:
@@ -177,13 +221,13 @@ def launch_gather_rows(tbl, idx, G: int, out, lib=None) -> None:
     build.check(err, "gather_rows")
 
 
-def launch_gather_rowsum(tbl, idx, CH: int, split: int, part, out,
-                         lib=None) -> None:
-    """`part` holds n_chunks * split words when split > 1."""
-    err = (lib or build.load()).dbg_gather_rowsum(
-        tbl.data_ptr(), idx.data_ptr(), idx.shape[0] // CH, CH, tbl.shape[1],
-        split, part.data_ptr(), out.data_ptr(), build.stream_ptr(idx.device))
-    build.check(err, "gather_rowsum")
+def rowsum_launch(tbl, idx, CH: int, plan: RowsumPlan, out) -> build.Launch:
+    """K10 on these tensors as one `build.Launch`, its arguments (the
+    stream too) bound now: the C entry point zeroes out, then launches."""
+    return build.Launch("gather_rowsum", "dbg_gather_rowsum", (
+        tbl.data_ptr(), tbl.shape[0], idx.data_ptr(), idx.shape[0] // CH, CH,
+        tbl.shape[1], plan.blocks, plan.warps, out.data_ptr(),
+        build.stream_ptr(idx.device)), (tbl, idx, out))
 
 
 @dataclass(frozen=True)
@@ -386,10 +430,7 @@ def gather_rowsum(tbl: torch.Tensor, idx: torch.Tensor,
     n_chunks = _n_chunks(idx, CH)
     out = torch.empty((n_chunks, 1), dtype=torch.int32, device=dev)
     if n_chunks:
-        split = rowsum_split(n_chunks, CH, dev)
-        part = torch.empty(n_chunks * split if split > 1 else 0,
-                           dtype=torch.int32, device=dev)
-        launch_gather_rowsum(tbl, idx, CH, split, part, out)
+        rowsum_launch(tbl, idx, CH, plan_rowsum(tbl, idx, CH), out)()
         build.count("gather_rowsum")
     return out
 

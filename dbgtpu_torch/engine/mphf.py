@@ -10,15 +10,20 @@ key outside the build set may alias another key's slot, so every caller
 verifies against the key stored at the slot (`mphf_rows_ref`; in CUDA
 csrc/mphf.cuh mphf_row).
 
-The kernel is csrc/mphf.cu (one thread per query); the mapping kernels
-call the same device function inline.  `mphf_slot_ref` is the plain
+The kernel is csrc/mphf.cu (`mphf_plan`: 1, 2 or 4 queries a thread,
+their row loads in flight together, and the block size); the mapping
+kernels call the same device function inline.  `mphf_slot_ref` is the plain
 torch version: like the JAX one it evaluates every level for every
-query.
+query.  The kernel's check mode (`mphf_check`, plain version
+`mphf_check_ref`) counts the stored keys of an MPHF-backed table that
+come back at another slot than their row: the check of each table at
+upload (`check_mphf_table`), one launch and a 4-byte read per table.
 """
 
 from __future__ import annotations
 
 import ctypes
+from dataclasses import dataclass
 from typing import TYPE_CHECKING
 
 import torch
@@ -30,8 +35,50 @@ if TYPE_CHECKING:
     from .index import MphfMeta
 
 _H2A, _H2B = 0x7FEB352D, 0x846CA68B
-# stored keys looked up per K7 launch by check_mphf_table
+# stored keys the plain check looks up at a time (bounds host memory)
 CHECK_CHUNK = 1 << 22
+# an H100 SM's most resident threads, and K7's most threads per block
+# (csrc/mphf.cu kThreads) and fewest
+SM_THREADS, MPHF_THREADS, MPHF_MIN_THREADS = 2048, 256, 64
+
+
+@dataclass(frozen=True)
+class MphfPlan:
+    """K7's launch: `per_thread` keys a thread (1, 2 or 4) in blocks of
+    `threads`."""
+    per_thread: int
+    threads: int
+
+
+def mphf_block(n: int, per_thread: int, sms: int) -> int:
+    """Threads per block for n keys at `per_thread` a thread on `sms`
+    SMs: MPHF_THREADS, halved down to MPHF_MIN_THREADS while the blocks
+    would not reach every SM twice, so that a small table spreads over
+    the whole card."""
+    threads = MPHF_THREADS
+    while (threads > MPHF_MIN_THREADS
+           and -(-n // (per_thread * threads)) < 2 * sms):
+        threads //= 2
+    return threads
+
+
+def mphf_plan(n: int, sms: int) -> MphfPlan:
+    """K7's launch for n keys on `sms` SMs: 2 keys a thread where that
+    still leaves every SM a full set of resident threads (n >= 2 * sms *
+    SM_THREADS), else 1 (a small table is a launch and two dependent
+    trips, which more keys a thread only lengthen).  The kernel also
+    takes 4 keys a thread, which measured slower than 2 on an H100 at
+    every table size tried (48 registers, 40 warps per SM; PERF.md);
+    chip_smoke.py times it beside the plan."""
+    per_thread = 2 if n >= 2 * sms * SM_THREADS else 1
+    return MphfPlan(per_thread, mphf_block(n, per_thread, sms))
+
+
+def plan_mphf(n: int, dev: torch.device) -> MphfPlan:
+    """`mphf_plan` for n keys on CUDA device `dev`."""
+    from .gather import _card_of
+
+    return mphf_plan(n, _card_of(dev)[0])
 
 
 def mix32b_ref(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
@@ -92,6 +139,45 @@ def mphf_slot_ref(rows: torch.Tensor, frows: torch.Tensor, meta: MphfMeta,
     return res.to(torch.int32)
 
 
+def _tables_on(dev: torch.device, rows, frows, meta: MphfMeta) -> None:
+    """Raise unless K7 takes these MPHF tensors on CUDA device `dev`."""
+    if dev.type != "cuda":
+        raise ValueError(f"no mphf_slots kernel for device {dev}")
+    if rows.device != dev or frows.device != dev:
+        raise ValueError("the MPHF tables and the keys must share a device")
+    if rows.dtype != torch.int32 or frows.dtype != torch.int32:
+        raise TypeError("the MPHF tables must be int32")
+    if rows.shape[1:] != (5,) or frows.shape[1:] != (12,):
+        raise ValueError("rows must be [ng, 5] and frows [nbf, 12]")
+    if meta.n_levels and not rows.shape[0]:
+        raise ValueError("the MPHF has levels but no rank-group rows")
+    if meta.final_nb != frows.shape[0]:
+        raise ValueError("frows does not have meta.final_nb buckets")
+
+
+def mphf_slots_launch(rows, frows, meta: MphfMeta, keys, out,
+                      plan: MphfPlan) -> build.Launch:
+    """K7 on checked CUDA tensors (keys int64, n > 0, out int32 of keys'
+    size, both contiguous) as one `build.Launch`, its stream bound now."""
+    return build.Launch("mphf_slots", "dbg_mphf_slots", (
+        rows.data_ptr(), frows.data_ptr(), ctypes.addressof(meta.c_struct),
+        keys.data_ptr(), keys.numel(), plan.per_thread, plan.threads,
+        out.data_ptr(), build.stream_ptr(keys.device)),
+        (rows, frows, keys, out, meta))
+
+
+def mphf_check_launch(rows, frows, vrows, meta: MphfMeta, bad,
+                      plan: MphfPlan) -> build.Launch:
+    """K7's check mode on checked CUDA tensors (vrows int32 [n, cols], n
+    > 0, contiguous; bad int32 [1]) as one `build.Launch`, its stream
+    bound now."""
+    return build.Launch("mphf_slots", "dbg_mphf_check", (
+        rows.data_ptr(), frows.data_ptr(), ctypes.addressof(meta.c_struct),
+        vrows.data_ptr(), vrows.shape[1], vrows.shape[0], plan.per_thread,
+        plan.threads, bad.data_ptr(), build.stream_ptr(vrows.device)),
+        (rows, frows, vrows, bad, meta))
+
+
 def mphf_slots(rows: torch.Tensor, frows: torch.Tensor, meta: MphfMeta,
                keys: torch.Tensor) -> torch.Tensor:
     """K7 on the keys' device: the kernel on CUDA, the plain version on
@@ -99,50 +185,72 @@ def mphf_slots(rows: torch.Tensor, frows: torch.Tensor, meta: MphfMeta,
     dev = keys.device
     if dev.type == "cpu":
         return mphf_slot_ref(rows, frows, meta, keys)
-    if dev.type != "cuda":
-        raise ValueError(f"no mphf_slots kernel for device {dev}")
-    if rows.device != dev or frows.device != dev:
-        raise ValueError("rows, frows and keys must share a device")
-    if (keys.dtype != torch.int64 or rows.dtype != torch.int32
-            or frows.dtype != torch.int32):
-        raise TypeError("keys must be int64 and the tables int32")
-    if rows.shape[1:] != (5,) or frows.shape[1:] != (12,):
-        raise ValueError("rows must be [ng, 5] and frows [nbf, 12]")
-    if meta.n_levels and not rows.shape[0]:
-        raise ValueError("the MPHF has levels but no rank-group rows")
-    if meta.final_nb != frows.shape[0]:
-        raise ValueError("frows does not have meta.final_nb buckets")
-    rows, frows, keys = rows.contiguous(), frows.contiguous(), keys.contiguous()
+    rows, frows = rows.contiguous(), frows.contiguous()
+    _tables_on(dev, rows, frows, meta)
+    if keys.dtype != torch.int64:
+        raise TypeError("keys must be int64")
+    keys = keys.contiguous()
     out = torch.empty(keys.shape, dtype=torch.int32, device=dev)
-    n = keys.numel()
-    if n:
-        lib = build.load()
-        err = lib.dbg_mphf_slots(
-            rows.data_ptr(), frows.data_ptr(),
-            ctypes.addressof(meta.c_struct),
-            keys.data_ptr(), n, out.data_ptr(), build.stream_ptr(dev))
-        build.check(err, "mphf_slots")
+    if keys.numel():
+        mphf_slots_launch(rows, frows, meta, keys, out,
+                          plan_mphf(keys.numel(), dev))()
         build.count("mphf_slots")
     return out
 
 
+def mphf_check_ref(rows, frows, vrows, meta: MphfMeta) -> int:
+    """Plain version of K7's check mode: how many of the keys stored in
+    `vrows` (the first two words of each row) `mphf_slot_ref` sends to
+    another slot than their row, over the whole table, CHECK_CHUNK keys
+    at a time."""
+    n, bad = vrows.shape[0], 0
+    for s0 in range(0, n, CHECK_CHUNK):
+        part = vrows[s0 : s0 + CHECK_CHUNK, :2].to(torch.int64) & M32
+        slots = mphf_slot_ref(rows, frows, meta,
+                              (part[:, 0] << 32) | part[:, 1])
+        want = torch.arange(s0, s0 + part.shape[0], dtype=torch.int32,
+                            device=slots.device)
+        bad += int((slots != want).sum())
+    return bad
+
+
+def mphf_check(rows, frows, vrows, meta: MphfMeta) -> int:
+    """K7's check mode on vrows's device (int32 [n, cols], the key's hi
+    and lo words first): how many stored keys come back at another slot
+    than their row.  The kernel on CUDA (one launch, counted as
+    mphf_slots, and a 4-byte read), the plain version on the CPU, an
+    error anywhere else."""
+    dev = vrows.device
+    if dev.type == "cpu":
+        return mphf_check_ref(rows, frows, vrows, meta)
+    rows, frows = rows.contiguous(), frows.contiguous()
+    _tables_on(dev, rows, frows, meta)
+    if vrows.dtype != torch.int32 or vrows.dim() != 2 or vrows.shape[1] < 2:
+        raise ValueError("vrows must be int32 [n, cols >= 2]")
+    if not vrows.shape[0]:
+        return 0
+    vrows = vrows.contiguous()
+    bad = torch.empty(1, dtype=torch.int32, device=dev)
+    mphf_check_launch(rows, frows, vrows, meta, bad,
+                      plan_mphf(vrows.shape[0], dev))()
+    build.count("mphf_slots")
+    return int(bad.item())
+
+
 def check_mphf_table(rows, frows, vrows, meta: MphfMeta, what: str) -> None:
     """An MPHF-backed table as it lies on its device: every key stored in
-    `vrows` (its first two words) must come back from `mphf_slots` at its
-    own row, CHECK_CHUNK keys per launch.  Raises ValueError otherwise."""
+    `vrows` (its first two words) must come back from the lookup at its
+    own row (`mphf_check`: on CUDA one K7 launch for the whole table).
+    Raises ValueError otherwise, naming the table and the count of keys
+    at the wrong slot."""
     n = vrows.shape[0]
     if n != meta.n_keys:
         raise ValueError(f"the {what} MPHF has {meta.n_keys} keys and its "
                          f"table {n} rows")
-    for s0 in range(0, n, CHECK_CHUNK):
-        part = vrows[s0 : s0 + CHECK_CHUNK, :2].to(torch.int64) & M32
-        slots = mphf_slots(rows, frows, meta, (part[:, 0] << 32) | part[:, 1])
-        want = torch.arange(s0, s0 + part.shape[0], dtype=torch.int32,
-                            device=slots.device)
-        if not torch.equal(slots, want):
-            bad = int((slots != want).sum())
-            raise ValueError(f"the {what} MPHF on {slots.device} returns "
-                             f"{bad} of its own keys at the wrong slot")
+    bad = mphf_check(rows, frows, vrows, meta)
+    if bad:
+        raise ValueError(f"the {what} MPHF on {vrows.device} returns "
+                         f"{bad} of its own keys at the wrong slot")
 
 
 def mphf_rows_ref(rows, frows, vrows, meta: MphfMeta, keys):

@@ -14,8 +14,9 @@ and `check` raises when it is not 0.
 
 Each kernel has a plain-integer launch counter in `launches`; a wrapper
 adds one where it launches its kernel and nowhere else.  `mphf_slots`
-counts launches of K7's standalone kernel only (the check of each MPHF
-table at upload, engine/mphf.py check_mphf_table); the mapping kernels
+counts launches of K7's standalone kernel only (its lookup, and its
+check mode: the check of each MPHF table at upload, one launch per
+table, engine/mphf.py check_mphf_table); the mapping kernels
 run the same device function (csrc/mphf.cuh) inline under an MPHF
 layout and count as themselves.  The gather kernels K9-K12
 (csrc/gather.cu, engine/gather.py) are launched by tools/exp_gather.py
@@ -84,10 +85,13 @@ _ARGTYPES = {
     "dbg_exhaustive_dfs": [_P, _P, _P, _P, _I, _I, _I,
                            _P, _I, _I, _I, _I,
                            _P, _P, _P, _P, _P, _P, _P, _P],
-    "dbg_mphf_slots": [_P, _P, _P, _P, _LL, _P, _P],
+    "dbg_mphf_slots": [_P, _P, _P, _P, _LL, _I, _I, _P, _P],
+    "dbg_mphf_check": [_P, _P, _P, _P, _I, _LL, _I, _I, _P, _P],
+    "dbg_empty": [_P],
     "dbg_compact_result": [_P, _I, _I, _I, _P, _P, _P, _P],
     "dbg_gather_rows": [_P, _P, _LL, _I, _I, _P, _P],
-    "dbg_gather_rowsum": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "dbg_gather_rowsum": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    "dbg_gather_rowsum_occupancy": [_I],
     "dbg_gather_rows_sum": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I,
                             _P, _P],
     "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
@@ -274,17 +278,23 @@ def load() -> ctypes.CDLL:
 
 def load_from(csrc: Path) -> ctypes.CDLL:
     """The kernels of another source tree (`csrc`: a `dbgtpu_torch/csrc`
-    directory with the same C entry points and index struct), built into
-    its own library beside this tree's: what a measurement compares this
-    tree's kernels with.  No wrapper launches it."""
-    return _open(build(Path(csrc).resolve()))
+    directory with the same index struct and the C entry points of its
+    time; an entry point it does not have stays unbound, and one whose
+    arguments changed since is launched through kernels/measure.py
+    `on`), built into its own library beside this tree's:
+    what a measurement compares this tree's kernels with.  No wrapper
+    launches it."""
+    return _open(build(Path(csrc).resolve()), older=True)
 
 
-def _open(path: Path) -> ctypes.CDLL:
+def _open(path: Path, older: bool = False) -> ctypes.CDLL:
     """Bind a built kernel library's entry points and check that it
-    agrees with this module on the struct sizes and the K8 tile."""
+    agrees with this module on the struct sizes and the K8 tile
+    (`older`: another tree's, which may lack entry points)."""
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _ARGTYPES.items():
+        if older and not hasattr(lib, name):
+            continue
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

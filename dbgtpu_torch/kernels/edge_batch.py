@@ -32,10 +32,18 @@ RESULT_BATCHES (one row, K8's 256-row tile +- 1, and more tiles than
 the card holds blocks at once) and the pmax of RESULT_PMAX (rows
 narrower and wider than a warp).
 
-`edge_cases()`, `pack_walks` and `fused_rows` are numpy alone (no
-torch, no test helper): chip_smoke.py holds the kernels against their
-plain versions on them, and the CPU tests hold the plain versions
-against the JAX package on the same cases.
+K11 and K12 take the edges of their plan (`gather_edges`), K10 those
+of its one-launch schedule (`rowsum_edges`: chunk sizes around a warp's
+index window, chunk counts around the grid's warp count, warp ranges
+that cross chunk boundaries or end on them, row widths on both load
+paths, stray indices, sums that wrap), and K7's check mode tables of
+0, 1, 31 and 33 keys and one whose keys reach the final table
+(`mphf_check_tables`).
+
+`edge_cases()`, `pack_walks`, `fused_rows` and the gather and MPHF
+edges are numpy alone (no torch, no test helper): chip_smoke.py holds
+the kernels against their plain versions on them, and the CPU tests
+hold the plain versions against the JAX package on the same cases.
 """
 
 from __future__ import annotations
@@ -397,3 +405,106 @@ def gather_edge_inputs(seed: int, case: GatherEdge, W: int, S: int):
     else:
         raise ValueError(case.pattern)
     return buf, idx.astype(np.int32)
+
+
+# K10 gather_rowsum: the edges of its one-launch schedule
+# (engine/gather.py rowsum_plan) on a card whose full grid has `warps`
+# warps: rows [N w / warps, N (w + 1) / warps) per warp, tiles of 32 rows
+# cut at chunk boundaries, 16-byte vectors where W % 4 == 0 and the
+# table is 16-byte aligned, else words.
+@dataclass(frozen=True)
+class RowsumEdge:
+    name: str
+    NB: int             # table rows
+    W: int              # words per row
+    CH: int
+    n_chunks: int
+    pattern: str = "uniform"   # "ends": only rows 0 and NB - 1;
+    #                            "out_of_range": a quarter of the indices
+    #                            outside [0, NB) (taken as NB - 1);
+    #                            "ones": every table word 0xFFFFFFFF
+    offset: int = 0     # the table starts this many words into its buffer
+
+
+def rowsum_edges(warps: int) -> list[RowsumEdge]:
+    """CH = 1, 31, 32, 33, 4,095 and 4,097; one and two chunks; chunk
+    counts one below and one above the grid's warp count (CH = 33: every
+    warp's range crosses a boundary), ranges that end exactly on chunk
+    boundaries (CH = 64, as many chunks as warps) and ranges that cross
+    one (CH = 100, 7 chunks more); W = 1, 3, 4, 24 and 25; a table off
+    a 16-byte boundary; one row; indices 0 and NB - 1 only; indices
+    outside the table; all-ones rows, so that every sum wraps."""
+    return [
+        *(RowsumEdge(f"CH{ch}", 1000, 24, ch, 3) for ch in
+          (1, 31, 32, 33, 4095, 4097)),
+        RowsumEdge("one_chunk", 1000, 24, 4096, 1),
+        RowsumEdge("two_chunks", 1000, 24, 4096, 2),
+        RowsumEdge("chunks_warps-1", 1000, 24, 33, warps - 1),
+        RowsumEdge("chunks_warps+1", 1000, 24, 33, warps + 1),
+        RowsumEdge("ranges_on_boundaries", 1000, 24, 64, warps),
+        RowsumEdge("ranges_across_boundaries", 1000, 24, 100, warps + 7),
+        *(RowsumEdge(f"W{w}", 777, w, 33, 40) for w in (1, 3, 4, 24, 25)),
+        RowsumEdge("unaligned", 1000, 24, 4095, 3, offset=1),
+        RowsumEdge("NB1", 1, 24, 31, 5),
+        RowsumEdge("ends", 1000, 24, 33, 70, "ends"),
+        RowsumEdge("out_of_range", 1000, 24, 33, 70, "out_of_range"),
+        RowsumEdge("out_of_range_words", 1000, 25, 33, 70, "out_of_range"),
+        RowsumEdge("ones", 50, 24, 4097, 3, "ones"),
+    ]
+
+
+def rowsum_edge_inputs(seed: int, case: RowsumEdge):
+    """(buffer, idx): uint32 words [offset + NB * W] whose table is
+    buffer[offset:] viewed as [NB, W], and int32 indices [n_chunks * CH]
+    of the case's pattern."""
+    rng = np.random.default_rng(seed)
+    n_words = case.offset + case.NB * case.W
+    buf = (np.full(n_words, 0xFFFFFFFF, np.uint32) if case.pattern == "ones"
+           else rng.integers(0, 1 << 32, size=n_words,
+                             dtype=np.uint64).astype(np.uint32))
+    n = case.n_chunks * case.CH
+    if case.pattern == "ends":
+        idx = np.where(rng.random(n) < 0.5, 0, case.NB - 1)
+    elif case.pattern == "out_of_range":
+        stray = np.array([case.NB, case.NB + 1, -1, (1 << 31) - 1, -1 << 31])
+        idx = np.where(rng.random(n) < 0.25,
+                       stray[rng.integers(0, stray.size, size=n)],
+                       rng.integers(0, case.NB, size=n))
+    elif case.pattern in ("uniform", "ones"):
+        idx = rng.integers(0, case.NB, size=n)
+    else:
+        raise ValueError(case.pattern)
+    return buf, idx.astype(np.int32)
+
+
+# K7's check mode: stored keys of MPHF-backed tables, each row's first two
+# words the key's hi and lo words at the slot the MPHF gives it
+MPHF_CHECK_SIZES = (0, 1, 31, 33)
+MPHF_CHECK_COLS = 5
+
+
+def mphf_check_tables(seed: int = EDGE_SEED):
+    """[(name, mphf, vrows uint32 [n, MPHF_CHECK_COLS])]: tables of
+    MPHF_CHECK_SIZES keys (gamma 2) and one of 2,000 keys at gamma 1 with
+    two levels, whose keys reach the final table; every stored key at
+    its own slot."""
+    from ..index.mphf import build_mphf
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for name, n, kw in (
+            *((f"{n} keys", n, dict(gamma=2.0)) for n in MPHF_CHECK_SIZES),
+            ("tight gamma (final table)", 2000,
+             dict(gamma=1.0, max_levels=2))):
+        keys = np.unique(rng.integers(0, 1 << 62, size=n, dtype=np.uint64))
+        while keys.size < n:
+            keys = np.unique(np.concatenate([keys, rng.integers(
+                0, 1 << 62, size=n - keys.size, dtype=np.uint64)]))
+        m = build_mphf(keys, **kw)
+        vrows = rng.integers(0, 1 << 32, size=(n, MPHF_CHECK_COLS),
+                             dtype=np.uint64).astype(np.uint32)
+        slots = m.lookup(keys).astype(np.int64)
+        vrows[slots, 0] = (keys >> np.uint64(32)).astype(np.uint32)
+        vrows[slots, 1] = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+        out.append((name, m, vrows))
+    return out

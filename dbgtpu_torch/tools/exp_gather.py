@@ -38,9 +38,14 @@ allocated once, which must equal the wrapper's result; one call through
 the wrapper, with its checks and allocations, is printed beside it.  The
 rows per second of kernel and library call count the function's rows
 once on both sides (K11 and K12 read them 8 times over), and the bound
-is printed last.  `--baseline-csrc DIR` builds the kernels of DIR (another
-tree's dbgtpu_torch/csrc, older K11 / K12 entry points included) and
-times them alone in turns with these (baseline, this, this, baseline).
+is printed last.  K10, whose launch is short, is also timed by the
+device alone: its launches captured once into a CUDA graph and replayed
+between the events (kernels/measure.py graph_ms), beside the same timer
+on a kernel that does nothing (the launch floor, printed first).
+`--baseline-csrc DIR` builds the kernels of DIR (another tree's
+dbgtpu_torch/csrc, older K10, K11 and K12 entry points included) and
+times them alone in turns with these (baseline, this, this, baseline),
+K10 with both timers.
 `--turns N` times each kernel alone and its library call in N pairs of
 turns (kernel first in even pairs, the library call first in odd ones)
 and prints how many pairs the kernel won, with the spread of both.
@@ -51,12 +56,13 @@ control flow is checked: a small geometry, no timing.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import sys
 
 import numpy as np
 
-from ..kernels.measure import bound_ms, cuda_ms
+from ..kernels.measure import (
+    bound_ms, cuda_ms, graph_ms, in_turns, launch_floor_ms, on,
+)
 
 REPS = 8                        # gathers per launch of K11 and K12
 
@@ -109,43 +115,15 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# K11 and K12 in kernel sources from before the slice plan (what
-# --baseline-csrc may name): one pass, no plan and no scratch
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_SINGLE_PASS_ARGTYPES = {
-    "dbg_gather_rows_sum": [_P, _P, _I, _I, _I, _I, _P, _P],
-    "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
-}
-
-
-def _single_pass(lib, entry: str, tbl, idx, out):
-    """launch(): `entry` of an older library, which took (tbl, idx, B, J,
-    W, reps, out, stream) for K11 and (tbl1, NB, idx, B, J, reps, blocks,
-    shared memory limit, out, stream) for K12."""
-    from ..engine import gather as G
-    from ..kernels import build
-
-    fn = lib[entry]                  # a fresh binding: its own argtypes
-    fn.argtypes, fn.restype = _SINGLE_PASS_ARGTYPES[entry], ctypes.c_int
-    B, J = idx.shape
-    stream = build.stream_ptr(idx.device)
-    if entry == "dbg_gather_rows_sum":
-        args = (tbl.data_ptr(), idx.data_ptr(), B, J, tbl.shape[1], REPS,
-                out.data_ptr(), stream)
-    else:
-        sms, smem = G._card_of(idx.device)
-        args = (tbl.data_ptr(), tbl.shape[0], idx.data_ptr(), B, J, REPS,
-                sms, smem, out.data_ptr(), stream)
-    return lambda: build.check(fn(*args), entry)
-
-
 def cases(inp: dict) -> list[dict]:
     """One entry per kernel run on `inp`: its wrapper, plain version and
     library call; `alone(lib=None)` -> (launch, out), the bare C entry
-    point of `lib` (default: this tree's kernels) on outputs and scratch
-    allocated once (CUDA only); K11 and K12 also their `plan()`; the rows
-    of the function; and the cost that bounds it (`bound`: bytes streamed
-    once, bytes of table rows touched, the table's bytes, integer
+    point of `lib` (default: this tree's kernels; an older tree's through
+    kernels/measure.py `on`) on outputs and scratch allocated once (CUDA
+    only); K11 and K12 also their `plan()`; K10
+    `graph`: it is also timed by the graph timer; the rows of the
+    function; and the cost that bounds it (`bound`: bytes streamed once,
+    bytes of table rows touched, the table's bytes, integer
     operations)."""
     import torch
 
@@ -169,24 +147,23 @@ def cases(inp: dict) -> list[dict]:
         return (lambda: G.launch_gather_rows(tbl, ix, g, out, lib)), out
 
     def alone_rowsum(lib=None):
-        split = G.rowsum_split(N // CH, CH, idx.device)
-        part = empty(N // CH * split if split > 1 else 0)
+        """K10 through `lib`'s entry point, its arguments and the current
+        stream bound once."""
         out = empty(N // CH, 1)
-        return (lambda: G.launch_gather_rowsum(tbl, idx, CH, split, part,
-                                               out, lib)), out
+        return on(lib, G.rowsum_launch(
+            tbl, idx, CH, G.plan_rowsum(tbl, idx, CH), out)), out
 
-    def alone_sum(entry, t, ix, lib=None):
+    def alone_sum(t, ix, lib=None):
         """K11 / K12 alone: launch(passes) through `lib`'s entry point
-        (passes: one of plan.passes(), for that pass alone), its
-        arguments bound once."""
+        (passes: one of plan.passes(), for that pass alone; an older
+        tree's entry point runs them all), its arguments bound once."""
         out = empty(B)
-        if lib is not None and not hasattr(lib, "dbg_sizeof_gather_plan"):
-            return _single_pass(lib, entry, t, ix, out), out
         plan = G.plan_for(t, ix)
         scratch = G.gather_scratch(plan, ix)
-        go = {bit: G.sum_launch(t, ix, REPS, out, plan, *scratch, bit)
+        go = {bit: on(lib, G.sum_launch(t, ix, REPS, out, plan, *scratch,
+                                        bit))
               for bit in (G.ALL_PASSES, *plan.passes().values())}
-        return (lambda passes=G.ALL_PASSES: go[passes](lib)), out
+        return (lambda passes=G.ALL_PASSES: go[passes]()), out
 
     return [
         dict(name="gather_rows", label="K9 gather_rows G=1",
@@ -203,7 +180,7 @@ def cases(inp: dict) -> list[dict]:
              bound=(nbytes(idx8) + N8 * W * 4, N8 * W * 4, nbytes(tbl), 0)),
         dict(name="gather_rowsum", label=f"K10 gather_rowsum CH={CH}",
              kernel=lambda: G.gather_rowsum(tbl, idx, CH),
-             alone=alone_rowsum,
+             alone=alone_rowsum, graph=True,
              plain=lambda: G.gather_rowsum_ref(tbl, idx, CH),
              library=lambda: tbl[i64].view(N // CH, CH * W).sum(
                  1, dtype=i32),
@@ -212,8 +189,7 @@ def cases(inp: dict) -> list[dict]:
                     N * W)),
         dict(name="gather_rows_sum", label=f"K11 gather_rows_sum x{REPS}",
              kernel=lambda: G.gather_rows_sum(tbl2, idx2, REPS),
-             alone=lambda lib=None: alone_sum("dbg_gather_rows_sum", tbl2,
-                                              idx2, lib),
+             alone=lambda lib=None: alone_sum(tbl2, idx2, lib),
              plan=lambda: G.plan_for(tbl2, idx2),
              plain=lambda: G.gather_rows_sum_ref(tbl2, idx2, REPS),
              library=lambda: tbl2[i2_64].sum((1, 2), dtype=i32) * REPS,
@@ -222,8 +198,7 @@ def cases(inp: dict) -> list[dict]:
                     REPS * B * J * W2)),
         dict(name="gather_take_sum", label=f"K12 gather_take_sum x{REPS}",
              kernel=lambda: G.gather_take_sum(tbl1, idx1, REPS),
-             alone=lambda lib=None: alone_sum("dbg_gather_take_sum", tbl1,
-                                              idx1, lib),
+             alone=lambda lib=None: alone_sum(tbl1, idx1, lib),
              plan=lambda: G.plan_for(tbl1, idx1),
              plain=lambda: G.gather_take_sum_ref(tbl1, idx1, REPS),
              library=lambda: tbl1[i1_64].sum(1, dtype=i32) * REPS,
@@ -243,8 +218,12 @@ def run(geometry: str, device, timed: bool, baseline=None,
     alone too, in turns with these (baseline, this, this, baseline), and
     their outputs must equal the plain version's as well.  With `turns`,
     the kernel alone and the library call also in that many pairs of
-    turns (`library_turns`: [(kernel ms, library ms)])."""
+    turns (`library_turns`: [(kernel ms, library ms)]).  A case marked
+    `graph` (K10) is timed by the graph timer too (`graph_ms`; with
+    `baseline`, in turns: `baseline_graph_ms`, `graph_turns_ms`)."""
     import torch
+
+    from ..kernels import build
 
     results = []
     for case in cases(make_inputs(geometry, device)):
@@ -266,18 +245,18 @@ def run(geometry: str, device, timed: bool, baseline=None,
         if "plan" in case and torch.device(device).type == "cuda":
             res["plan"] = case["plan"]()
         if timed:
-            launch, out = case["alone"]()
+            # this tree's library looked up once, as the baseline's is
+            launch, out = case["alone"](build.load())
+            alone = {None: launch}
             outs = [(out, "the kernel")]
-            if baseline is None:
-                res["ms"] = cuda_ms(launch, 5, launches=50)
-            else:
-                base, base_out = case["alone"](baseline)
+            if baseline is not None:
+                alone[baseline], base_out = case["alone"](baseline)
                 outs.append((base_out, "the baseline kernel"))
-                times = [cuda_ms(f, 5, launches=50)
-                         for f in (base, launch, launch, base)]
-                res.update(ms=(times[1] + times[2]) / 2,
-                           baseline_ms=(times[0] + times[3]) / 2,
-                           turns_ms=times)
+            res.update(in_turns(lambda lib: cuda_ms(alone[lib], 5,
+                                                    launches=50), baseline))
+            if case.get("graph"):
+                res.update(in_turns(lambda lib: _graph_ms(case, lib, want),
+                                    baseline, "graph_"))
             if "plan" in res and not res["plan"].direct:
                 res["pass_ms"] = {
                     name: cuda_ms(lambda bit=bit: launch(bit), 5, launches=50)
@@ -303,6 +282,23 @@ def run(geometry: str, device, timed: bool, baseline=None,
             res["library_ms"] = cuda_ms(case["library"], 5)
         results.append(res)
     return results
+
+
+def _graph_ms(case, lib, want) -> float:
+    """The graph timer on `case` through `lib`'s kernel (50 launches per
+    replay); the outputs of the graph's launches must equal the plain
+    version's."""
+    import torch
+
+    def bind():
+        launch, out = case["alone"](lib)
+        return launch, (out,)
+
+    ms, (out,) = graph_ms(bind, 5, launches=50)
+    if not torch.equal(out, want):
+        raise AssertionError(f"{case['label']}: the graph's launches "
+                             "differ from the plain version")
+    return ms
 
 
 def plan_line(plan) -> str:
@@ -358,6 +354,10 @@ def main(argv: list[str] | None = None, results: list | None = None) -> int:
         baseline = build.load_from(Path(args.baseline_csrc))
     if on_gpu:
         print(f"device {torch.cuda.get_device_name(device)}")
+        floor = launch_floor_ms()
+        print(f"launch floor: a kernel that does nothing, 200 launches per "
+              f"run: {floor[0]:.4f} ms a launch back to back from Python, "
+              f"{floor[1]:.4f} ms replayed from a CUDA graph", flush=True)
     for name in names:
         g = GEOMETRIES[name]
         print(f"[{name}] table {g['NB']} x {g['W']} words "
@@ -388,6 +388,12 @@ def main(argv: list[str] | None = None, results: list | None = None) -> int:
                 line += (f"; baseline kernel alone {r['baseline_ms']:.4f} ms "
                          f"(turns baseline, this, this, baseline: "
                          + ", ".join(f"{t:.4f}" for t in r["turns_ms"]) + ")")
+            if "graph_ms" in r:
+                line += (f"; graph timer {r['graph_ms']:.4f} ms"
+                         + (f", baseline {r['baseline_graph_ms']:.4f} ms "
+                            f"(turns " + ", ".join(
+                                f"{t:.4f}" for t in r["graph_turns_ms"])
+                            + ")" if "baseline_graph_ms" in r else ""))
             print(line, flush=True)
             if "library_turns" in r:
                 k_ms, l_ms = zip(*r["library_turns"])

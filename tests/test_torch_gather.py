@@ -70,8 +70,10 @@ def pallas_rows(tbl, idxg, G_):
     return np.asarray(call(jnp.asarray(idxg), jnp.asarray(tbl)))
 
 
-def pallas_vmem(tbl, idx):
-    """exp_r5_pallas.py `kern_vmem` (:122) under its grid spec (:131-136)."""
+def pallas_vmem(tbl, idx, CH=CH):
+    """exp_r5_pallas.py `kern_vmem` (:122) under its grid spec (:131-136),
+    idx in chunks of CH."""
+    N = idx.shape[0]
 
     def kern_vmem(idx_ref, tbl_ref, out_ref):
         j = pl.program_id(0)
@@ -520,3 +522,128 @@ def test_gather_plan_refuses_what_the_kernels_do_not_take():
         G.gather_plan(1 << 30, 16, 1024, 128, **H100)        # too many slices
     with pytest.raises(ValueError):
         G.gather_plan(10, 1 << 15, 4, 4, **H100)             # a 128 KB row
+
+
+# ---- K10: the one-launch schedule and its plan ---------------------------
+
+# K10's resident blocks per SM on an H100 (56 registers in blocks of 256:
+# `dbg_gather_rowsum_occupancy` on the card, NVIDIA H100 80GB HBM3)
+H100_ROWSUM_RESIDENT = 4
+
+
+def rowsum_schedule(tbl, idx, CH, plan):
+    """csrc/gather.cu's K10 in plain torch, step by step: out zeroed; warp
+    w of plan.warps sums rows [N w / warps, N (w + 1) / warps) (indices
+    taken into the table) in tiles of 32 rows cut at chunk boundaries,
+    and adds each chunk segment's sum into out[c] (mod 2^32).  Returns
+    (out [n_chunks, 1], the segments (w, c, first row, end row))."""
+    N = idx.shape[0]
+    rows = (tbl[G.in_table(idx, tbl.shape[0]).to(torch.int64)]
+            .to(torch.int64) & G.M32).sum(1)
+    out = torch.zeros(N // CH, dtype=torch.int64)
+    segments = []
+    for w in range(plan.warps):
+        r0, r1 = N * w // plan.warps, N * (w + 1) // plan.warps
+        t, c, acc = r0, r0 // CH, 0
+        while t < r1:
+            end = min(r1, (c + 1) * CH)
+            tile = min(end - t, 32)
+            acc += int(rows[t:t + tile].sum())
+            t += tile
+            if t == end:                  # the segment of chunk c is done
+                out[c] += acc & G.M32
+                segments.append((w, c, max(r0, c * CH), end))
+                c, acc = c + 1, 0
+    return G._wrap32(out)[:, None], segments
+
+
+def _rowsum_edge_cases():
+    from dbgtpu_torch.kernels.edge_batch import rowsum_edges
+
+    # a card of 4 SMs, one block each: 32 warps, so that the edges around
+    # the warp count stay small here
+    return rowsum_edges(4 * 1 * G.ROWSUM_WARPS)
+
+
+@pytest.mark.parametrize("case", _rowsum_edge_cases(),
+                         ids=lambda c: c.name)
+def test_rowsum_schedule_at_the_edges(case):
+    """The one-launch schedule equals the plain version on the edge set
+    chip_smoke runs on the card (indices outside the table taken as its
+    last row), under the plan of a 4-SM card."""
+    from dbgtpu_torch.kernels.edge_batch import rowsum_edge_inputs
+
+    buf, idx = rowsum_edge_inputs(3, case)
+    tbl = t32(buf)[case.offset:].view(case.NB, case.W)
+    plan = G.rowsum_plan(idx.size, case.CH, sms=4, resident=1)
+    got, segments = rowsum_schedule(tbl, t32(idx), case.CH, plan)
+    taken = G.in_table(t32(idx), case.NB)
+    assert torch.equal(got, G.gather_rowsum_ref(tbl, taken, case.CH))
+    if case.pattern == "ones":                 # every sum wraps
+        assert (as_u32(got) == (case.CH * case.W * 0xFFFFFFFF)
+                & 0xFFFFFFFF).all()
+    if case.name.startswith("chunks_warps") or case.name.startswith("ranges"):
+        assert plan.warps == 32          # the full grid
+    # every row in exactly one segment, no segment across a boundary
+    assert sum(e - s for _, _, s, e in segments) == idx.size
+    assert all(s // case.CH == c and (e - 1) // case.CH == c
+               for _, c, s, e in segments)
+    if case.name == "ranges_on_boundaries":       # a segment per warp
+        assert len(segments) == plan.warps
+    if case.name == "ranges_across_boundaries":
+        assert len(segments) > plan.warps
+
+
+@pytest.mark.parametrize("CH,W,n_chunks", [(1, 24, 64), (31, 3, 9),
+                                           (32, 24, 8), (33, 25, 7),
+                                           (32, 1, 8)])
+def test_rowsum_schedule_equals_plain_and_pallas(CH, W, n_chunks):
+    """At the Pallas body's small size: the schedule, the plain version
+    and `kern_vmem` in interpret mode agree."""
+    rng = np.random.default_rng(CH * 100 + W)
+    tbl = rng.integers(0, 1 << 32, (NB, W), np.uint64).astype(np.uint32)
+    idx = rng.integers(0, NB, CH * n_chunks).astype(np.int32)
+    plan = G.rowsum_plan(idx.size, CH, sms=2, resident=1)
+    got, _ = rowsum_schedule(t32(tbl), t32(idx), CH, plan)
+    np.testing.assert_array_equal(
+        as_u32(got), as_u32(G.gather_rowsum_ref(t32(tbl), t32(idx), CH)))
+    np.testing.assert_array_equal(as_u32(got), pallas_vmem(tbl, idx, CH))
+
+
+@pytest.mark.parametrize("N,CH,want", [
+    # the scripts' geometry on an H100: one full wave
+    (917504, 4096, dict(blocks=132 * H100_ROWSUM_RESIDENT,
+                        warps=132 * H100_ROWSUM_RESIDENT * 8)),
+    # few rows: at least one index window per warp
+    (100, 1, dict(blocks=1, warps=4)),
+    (33, 33, dict(blocks=1, warps=2)),
+    (1, 1, dict(blocks=1, warps=1)),
+    (257 * 32, 32, dict(blocks=33, warps=257)),
+])
+def test_rowsum_plan(N, CH, want):
+    plan = G.rowsum_plan(N, CH, sms=132, resident=H100_ROWSUM_RESIDENT)
+    for key, value in want.items():
+        assert getattr(plan, key) == value, key
+    assert plan.warps <= N and plan.warps <= plan.blocks * G.ROWSUM_WARPS
+    assert plan.blocks <= 132 * H100_ROWSUM_RESIDENT
+    with pytest.raises(ValueError):
+        G.rowsum_plan(N + 1 if CH > 1 else 0, CH, 132, 3)
+    with pytest.raises(ValueError):
+        G.rowsum_plan(N, CH, 132, 0)
+
+
+@pytest.mark.parametrize("NB", [1, 5, 64])
+def test_gather_rowsum_takes_stray_indices_as_the_last_row(NB):
+    """K10's stray-index rule, as K11's and K12's: the kernel's function
+    is the plain version on `in_table(idx)` (the plain version itself
+    indexes as torch does)."""
+    rng = np.random.default_rng(NB)
+    tbl = rng.integers(0, 1 << 32, (NB, 24), np.uint64).astype(np.uint32)
+    idx = rng.integers(0, NB, 96).astype(np.int32)
+    idx[::7] = np.array([NB, NB + 1, -1, (1 << 31) - 1, -1 << 31] * 3)[
+        : idx[::7].size]
+    plan = G.rowsum_plan(idx.size, 32, sms=1, resident=1)
+    got, _ = rowsum_schedule(t32(tbl), t32(idx), 32, plan)
+    clean = np.where((idx < 0) | (idx >= NB), NB - 1, idx)
+    np.testing.assert_array_equal(
+        as_u32(got), as_u32(G.gather_rowsum_ref(t32(tbl), t32(clean), 32)))

@@ -200,9 +200,11 @@ def test_mphf_junction_and_anchor_lookups_match_jax(n):
 
 @pytest.mark.parametrize("fault", ["none", "row_moved", "seeds", "n_keys"])
 def test_check_mphf_table_at_upload(fault, monkeypatch):
-    """index_tensors looks every stored key of an MPHF table up once (K7
-    on the card, its plain version here), in chunks: a table whose rows,
-    seeds or key count disagree with the lookup is refused."""
+    """index_tensors looks every stored key of an MPHF table up once (K7's
+    check mode on the card, one launch for the table; its plain version
+    here, CHECK_CHUNK keys at a time): a table whose rows, seeds or key
+    count disagree with the lookup is refused, and the message counts
+    the keys at the wrong slot over the whole table."""
     n = 3000
     keys = _random_keys(n, seed=41)
     vals8 = np.arange(8 * n, dtype=np.int32).reshape(n, 8)
@@ -210,8 +212,8 @@ def test_check_mphf_table_at_upload(fault, monkeypatch):
     di.mphf_junction = build_mphf_junction(keys, vals8)
     monkeypatch.setattr(mphf_mod, "CHECK_CHUNK", 1024)   # three chunks
     calls = []
-    real = mphf_mod.mphf_slots
-    monkeypatch.setattr(mphf_mod, "mphf_slots",
+    real = mphf_mod.mphf_slot_ref
+    monkeypatch.setattr(mphf_mod, "mphf_slot_ref",
                         lambda *a: calls.append(a[3].numel()) or real(*a))
     ix = index_tensors(di, "cpu")
     assert calls == [1024, 1024, n - 2048]
@@ -222,7 +224,7 @@ def test_check_mphf_table_at_upload(fault, monkeypatch):
     if fault == "row_moved":
         jrows = jrows.clone()
         jrows[[5, 2500]] = jrows[[2500, 5]]
-        match = "1 of its own keys"     # the first chunk's
+        match = "returns 2 of its own keys"     # both chunks' keys
     elif fault == "seeds":
         meta = MphfMeta(meta.seeds_lo, meta.seeds_hi, meta.masks,
                         meta.row_offs, meta.final_nb, meta.n_keys)
@@ -233,3 +235,123 @@ def test_check_mphf_table_at_upload(fault, monkeypatch):
         match = "2999 keys and its table 3000 rows"
     with pytest.raises(ValueError, match=match):
         check_mphf_table(rows, frows, jrows, meta, "junction")
+
+
+@pytest.mark.parametrize("n,gamma,max_levels", [
+    (0, 2.0, 25), (1, 2.0, 25), (31, 2.0, 25), (33, 2.0, 25),
+    (2000, 1.0, 2)])
+def test_mphf_check_counts_over_the_whole_table(n, gamma, max_levels,
+                                                monkeypatch):
+    """K7's check mode (plain version): the count of stored keys at
+    another slot, over every chunk of the table, on chip_smoke's edge
+    tables (the last one has keys in the final table) and dbgtpu's own
+    MPHF build; rows swapped anywhere count 2 each time."""
+    keys = _random_keys(n, seed=43 + n)
+    m = ref_mphf.build_mphf(keys, gamma=gamma, max_levels=max_levels)
+    rows, frows = (t32(a) for a in fuse_mphf(m))
+    meta = mphf_meta_of(m)
+    vrows = np.zeros((n, 5), np.uint32)
+    slots = m.lookup(keys)
+    vrows[slots, 0] = (keys >> np.uint64(32)).astype(np.uint32)
+    vrows[slots, 1] = (keys & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    vrows = t32(vrows)
+    if max_levels == 2:
+        assert m.final_tbl is not None
+        assert (mphf_slot_ref(rows, frows[:0], MphfMeta(
+            meta.seeds_hi, meta.seeds_lo, meta.masks, meta.row_offs, 0,
+            meta.n_keys), _i64(keys)).numpy() < 0).any()
+    monkeypatch.setattr(mphf_mod, "CHECK_CHUNK", 16)
+    assert mphf_mod.mphf_check(rows, frows, vrows, meta) == 0
+    check_mphf_table(rows, frows, vrows, meta, "test")
+    if n < 2:
+        return
+    for a, b in ((0, n - 1), (1, n // 2)):
+        swapped = vrows.clone()
+        swapped[[a, b]] = swapped[[b, a]]
+        assert mphf_mod.mphf_check_ref(rows, frows, swapped, meta) == 2
+        with pytest.raises(ValueError, match="test MPHF on cpu returns 2 of"):
+            check_mphf_table(rows, frows, swapped, meta, "test")
+
+
+def test_mphf_check_edge_tables_hold_their_keys():
+    """chip_smoke's edge tables for K7's check mode (kernels/edge_batch.py
+    mphf_check_tables): every stored key at its own row, the tight-gamma
+    table with keys in the final table."""
+    from dbgtpu_torch.kernels.edge_batch import (
+        MPHF_CHECK_SIZES, mphf_check_tables,
+    )
+
+    tables = mphf_check_tables()
+    assert [v.shape[0] for _, _, v in tables] == [*MPHF_CHECK_SIZES, 2000]
+    assert tables[-1][1].final_tbl is not None
+    for name, m, vrows in tables:
+        rows, frows = (t32(a) for a in fuse_mphf(m))
+        assert mphf_mod.mphf_check(rows, frows, t32(vrows),
+                                   mphf_meta_of(m)) == 0, name
+
+
+# ---- K7's launch plan and its keys-a-thread schedule --------------------
+
+@pytest.mark.parametrize("n,want", [
+    # the survey junction table: one key a thread, blocks of 64 so that
+    # 480 blocks reach all 132 SMs
+    (30694, (1, 64)),
+    # the survey anchor table: two keys a thread fill every SM
+    (1969277, (2, 256)),
+    (1, (1, 64)), (0, (1, 64)),
+    (132 * 128 * 2, (1, 128)), (132 * 128 * 2 - 128, (1, 64)),
+    (2 * 132 * 2048 - 1, (1, 256)), (2 * 132 * 2048, (2, 256)),
+    (1 << 30, (2, 256)),
+])
+def test_mphf_plan(n, want):
+    plan = mphf_mod.mphf_plan(n, sms=132)
+    assert (plan.per_thread, plan.threads) == want
+    assert plan.threads % 32 == 0
+    assert mphf_mod.MPHF_MIN_THREADS <= plan.threads <= mphf_mod.MPHF_THREADS
+
+
+@pytest.mark.parametrize("n,per_thread,threads", [
+    (1, 1, 64), (31, 4, 64), (33, 2, 32), (1000, 4, 256), (30694, 1, 64),
+    (4097, 4, 128)])
+def test_mphf_key_indices_cover_every_key_once(n, per_thread, threads):
+    """csrc/mphf.cu key_index: key q of thread t in block b is (b Q + q)
+    T + t; over the plan's grid each key of [0, n) falls to exactly one
+    (block, q, thread), the rest past the end."""
+    blocks = -(-n // (per_thread * threads))
+    b, q, t = np.meshgrid(np.arange(blocks), np.arange(per_thread),
+                          np.arange(threads), indexing="ij")
+    i = ((b * per_thread + q) * threads + t).ravel()
+    np.testing.assert_array_equal(np.sort(i[i < n]), np.arange(n))
+    assert (i >= n).sum() == blocks * per_thread * threads - n
+
+
+def _levels(meta, first, last=None, final=True):
+    """meta restricted to levels [first, last) (and its final table, or
+    none)."""
+    sl = slice(first, last)
+    return MphfMeta(meta.seeds_hi[sl], meta.seeds_lo[sl], meta.masks[sl],
+                    meta.row_offs[sl], meta.final_nb if final else 0,
+                    meta.n_keys)
+
+
+@pytest.mark.parametrize("n,gamma,max_levels", [
+    (3000, 16.0, 3), (4000, 1.05, 3), (3000, 1.0, 2), (500, 2.0, 1),
+    (1, 2.0, 25), (0, 2.0, 25)])
+def test_mphf_two_step_lookup_matches_plain(n, gamma, max_levels):
+    """The kernel's schedule restated: every key's level-0 probe first
+    (address step, then the test), a hit's rank as its slot, and a miss
+    looked up on from level 1 (csrc/mphf.cu slots_of, mphf.cuh
+    mphf_slot_from) gives the plain version's slots."""
+    keys = _random_keys(n, seed=n + 7)
+    m = ref_mphf.build_mphf(keys, gamma=gamma, max_levels=max_levels)
+    rows, frows = (t32(a) for a in fuse_mphf(m))
+    meta = mphf_meta_of(m)
+    queries = _i64(_queries(keys, seed=n + 8))
+    want = mphf_slot_ref(rows, frows, meta, queries)
+    if not meta.n_levels:
+        return
+    level0 = mphf_slot_ref(rows, frows[:0], _levels(meta, 0, 1, final=False),
+                           queries)
+    rest = mphf_slot_ref(rows, frows, _levels(meta, 1), queries)
+    got = torch.where(level0 >= 0, level0, rest)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)

@@ -29,9 +29,11 @@ wrapper, and with `--baseline-csrc
 DIR` beside the kernels built from DIR, in turns (chip_smoke.compare_kernels: the
 published memory rate; here also the bound at the measured rate; in an
 mphf cell also K2's per-position branch on the index without its probe
-table), K7 mphf_slots alone on the stored keys of the cell's junction
-MPHF (the shape the check of a table at upload gives it; the warm runs
-reuse the uploaded index, so they launch it no more), and the first
+table; K4 also replayed from a CUDA graph, beside the floor of that
+timer, an empty kernel), K7 mphf_slots in its check mode on the cell's
+junction MPHF table, by both timers and against the other launch plans
+(the check of a table at upload; the warm runs reuse the uploaded
+index, so they launch it no more), and the first
 reads are checked byte for byte against the port's python spec in that
 mode.
 
@@ -267,7 +269,6 @@ def run_workload(name, layouts, modes, reps, device, card, copy_rate):
 
 def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
              copy_rate, graph, di, ix):
-    import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -352,12 +353,10 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
                              effort=EFFORT, L=L, pmax=pmax, timed=True,
                              perpos_ix=perpos, more=batches[1:])
     if layout == "mphf" and mode == "greedy":
-        jrows = di.mphf_junction.jrows
-        res["mphf_slots"] = cs.compare_mphf(
-            f"{cell}: the junction MPHF, its {len(jrows)} stored keys",
-            di.mphf_junction.mphf, device,
-            (jrows[:, 0].astype(np.uint64) << np.uint64(32))
-            | jrows[:, 1].astype(np.uint64), True)
+        # K7 on this path: the check of the junction table at upload
+        res["mphf_slots"] = cs.time_mphf_check(
+            f"{cell}: the junction MPHF", di.mphf_junction.mphf,
+            di.mphf_junction.jrows, device)
     for r in res.values():
         r["bound_at_copy_rate_ms"] = 1e3 * max(
             r["bound_bytes"] / copy_rate, r["bound_ops"] / cs.INT_OPS_PER_S)
@@ -368,6 +367,7 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
         base = (f", baseline alone {r['baseline_alone_ms']:.4f} ms (turns "
                 + ", ".join(f"{t:.4f}" for t in r["alone_turns_ms"]) + ")"
                 if "baseline_alone_ms" in r else "")
+        base += cs.graph_part(r)
         cs.log(f"{tag} kernel {n}: == plain (err {r['max_abs_err']}), "
                f"alone {r['alone_ms']:.4f} ms (rotating over "
                f"{r.get('alone_batches', 1)} batches){base}, through the "
@@ -436,6 +436,10 @@ def main(argv=None) -> int:
     cs.log(f"[card] device-to-device copy of 1 GiB: {copy_rate / 1e12:.4f} "
            f"TB/s read + written (published memory rate "
            f"{cs.HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+    floor = cs.launch_floor_ms()
+    cs.log(f"[floor] a kernel that does nothing, 200 launches a run: "
+           f"{floor[0]:.4f} ms a launch back to back from Python, "
+           f"{floor[1]:.4f} ms replayed from a CUDA graph")
     results = []
     for name, layouts in cells.items():
         results += run_workload(name, layouts, modes, args.reps, device, card,
