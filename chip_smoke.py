@@ -101,7 +101,31 @@ its own kernel), then:
      layout (ANCHOR_MPHF_MIN lowered); `-p` and `-p -b` on the first 512
      survey reads against the spec (host only: no kernel may launch), and
      a run sharded over 2 processes and merged against the single run;
-  5. prints the kernels' JSON line and, last, the result line.  The
+  5. the run modes.  `[runner]`: 1,048,576 reads of 100 bp on the survey
+     genome (32 batches of 32,768; survey_workload's generator and seed)
+     through `cli.main` from a loaded index, greedy / scan and -G / mphf,
+     in turns (four each, first and last in alternating order): this
+     tree's pipelined runner, the same runner with every
+     prefix fetched by its drain once `meta` is on the host
+     ("drain-fetch": no prefix queued at launch) and, with
+     `--baseline-runner FILE` (an older tree's
+     dbgtpu_torch/engine/runner.py, loaded into this tree's engine
+     package), that runner; each run's align_seconds, mapping and
+     end-to-end reads/s, the legs per batch (launch, drain, the drain's
+     wait for the device, the launching thread's wait for the drain),
+     peak device memory, payload bytes and launches, then one run of
+     each under torch.profiler for the device busy share; bytes equal
+     across every run and, on 128 reads of each batch, to the spec.
+     `[mesh]`: `--mesh -1` (every local device) in greedy / scan and -b /
+     mphf, bytes equal to the run without a mesh, launches checked as in
+     phase 3.  `[coordinator]`: two processes on the card joined by
+     `--coordinator 127.0.0.1:<free port> --num-processes 2` (each with
+     jax and dbgtpu blocked): process 0's stats block holds the whole
+     file's counts, process 1 prints none, the merged shards equal the
+     single run.  `[profile]`: greedy / scan with `--profile-dir`: the
+     trace names the `__global__` functions of K1, K2, K3, K4 and K8, the
+     bytes equal the run without the profiler;
+  6. prints the kernels' JSON line and, last, the result line.  The
      line holds each kernel once with the launches of its scan-layout
      run and that run's batch timings, and `<kernel>@mphf` entries for
      K2, K3, walk_inits, K5 and K6 with the launches of the
@@ -146,6 +170,7 @@ import dataclasses
 import itertools
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1677,6 +1702,322 @@ def spec_bytes_equal(label, reads_fa, unitigs_fa, k, m, graph, device,
         f"{t2 - t1:.2f} s); kernels == plain on the file ({errs_s})")
 
 
+RUNNER_READS = 1 << 20      # [runner]: 32 batches of BATCH reads
+# the `__global__` functions of the greedy path that a profiler trace
+# must name: K1, K2 (either branch), K3, K4, K8
+TRACE_KERNELS = {
+    "K1 read_scan": "read_scan_kernel",
+    "K2 member": "member_(probe|scan|mphf)_kernel",
+    "K3 greedy_walk": "greedy_walk_kernel",
+    "K4 pack_paths": "pack_paths_kernel",
+    "K8 compact_result": "compact_kernel",
+}
+
+
+def runner_reads(path: Path) -> None:
+    """RUNNER_READS reads of READ_LEN bases on the survey's genome, from
+    survey_workload's generator and seed (the same genome and unitigs),
+    written to `path` as FASTA."""
+    import numpy as np
+
+    from tests import synth
+
+    rng = np.random.default_rng(SEED)
+    genome = synth.make_genome(rng, GENOME_LEN)
+    synth.orient_shuffle(synth.chop_unitigs(genome, K, rng, 40, 150), rng)
+    write_fasta(path, synth.sample_reads(genome, rng, RUNNER_READS,
+                                         READ_LEN, err_frac=0.5))
+
+
+def load_runner(path: str):
+    """An older tree's dbgtpu_torch/engine/runner.py as a module of this
+    tree's engine package (its relative imports reach this tree's
+    kernels and host code): the runner alone is what differs."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "dbgtpu_torch.engine.baseline_runner", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class runner_variant:
+    """Within the block, `dbgtpu_torch.pipeline` maps with `variant`:
+    "pipelined" (this tree's runner as it is), "drain-fetch" (this
+    tree's runner with no prefix queued at launch: the drain fetches
+    every prefix once `meta` is on the host) or "baseline" (the module
+    of `load_runner`)."""
+
+    def __init__(self, variant: str, baseline=None):
+        self.variant, self.baseline = variant, baseline
+
+    def __enter__(self):
+        from dbgtpu_torch import pipeline
+        from dbgtpu_torch.engine import runner
+
+        self.saved = (pipeline.align_bulk, runner.queued_prefix)
+        if self.variant == "drain-fetch":
+            runner.queued_prefix = lambda rows, pmax, density: 0
+        elif self.variant == "baseline":
+            older = self.baseline.align_bulk
+
+            def align_bulk(*a, mesh=None, xfer=None, **kw):
+                if mesh is not None:
+                    raise AssertionError("the baseline runner has no mesh")
+                xfer = {} if xfer is None else xfer
+                out = older(*a, xfer=xfer, **kw)
+                for key in ("d2h_spare_bytes", "launch_s", "drain_s",
+                            "format_s", "wait_s", "stall_s"):
+                    xfer.setdefault(key, 0)
+                return out
+
+            pipeline.align_bulk = align_bulk
+        return self
+
+    def __exit__(self, *exc):
+        from dbgtpu_torch import pipeline
+        from dbgtpu_torch.engine import runner
+
+        pipeline.align_bulk, runner.queued_prefix = self.saved
+        return False
+
+
+def cli_timed(argv, want_kernels, profiled=False) -> dict:
+    """One `cli.main(argv)` run with the launch counts set to 0 just
+    before it: its wall, peak device memory above what was held, the
+    summary, the launches (each of `want_kernels` > 0, no other mapping
+    kernel) and, `profiled`, the device busy share of a torch.profiler
+    trace of the run."""
+    import torch
+
+    from dbgtpu_torch import cli
+    from dbgtpu_torch.kernels import build
+    from dbgtpu_torch.kernels.measure import device_busy
+
+    js = Path(argv[argv.index("--json-summary") + 1])
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    prof = None
+    t0 = time.monotonic()
+    if profiled:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            rc = cli.main(argv)
+            torch.cuda.synchronize()
+    else:
+        rc = cli.main(argv)
+    wall = time.monotonic() - t0
+    if rc != 0:
+        raise AssertionError(f"cli.main {argv} exited {rc}")
+    counts = dict(build.launches)
+    missing = [n for n in want_kernels if counts[n] <= 0]
+    other = [n for n, c in counts.items()
+             if c and n not in want_kernels and n != "mphf_slots"]
+    if missing or other:
+        raise AssertionError(f"{argv}: kernels not launched {missing}, "
+                             f"kernels of another path launched {other}")
+    out = dict(wall=wall, summ=json.loads(js.read_text()), launches=counts,
+               peak=torch.cuda.max_memory_allocated() - held)
+    if prof is not None:
+        out["device_ms"], out["busy"], _ = device_busy(prof, wall)
+    return out
+
+
+def records(blob: bytes) -> dict:
+    """Header line -> its two-line record (paths, notAligned.fa)."""
+    lines = blob.split(b"\n")
+    return {lines[i]: lines[i] + b"\n" + lines[i + 1] + b"\n"
+            for i in range(0, len(lines) - 1, 2)}
+
+
+def runner_phase(td: Path, uf: Path, graphs, baseline_path) -> None:
+    """[runner]: RUNNER_READS survey reads through `cli.main` from a
+    loaded index, greedy / scan and -G / mphf, this tree's pipelined
+    runner beside its drain-fetch variant and, with `baseline_path`, an
+    older tree's runner, in turns; bytes equal across the runners and,
+    on 128 reads of every batch, to the spec."""
+    import numpy as np
+
+    from dbgtpu_torch import native
+    from dbgtpu_torch.index.persist import save_index
+    from dbgtpu_torch.spec import run_pipeline as spec_pipeline
+
+    rf = td / "r1m.fa"
+    t0 = time.monotonic()
+    runner_reads(rf)
+    log(f"[runner] {RUNNER_READS} reads of {READ_LEN} bases on the survey "
+        f"genome: {time.monotonic() - t0:.1f} s to make")
+    baseline = load_runner(baseline_path) if baseline_path else None
+    names = (["baseline"] if baseline else []) + ["pipelined", "drain-fetch"]
+    order = (names + names[::-1]) * 2
+    # 128 reads of each batch, against the spec
+    parsed = native.parse_reads(str(rf), K, False)
+    sample = np.concatenate([np.arange(s, s + 128)
+                             for s in range(0, parsed.n, BATCH)])
+    sf = td / "r1m_sample.fa"
+    with open(sf, "wb") as f:
+        for i in sample:
+            f.write(b">r" + str(i).encode() + b"\n"
+                    + parsed.seq_bytes(int(i)) + b"\n")
+    # the profiler's first session sets up its tracing (seconds, once per
+    # process): here, so that each profiled run below times the run alone
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    for layout, mode in (("scan", "greedy"), ("mphf", "anchors")):
+        graph = graphs[mode == "anchors"]
+        npz = td / f"runner_{layout}_{mode}.npz"
+        save_index(graph, str(npz), layout=layout)
+        tag = f"[runner {' '.join(MODE_FLAGS[mode] + [layout])}]"
+        argv = ["-r", str(rf), "--load-index", str(npz), "-m", str(M),
+                "-e", str(EFFORT), "--batch-size", str(BATCH),
+                "-f", str(td / "paths"), "-a", str(td / "notAligned.fa"),
+                "--json-summary", str(td / "summary.json"),
+                "--index-layout", layout] + MODE_FLAGS[mode]
+        runs = {name: [] for name in names}
+        outputs = {}
+        for turn, name in enumerate(order + names):
+            profiled = turn >= len(order)
+            with runner_variant(name, baseline):
+                r = cli_timed(argv, PATH_KERNELS[mode], profiled)
+            got = ((td / "paths").read_bytes(),
+                   (td / "notAligned.fa").read_bytes())
+            if outputs.setdefault("bytes", got) != got:
+                raise AssertionError(f"{tag} {name}: bytes differ from the "
+                                     "first run's")
+            summ, nb = r["summ"], -(-RUNNER_READS // BATCH)
+            if summ["reads"] != RUNNER_READS:
+                raise AssertionError(f"{tag} {summ['reads']} reads mapped")
+            if profiled:
+                log(f"{tag} {name}, under torch.profiler: device busy "
+                    f"share {r['busy']:.6f} ({r['device_ms']:.3f} ms of "
+                    f"device events in {r['wall'] * 1e3:.1f} ms wall)")
+                runs[name].append(dict(busy=r["busy"]))
+                continue
+            row = dict(align_s=summ["align_seconds"], wall=r["wall"],
+                       map_rps=RUNNER_READS / summ["align_seconds"],
+                       e2e_rps=RUNNER_READS / r["wall"], peak=r["peak"],
+                       **{leg: summ[f"{leg}_seconds"] * 1e3 / nb
+                          for leg in ("launch", "drain", "format", "wait",
+                                      "stall")})
+            runs[name].append(row)
+            log(f"{tag} {name}, turn {turn + 1}: align_seconds "
+                f"{summ['align_seconds']} (mapping {row['map_rps']:.1f} "
+                f"reads/s), wall {r['wall']:.3f} s (end-to-end "
+                f"{row['e2e_rps']:.1f} reads/s; index load "
+                f"{summ['index_seconds']} s, upload "
+                f"{summ['upload_seconds']} s, parse {summ['parse_seconds']}"
+                f" s); per batch: launch leg {row['launch']:.2f} ms, drain "
+                f"leg {row['drain']:.2f} ms (of which on_batch's format "
+                f"{row['format']:.2f} ms), drain waiting "
+                f"{row['wait']:.2f} ms, launch thread stalled "
+                f"{row['stall']:.2f} ms; max_memory_allocated +{r['peak']}"
+                f" B; payload H2D {summ['payload_h2d_bytes']} B, D2H "
+                f"{summ['payload_d2h_bytes']} B (+"
+                f"{summ['payload_d2h_spare_bytes']} B queued beyond the "
+                f"prefix); launches {r['launches']}")
+        want = spec_pipeline([str(sf)], str(uf), k=K, m=M, graph=graph,
+                             mode=mode)
+        for what, blob, spec_blob in (("paths", outputs["bytes"][0], want[0]),
+                                      ("notAligned.fa", outputs["bytes"][1],
+                                       want[1])):
+            got_recs = records(blob)
+            picked = b"".join(got_recs.get(b">r" + str(i).encode(), b"")
+                              for i in sample)
+            if picked != spec_blob:
+                raise AssertionError(f"{tag} {what}: the {len(sample)} "
+                                     "sampled reads differ from the spec")
+        for name in names:
+            rows = [x for x in runs[name] if "align_s" in x]
+            med = {key: statistics.median(x[key] for x in rows)
+                   for key in rows[0]}
+            med["busy"] = runs[name][-1]["busy"]
+            log(f"{tag} {name}: median of {len(rows)} turns: align_seconds"
+                f" {med['align_s']:.3f}, mapping {med['map_rps']:.1f} "
+                f"reads/s, end-to-end {med['e2e_rps']:.1f} reads/s, launch "
+                f"leg {med['launch']:.2f} ms and drain leg "
+                f"{med['drain']:.2f} ms (format {med['format']:.2f} ms) per "
+                f"batch, device busy share "
+                f"{med['busy']:.6f}, peak +{med['peak']:.0f} B")
+        log(f"{tag} bytes equal across {len(order) + len(names)} runs "
+            f"({', '.join(names)}); {len(sample)} sampled reads "
+            f"(128 of each batch) byte-identical to the spec")
+        npz.unlink()
+
+
+def coordinator_phase(td: Path, rf: Path, uf: Path, single, single_summ):
+    """[coordinator]: two processes on the card joined by `--coordinator`
+    (each with jax and dbgtpu blocked): process 0's stats block holds
+    the whole file's counts, process 1 prints none, the merged shards
+    equal the single run's bytes."""
+    import socket
+
+    from dbgtpu_torch.dist.multihost import merge_shards
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    code = ("import sys\n"
+            "sys.modules['jax'] = None\n"
+            "sys.modules['dbgtpu'] = None\n"
+            f"sys.path.insert(0, {str(ROOT)!r})\n"
+            "from dbgtpu_torch import cli\n"
+            "rc = cli.main(sys.argv[1:])\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+            "       ('jax', 'jaxlib', 'dbgtpu') and sys.modules[m] is not None]\n"
+            "if bad:\n"
+            "    raise SystemExit(f'imported during the run: {bad[:5]}')\n"
+            "sys.exit(rc)\n")
+    argv = ["-r", str(rf), "-k", str(K), "-g", str(uf), "-m", str(M),
+            "-e", str(EFFORT), "--batch-size", str(BATCH),
+            "-f", str(td / "cpaths"), "-a", str(td / "cna.fa"),
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2"]
+    t0 = time.monotonic()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", code, *argv, "--process-id", str(pid)],
+        cwd=td, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for pid in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.monotonic() - t0
+    for pid, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"[coordinator] process {pid} exited "
+                                 f"{p.returncode}: {err[-2000:]}")
+    block = [f"Reads : {single_summ['reads']}\n",
+             f"No overlap : {single_summ['no_overlap']} ",
+             f"Overlap and aligned : {single_summ['aligned']} ",
+             f"Overlap but not aligned : {single_summ['not_aligned']} "]
+    missing = [ln for ln in block if ln not in outs[0][0]]
+    if missing or "Reads :" in outs[1][0]:
+        raise AssertionError(f"[coordinator] process 0's block lacks "
+                             f"{missing}, or process 1 printed one")
+    merge_shards(str(td / "cpaths"), 2)
+    merge_shards(str(td / "cna.fa"), 2)
+    if ((td / "cpaths").read_bytes(), (td / "cna.fa").read_bytes()) != single:
+        raise AssertionError("[coordinator] the merged shards differ from "
+                             "the single run's bytes")
+    log(f"[coordinator] 2 processes on the card, --coordinator "
+        f"127.0.0.1:{port} --num-processes 2 (gloo): process 0 printed the "
+        f"global block ({single_summ['reads']} reads, "
+        f"{single_summ['aligned']} aligned), process 1 none; merged shards "
+        f"== the single run's bytes ({wall:.1f} s for both processes)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1687,6 +2028,10 @@ def main(argv=None) -> int:
                     help="also build the kernels of DIR (another tree's "
                          "dbgtpu_torch/csrc) and time each kernel alone "
                          "beside this tree's, in turns")
+    ap.add_argument("--baseline-runner", metavar="FILE",
+                    help="also map the [runner] reads with FILE (another "
+                         "tree's dbgtpu_torch/engine/runner.py), in turns "
+                         "with this tree's runner")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1952,7 +2297,9 @@ def main(argv=None) -> int:
                 f"launches {counts}; hbm_report "
                 f"{summ['index_hbm_bytes']}; payload H2D "
                 f"{summ['payload_h2d_bytes']} B, D2H "
-                f"{summ['payload_d2h_bytes']} B (padded rows would be "
+                f"{summ['payload_d2h_bytes']} B (+"
+                f"{summ['payload_d2h_spare_bytes']} B of prefix queued "
+                f"beyond it; padded rows would be "
                 f"{summ['reads'] * (2 + pmax) * 2} B)")
             if n_paths != summ["aligned"]:
                 raise AssertionError(f"{tag} output does not match its stats")
@@ -2235,7 +2582,45 @@ def main(argv=None) -> int:
                                 dog_mode=mode == "anchors"),
                     device, mode=mode, layout=layout)
 
-    # ---- phase 5: result ----
+        # ---- phase 5: the run modes: the pipelined runner at 1M reads,
+        # a mesh, a coordinated run, a profiler trace ----
+        runner_phase(td, uf, graphs, args.baseline_runner)
+        import re
+
+        from dbgtpu_torch.dist.mesh import make_mesh
+
+        mesh = make_mesh(None, device)
+        for layout, mode in (("scan", "greedy"), ("mphf", "exhaustive")):
+            paths_b, na_b, summ, counts = cli_run(layout, mode,
+                                                  ["--mesh", "-1"])
+            if (paths_b, na_b) != outputs[layout, mode]:
+                raise AssertionError(f"[mesh] {layout} {mode}: bytes differ "
+                                     "from the run without a mesh")
+            flags = " ".join(["--mesh", "-1", *MODE_FLAGS[mode],
+                              "--index-layout", layout])
+            log(f"[mesh] {flags}: the mesh took "
+                f"{[str(d) for d in mesh]}; bytes == the run without a mesh;"
+                f" launches {counts}; align_seconds {summ['align_seconds']}")
+        coordinator_phase(td, rf, uf, outputs["scan", "greedy"],
+                          summaries["scan", "greedy"])
+        prof_dir = td / "prof"
+        paths_b, na_b, summ, counts = cli_run(
+            "scan", "greedy", ["--profile-dir", str(prof_dir)])
+        traces = sorted(prof_dir.glob("*.json"))
+        if (paths_b, na_b) != outputs["scan", "greedy"] or len(traces) != 1:
+            raise AssertionError(f"[profile] bytes differ from the run "
+                                 f"without the profiler, or traces {traces}")
+        text = traces[0].read_text()
+        found = {what: len(re.findall(rf'"name":\s*"[^"]*{pattern}', text))
+                 for what, pattern in TRACE_KERNELS.items()}
+        if not all(found.values()):
+            raise AssertionError(f"[profile] the trace lacks kernels: {found}")
+        log(f"[profile] --profile-dir: {traces[0].name} "
+            f"({traces[0].stat().st_size} B) names " + ", ".join(
+                f"{what} ({n} events)" for what, n in found.items())
+            + "; bytes == the run without the profiler")
+
+    # ---- phase 6: result ----
     assert_reference_packages_unused()
     kernels = []
     for name, source, replaces in KERNELS:

@@ -1,6 +1,6 @@
 """bgreat-compatible command line of the torch port.
 
-Takes dbgtpu's flags for mapping on one device:
+Takes dbgtpu's flags:
   -r reads (comma-separated), -k k, -g unitigs, -m mismatches,
   -t threads (accepted; batching replaces it), -e effort, -f paths
   file, -a notAligned file, -q fastq, -c correction, -G anchor (dog)
@@ -10,26 +10,34 @@ Takes dbgtpu's flags for mapping on one device:
   (a persisted index; -g and -k are then ignored), --resume (journaled
   run), --progress N, --num-processes / --process-id (this process maps
   its share of every input file and writes <out>.shard<id>),
-  --merge-shards N, and --device (where the kernels run; default cuda).
+  --coordinator HOST:PORT (with --num-processes > 1: the processes join
+  one torch.distributed group, gloo over TCP, and process 0 prints and
+  writes the stats block summed over all of them; the others print
+  none), --merge-shards N, --mesh N (each batch split over the first N
+  local devices, -1 all; on the CPU, N shards), --profile-dir DIR (a
+  torch.profiler Chrome trace of the mapping call, CPU activity and,
+  on a card, CUDA activity, written into DIR), and --device (where the
+  kernels run; default cuda).
 As in dbgtpu, -p wins over -b, -b over -G, and -i affects only -b and -p.
 `--impl python` runs every mode on the host spec; `auto` and `jax` run
 the device modes' kernels.  The path modes have no device engine: they
 run on the host spec too.  A run on the host spec launches no kernel and
 reports `"device": "host-spec"` in --json-summary; `--resume` refuses
 `--impl python`, as dbgtpu does.
-dbgtpu's multi-device flags are parsed with its types and defaults and
-run wherever they change nothing on one device: `--mesh 0` (the
-default), `--shard-index` without a mesh, `--coordinator` with one
-process.  Where one would take effect (`--mesh N` for N != 0,
-`--shard-index` with a mesh, `--coordinator` with more than one process,
-`--profile-dir`), the command exits with code 2 before reading input,
-naming the flag.  Without a GPU the command stops unless `--device cpu`
-asks for the plain torch versions of the kernels.
+dbgtpu's multi-device flags take its types and defaults.  `--shard-index`
+runs where it changes nothing (no mesh, or a mesh of one device); with
+a mesh of more than one device (dbgtpu's sharded index, B15) the command
+exits with code 2 before reading input, naming the flag.  `--coordinator`
+with one process changes nothing; `--resume` refuses more than one
+process, as dbgtpu does.  Without a GPU the command stops unless
+`--device cpu` asks for the plain torch versions of the kernels.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import sys
 import time
 
@@ -39,8 +47,9 @@ def make_parser() -> argparse.ArgumentParser:
         prog="dbgtpu_torch",
         description="de Bruijn graph read mapper (BGREAT-compatible), "
         "PyTorch and CUDA port of dbgtpu: greedy, anchor (-G) and "
-        "exhaustive (-b) modes on one device, path modes (-p) on the "
-        "host, scan and mphf index layouts, persisted and resumable runs",
+        "exhaustive (-b) modes on a device or a mesh of local devices, "
+        "path modes (-p) on the host, scan and mphf index layouts, "
+        "persisted, resumable and coordinated runs",
     )
     p.add_argument("-r", dest="reads", required=True,
                    help="read file(s), comma separated")
@@ -114,37 +123,40 @@ def make_parser() -> argparse.ArgumentParser:
                    help="torch device for the kernels (cuda); 'cpu' runs "
                         "their plain torch versions")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
-                   help="dbgtpu's device mesh; only 0 (no mesh, the "
-                        "default) runs here")
+                   help="split each batch over the first N local devices "
+                        "(-1: all; 0: no mesh, the default); the index is "
+                        "replicated; with --device cpu, N shards")
     p.add_argument("--shard-index", action="store_true",
-                   help="dbgtpu's sharded index; read only with a mesh, "
-                        "so it changes nothing here")
+                   help="dbgtpu's sharded index: runs without a mesh or "
+                        "on a mesh of one device, where it changes "
+                        "nothing; refused on more than one device")
     p.add_argument("--coordinator", metavar="HOST:PORT",
-                   help="dbgtpu's multi-process coordinator; used only "
-                        "with --num-processes > 1, which refuses it here")
+                   help="with --num-processes > 1: join the processes "
+                        "into one torch.distributed group (gloo, TCP; "
+                        "environment fallbacks JAX_COORDINATOR, "
+                        "JAX_NUM_PROCESSES, JAX_PROCESS_ID) and print one "
+                        "global stats block, on process 0")
     p.add_argument("--profile-dir", metavar="DIR",
-                   help="dbgtpu's profiler trace; refused here")
+                   help="write a torch.profiler Chrome trace of the "
+                        "mapping call into DIR")
     return p
 
 
-def _refusal(args) -> str | None:
+def _refusal(args, mesh) -> str | None:
     """Why the command line needs an engine outside this port (naming
-    the flag), or None: only where a flag would take effect in dbgtpu."""
-    if args.shard_index and args.mesh:
+    the flag), or None: only dbgtpu's sharded index over more than one
+    device (B15)."""
+    if args.shard_index and mesh is not None and len(mesh) > 1:
         return f"--shard-index with --mesh {args.mesh} shards the index " \
-               "over several devices"
-    if args.mesh:
-        return f"--mesh {args.mesh} splits each batch over several devices"
-    if args.coordinator and args.num_processes > 1:
-        return "--coordinator joins the processes into one distributed " \
-               "run; map each process's share without it and merge with " \
-               "--merge-shards"
-    if args.profile_dir:
-        return "--profile-dir writes a profiler trace"
+               f"over {len(mesh)} devices (dbgtpu's sharded row gather, B15)"
     return None
 
 
-def _finish(args, reads_files, stats) -> int:
+def _finish(args, reads_files, stats, print_summary=True) -> int:
+    """The stats block on stdout and in --json-summary; a coordinated
+    run's processes other than 0 write neither."""
+    if not print_summary:
+        return 0
     print(f"Indexing in seconds : {int(stats.index_seconds)}")
     for rf in reads_files:
         print(rf)
@@ -158,14 +170,30 @@ def _finish(args, reads_files, stats) -> int:
     return 0
 
 
+@contextlib.contextmanager
+def _profiled(profile_dir: str | None, device):
+    """torch.profiler over the span dbgtpu traces (the run_pipeline or
+    run_pipeline_resumable call): CPU activity, and CUDA activity on a
+    card; its Chrome trace goes into `profile_dir` as
+    dbgtpu_torch.<pid>.pt.trace.json."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(
+        profile_dir, f"dbgtpu_torch.{os.getpid()}.pt.trace.json"))
+
+
 def main(argv: list[str] | None = None) -> int:
     parser = make_parser()
     args = parser.parse_args(argv)
-    why = _refusal(args)
-    if why is not None:
-        print(f"dbgtpu_torch: {why}, which this port does not do (one "
-              "device); use dbgtpu", file=sys.stderr)
-        return 2
     if args.load_index is None and not 2 <= args.k <= 32:
         parser.error(
             f"-k {args.k} is out of range: supported k is 2..32 "
@@ -215,6 +243,14 @@ def main(argv: list[str] | None = None) -> int:
               "--device cpu to run the plain torch kernels on the CPU",
               file=sys.stderr)
         return 1
+    if not host:
+        from .dist.mesh import mesh_of
+
+        why = _refusal(args, mesh_of(args.mesh, device))
+        if why is not None:
+            print(f"dbgtpu_torch: {why}, which this port does not do yet; "
+                  "use dbgtpu", file=sys.stderr)
+            return 2
 
     if host and device.type == "cuda":
         print("dbgtpu_torch: " + ("path modes (-p)" if args.paths_mode
@@ -222,6 +258,22 @@ def main(argv: list[str] | None = None) -> int:
               + f" run on the host spec; --device {args.device} is not used",
               file=sys.stderr)
 
+    coordinated = False
+    if args.num_processes > 1 and args.coordinator:
+        from .dist.multihost import init_distributed
+
+        coordinated = init_distributed(
+            args.coordinator, args.num_processes, args.process_id)
+    try:
+        return _run(args, mode, device, coordinated)
+    finally:
+        if coordinated:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, mode, device, coordinated) -> int:
     from .pipeline import run_pipeline, run_pipeline_resumable
 
     graph = None
@@ -239,18 +291,21 @@ def main(argv: list[str] | None = None) -> int:
         correction=args.correction, batch_size=args.batch_size, graph=graph,
         device=device, mode=mode, partial=args.partial,
         index_layout=args.index_layout, progress_every=args.progress,
+        mesh_devices=args.mesh,
     )
     if args.resume:
-        stats = run_pipeline_resumable(
-            reads_files, args.unitigs, paths_file=args.paths_file,
-            na_file=args.not_aligned_file, **common)
+        with _profiled(args.profile_dir, device):
+            stats = run_pipeline_resumable(
+                reads_files, args.unitigs, paths_file=args.paths_file,
+                na_file=args.not_aligned_file, **common)
         stats.index_seconds += load_seconds
         return _finish(args, reads_files, stats)
 
-    paths, na, stats = run_pipeline(
-        reads_files, args.unitigs, save_index=args.save_index,
-        process_id=args.process_id, num_processes=args.num_processes,
-        impl=args.impl, **common)
+    with _profiled(args.profile_dir, device):
+        paths, na, stats = run_pipeline(
+            reads_files, args.unitigs, save_index=args.save_index,
+            process_id=args.process_id, num_processes=args.num_processes,
+            impl=args.impl, **common)
     stats.index_seconds += load_seconds
     paths_file, na_file = args.paths_file, args.not_aligned_file
     if args.num_processes > 1:
@@ -262,7 +317,23 @@ def main(argv: list[str] | None = None) -> int:
         f.write(paths)
     with open(na_file, "wb") as f:
         f.write(na)
-    return _finish(args, reads_files, stats)
+    print_summary = True
+    if coordinated:
+        # the counters summed over the processes (the reference's shared
+        # atomics, aligner.h:68): one global stats block, on process 0
+        import numpy as np
+
+        from .dist.multihost import global_stats_sum
+
+        tot = global_stats_sum(np.array(
+            [stats.read_number, stats.aligned, stats.not_aligned,
+             stats.no_overlap], np.int64))
+        if args.process_id == 0:
+            (stats.read_number, stats.aligned, stats.not_aligned,
+             stats.no_overlap) = (int(v) for v in tot)
+        else:
+            print_summary = False
+    return _finish(args, reads_files, stats, print_summary)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Host-side batching around the torch engine (counterpart of
-dbgtpu/engine/runner.py align_bulk, one device, greedy, anchor and
-exhaustive modes).
+dbgtpu/engine/runner.py align_bulk: greedy, anchor and exhaustive
+modes, one device or a mesh of local devices).
 
 Parsed reads are packed into batches (2-bit words + N bits, native C
 packer when available), each batch is mapped by
@@ -12,14 +12,38 @@ by the executable spec of the mode (model.py, anchors.py,
 exhaustive.py) — part of the output contract, as in dbgtpu.  There is
 no other host fallback: a device failure raises.
 
-dbgtpu's runner quantises the fetched prefix, fetches speculatively and
-groups dispatches, against recompiles and a slow link; none of that is
-needed here, and the prefix is sliced exactly.
+The batches run as a pipeline, as dbgtpu's do (runner.py:552-694).
+The calling thread packs a batch, uploads it through pinned memory
+without blocking, launches its kernels and queues the copy of `meta`
+and of a guessed prefix of `flat` into pinned buffers behind them, then
+goes on to the next batch.  One drain thread takes the batches in slot
+order: it waits for the batch's copies (an event), fetches the rest of
+the prefix, rebuilds the rows, recomputes the rows over pmax and calls
+`on_batch` and `progress`.  The native pack and format release the
+GIL, so a batch's pack and an earlier batch's format run side by side.
+Every kernel launches from the calling thread (the launch counts and
+K8's scratch per stream are not shared with the drain), and at most
+IN_FLIGHT batches are launched and not yet drained.
+
+With a mesh (dist/mesh.py make_mesh) each batch is cut into contiguous
+equal shards, one per device; every shard is launched on its own device
+before any is drained, and the drain joins the shards' rows in read
+order.  The index is replicated (index_tensors memoizes it per device).
+
+dbgtpu's runner quantises the fetched prefix and ratchets pmax, against
+XLA recompiles and a slow link; neither is needed here, and the prefix
+is sliced exactly.
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
+import torch
 
 from .. import native
 from ..constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
@@ -29,11 +53,15 @@ from ..index.persist import device_index_memo
 from ..spec import spec_for
 from .compact import compact_counts, expand_compact
 from .core import align_batch_packed_compact
-from .index import index_tensors, to_device
+from .index import index_tensors
 
 # device-side path-slot bound (offset + signed ids) before the host
 # recompute takes over; scales with the read length (runner._pmax_cap)
 PMAX_CAP = 30
+
+# batches launched and not yet drained, at most (dbgtpu's bound,
+# runner.py:684): bounds the device and pinned buffers held at once
+IN_FLIGHT = 3
 
 
 def _pmax_cap(L: int) -> int:
@@ -107,55 +135,169 @@ def pack_records(parsed, lens_all, s0: int, nb: int, L: int):
     return words, nmbits, blens.astype(np.int32)
 
 
+def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """numpy array -> tensor on `device` (uint32 as int32 with the same
+    bits).  To a card it goes through pinned memory without blocking the
+    host: the caching host allocator keeps the pinned block until its
+    copy has run."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    t = torch.from_numpy(a)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def queued_prefix(rows: int, pmax: int, density: float) -> int:
+    """Entries of a shard's `flat` whose copy is queued at launch, beside
+    `meta`: the most populated slots per read seen so far in this call
+    (`density`), with 12% and 256 entries to spare (dbgtpu's speculative
+    prefix, runner.py:608-621).  The drain fetches whatever the guess
+    leaves out; before the first batch is drained it guesses 0."""
+    if not density:
+        return 0
+    return min(rows * pmax, int(rows * density * 1.12) + 256)
+
+
+def on_device(device: torch.device):
+    """The context in which `device`'s kernels launch: on a card, that
+    card made current, so its current stream is the one launched on."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+class _Shard:
+    """One device's rows of a batch, launched: the device result and its
+    host copies (queued behind the kernels on a card, the result itself
+    on the CPU)."""
+
+    def __init__(self, meta_d, flat_d, pre: int, fetch_stream):
+        self.flat_d, self.fetch_stream = flat_d, fetch_stream
+        self.event = None
+        if meta_d.device.type != "cuda":
+            self.meta_h, self.pre_h = meta_d, flat_d[:0]
+            return
+        self.meta_h = torch.empty(meta_d.shape, dtype=meta_d.dtype,
+                                  pin_memory=True)
+        self.meta_h.copy_(meta_d, non_blocking=True)
+        self.pre_h = torch.empty(pre, dtype=flat_d.dtype, pin_memory=True)
+        if pre:
+            self.pre_h.copy_(flat_d[:pre], non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def fetch(self, pmax: int):
+        """(meta, counts, prefix, bytes queued beyond the prefix) on the
+        host, from the drain thread: waits for the queued copies, then
+        copies what the queued prefix left out on the device's fetch
+        stream (a copy, no kernel)."""
+        if self.event is not None:
+            self.event.synchronize()
+        meta = self.meta_h.numpy()
+        counts = compact_counts(meta, pmax)
+        n = int(counts.sum())
+        pre = self.pre_h.shape[0]
+        if n <= pre:
+            prefix = self.pre_h[:n].numpy()
+        elif self.event is None:
+            prefix = self.flat_d[:n].numpy()
+        else:
+            with torch.cuda.stream(self.fetch_stream):
+                self.fetch_stream.wait_event(self.event)
+                rest = self.flat_d[pre:n].cpu()
+            prefix = np.concatenate([self.pre_h.numpy(), rest.numpy()])
+        return meta, counts, prefix, max(pre - n, 0) * self.pre_h.itemsize
+
+
 def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
                batch_size: int, device, mode: str = "greedy",
                partial: bool = False, index_layout: str = "scan",
-               on_batch=None, xfer=None, progress=None):
+               mesh=None, on_batch=None, xfer=None, progress=None):
     """Mapping of every parsed record in `mode`, input order preserved.
 
     Returns (status int32 [N], path_off int64 [N+1], paths_flat int32):
     aligned reads' spans hold [offset, signed ids...], other reads have
-    empty spans.  `on_batch(slot, s0, nb, status, counts, flat)` is
-    called after each batch (the caller formats output there); `xfer`
-    collects the batch payload bytes (h2d_bytes, d2h_bytes);
-    `progress(done, total, aligned)` is called after each batch with the
-    records done and aligned so far in this call."""
+    empty spans.  `mesh` (a list of devices, dist.mesh.make_mesh) splits
+    every batch over its devices, `batch_size` rounded up to a multiple
+    of their count (dbgtpu's rule, runner.py:285-286); without one the
+    batches run on `device`.  `on_batch(slot, s0, nb, status, counts,
+    flat)` is called after each batch, in slot order, on the drain
+    thread (the caller formats output there); `xfer` collects the batch
+    payload bytes (h2d_bytes; d2h_bytes, meta and the populated prefix;
+    d2h_spare_bytes, the queued prefix beyond it) and the seconds of the
+    pipeline's legs (launch_s: pack, upload, launches and queued copies
+    on this thread; drain_s: the drain's work, of which format_s is in
+    `on_batch`; wait_s: the drain waiting for the device and fetching;
+    stall_s: this thread waiting for the drain); `progress(done, total,
+    aligned)` is called after each batch with the records done and
+    aligned so far in this call.  A failure in the drain raises here."""
+    devices = list(mesh) if mesh else [torch.device(device)]
+    if len(devices) > 1:
+        batch_size = -(-batch_size // len(devices)) * len(devices)
     spec = spec_for(mode, m, effort, partial)
     di = get_device_index(graph, index_layout)
-    ix = index_tensors(di, device)
+    ixs = []
+    for d in devices:
+        with on_device(d):
+            ixs.append(index_tensors(di, d))
+    fetch_streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                     for d in devices]
     k = graph.k
     N = parsed.n
     lens_all = np.diff(parsed.seq_off).astype(np.int32)
     status_all = np.zeros(N, np.int32)
     counts_all = np.zeros(N, np.int64)
-    flat_parts: list[np.ndarray] = []
-    n_aligned = 0
+    flat_parts: list = []
     if xfer is None:
         xfer = {}
-    xfer.setdefault("h2d_bytes", 0)
-    xfer.setdefault("d2h_bytes", 0)
+    for key in ("h2d_bytes", "d2h_bytes", "d2h_spare_bytes"):
+        xfer.setdefault(key, 0)
+    for key in ("launch_s", "drain_s", "format_s", "wait_s", "stall_s"):
+        xfer.setdefault(key, 0.0)
+    seen = {"aligned": 0, "density": 0.0}
 
-    for slot, s0 in enumerate(range(0, N, batch_size)):
-        nb = min(batch_size, N - s0)
-        L = _bucket_len(int(lens_all[s0 : s0 + nb].max(initial=k + 1)), k)
-        pmax = min(_pmax_for(di, L), _pmax_cap(L))
+    def launch(s0, nb, L, pmax) -> list:
+        """Pack records [s0, s0+nb), launch each shard's kernels on its
+        device and queue its copies: the batch's shards."""
         words, nmbits, blens = pack_records(parsed, lens_all, s0, nb, L)
         xfer["h2d_bytes"] += words.nbytes + nmbits.nbytes + blens.nbytes
-        meta_d, flat_d = align_batch_packed_compact(
-            ix, to_device(words, device), to_device(nmbits, device),
-            to_device(blens, device), mode=mode, k=k, m=m, effort=effort,
-            L=L, pmax=pmax, partial=partial,
-        )
-        meta = meta_d.cpu().numpy()
-        counts = compact_counts(meta, pmax)
-        prefix = flat_d[: int(counts.sum())].cpu().numpy()
-        xfer["d2h_bytes"] += meta.nbytes + prefix.nbytes
+        step = -(-nb // len(devices))
+        shards = []
+        for dev, ix, fs, a in zip(devices, ixs, fetch_streams,
+                                  range(0, nb, step)):
+            b = min(a + step, nb)
+            with on_device(dev):
+                meta_d, flat_d = align_batch_packed_compact(
+                    ix, upload(words[a:b], dev), upload(nmbits[a:b], dev),
+                    upload(blens[a:b], dev), mode=mode, k=k, m=m,
+                    effort=effort, L=L, pmax=pmax, partial=partial,
+                )
+                pre = (queued_prefix(b - a, pmax, seen["density"])
+                       if dev.type == "cuda" else 0)
+                shards.append(_Shard(meta_d, flat_d, pre, fs))
+        return shards
 
+    def drain(slot, s0, nb, pmax, shards):
+        t0 = time.perf_counter()
+        metas, rows = [], []
+        for sh in shards:
+            meta, counts, prefix, spare = sh.fetch(pmax)
+            xfer["d2h_bytes"] += meta.nbytes + prefix.nbytes
+            xfer["d2h_spare_bytes"] += spare
+            seen["density"] = max(seen["density"],
+                                  int(counts.sum()) / max(len(counts), 1))
+            metas.append(meta)
+            rows.append(expand_compact(meta, prefix, pmax))
+        t1 = time.perf_counter()
+        meta = np.concatenate(metas)
+        paths = np.concatenate(rows).astype(np.int32)
+        counts = compact_counts(meta, pmax)
         status = meta[:, 0].astype(np.int32)
         plen = meta[:, 1].astype(np.int32)
         aligned = (status == STATUS_ALIGNED_FWD) | (status == STATUS_ALIGNED_RC)
         over = aligned & (plen > pmax)
-        paths = expand_compact(meta, prefix, pmax).astype(np.int32)
         if di.id_inv is not None:
             # renumbered device ids -> file-order ids (slot 0 is the
             # offset; overflow rows are recomputed with file-order ids)
@@ -187,12 +329,43 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
         counts_all[s0 : s0 + nb] = counts
         cols = np.arange(paths.shape[1])[None, :]
         flat = paths[aligned[:, None] & (cols < counts[:, None])]
-        flat_parts.append(flat)
+        flat_parts[slot] = flat
+        t2 = time.perf_counter()
         if on_batch is not None:
             on_batch(slot, s0, nb, status, counts, flat)
+        xfer["format_s"] += time.perf_counter() - t2
         if progress is not None:
-            n_aligned += int(aligned.sum())
-            progress(s0 + nb, N, n_aligned)
+            seen["aligned"] += int(aligned.sum())
+            progress(s0 + nb, N, seen["aligned"])
+        xfer["wait_s"] += t1 - t0
+        xfer["drain_s"] += time.perf_counter() - t1
+
+    pending: deque = deque()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        try:
+            for slot, s0 in enumerate(range(0, N, batch_size)):
+                t0 = time.perf_counter()
+                nb = min(batch_size, N - s0)
+                L = _bucket_len(
+                    int(lens_all[s0 : s0 + nb].max(initial=k + 1)), k)
+                pmax = min(_pmax_for(di, L), _pmax_cap(L))
+                shards = launch(s0, nb, L, pmax)
+                flat_parts.append(None)
+                pending.append(pool.submit(drain, slot, s0, nb, pmax,
+                                           shards))
+                t1 = time.perf_counter()
+                xfer["launch_s"] += t1 - t0
+                if len(pending) >= IN_FLIGHT:
+                    pending.popleft().result()
+                    xfer["stall_s"] += time.perf_counter() - t1
+            t1 = time.perf_counter()
+            while pending:
+                pending.popleft().result()
+            xfer["stall_s"] += time.perf_counter() - t1
+        except BaseException:
+            for f in pending:
+                f.cancel()
+            raise
 
     path_off = np.zeros(N + 1, np.int64)
     np.cumsum(counts_all, out=path_off[1:])

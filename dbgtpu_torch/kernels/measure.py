@@ -13,7 +13,10 @@ nothing.
 Against another tree's kernels (`--baseline-csrc`, build.load_from):
 `in_turns` times both in turns, and `on` launches this tree's
 `build.Launch` on the older library, through `OLDER_ENTRIES` where the
-older entry point takes other arguments."""
+older entry point takes other arguments.
+
+`device_busy` reads a torch.profiler run: the device-side events'
+summed time over the run's host wall."""
 
 from __future__ import annotations
 
@@ -38,6 +41,24 @@ def bound_ms(stream_bytes: int, touched: int, table: int,
     t_ops = ops / INT_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def device_busy(prof, wall_s: float):
+    """(summed device-event ms, busy share, per-name (device ms, event
+    count)).  The counts show a trace that lost events: every kernel of
+    a mode's path runs once per batch."""
+    from torch.autograd import DeviceType
+
+    total_us, by_name = 0.0, {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        total_us += us
+        ms, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (ms + us / 1e3, n + 1)
+    by_name = dict(sorted(by_name.items(), key=lambda x: -x[1][0]))
+    return total_us / 1e3, total_us / 1e3 / (wall_s * 1e3), by_name
 
 
 def cuda_ms(fn, reps: int, launches: int = 1) -> float:

@@ -2,7 +2,8 @@
 (counterpart of dbgtpu/pipeline.py run_pipeline, _run_file_bulk and
 run_pipeline_resumable for the greedy, anchor (-G) and exhaustive (-b,
 -i) modes and both index layouts; a persisted index, a progress line,
-record sharding over processes, and journaled runs that resume).
+record sharding over processes, a mesh of local devices, and journaled
+runs that resume).
 
 Parsing, graph build and output formatting are this package's copies
 of dbgtpu's host modules (native C where available).  Output bytes
@@ -27,9 +28,10 @@ import torch
 
 from . import native
 from .constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
+from .dist.mesh import mesh_of
 from .dist.multihost import shard_ranges
 from .engine.index import index_tensors
-from .engine.runner import align_bulk, get_device_index
+from .engine.runner import align_bulk, get_device_index, on_device
 from .index.build import UnitigGraph, build_graph
 from .index.device import hbm_report
 from .index.persist import save_index as persist_index
@@ -55,6 +57,17 @@ class TorchRunStats(RunStats):
     upload_seconds: float = 0.0         # index tensors onto the device
     parse_seconds: float = 0.0          # read files -> packed records
     align_seconds: float = 0.0          # pack + kernels + unpack + format
+    # the pipelined runner's legs, summed over batches (inside
+    # align_seconds): pack, upload, launches and queued copies on the
+    # calling thread; the drain thread's work (rebuild, recompute,
+    # format; format alone beside it) and its waits for the device; the
+    # calling thread's waits for the drain
+    launch_seconds: float = 0.0
+    drain_seconds: float = 0.0
+    format_seconds: float = 0.0
+    wait_seconds: float = 0.0
+    stall_seconds: float = 0.0
+    payload_d2h_spare_bytes: int = 0    # queued prefix beyond the payload
 
     def as_dict(self) -> dict:
         d = super().as_dict()
@@ -64,6 +77,12 @@ class TorchRunStats(RunStats):
             upload_seconds=round(self.upload_seconds, 3),
             parse_seconds=round(self.parse_seconds, 3),
             align_seconds=round(self.align_seconds, 3),
+            launch_seconds=round(self.launch_seconds, 3),
+            drain_seconds=round(self.drain_seconds, 3),
+            format_seconds=round(self.format_seconds, 3),
+            wait_seconds=round(self.wait_seconds, 3),
+            stall_seconds=round(self.stall_seconds, 3),
+            payload_d2h_spare_bytes=self.payload_d2h_spare_bytes,
         )
         return d
 
@@ -117,9 +136,19 @@ def make_progress_printer(every_batches: int):
     return progress
 
 
+def _add_xfer(stats, xfer) -> None:
+    """One align_bulk call's payload bytes and leg seconds into stats."""
+    stats.payload_h2d_bytes += xfer["h2d_bytes"]
+    stats.payload_d2h_bytes += xfer["d2h_bytes"]
+    stats.payload_d2h_spare_bytes += xfer["d2h_spare_bytes"]
+    for leg in ("launch", "drain", "format", "wait", "stall"):
+        setattr(stats, f"{leg}_seconds",
+                getattr(stats, f"{leg}_seconds") + xfer[f"{leg}_s"])
+
+
 def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
               mode, partial, index_layout, stats, paths_out, na_out,
-              rec_range=None, progress=None):
+              rec_range=None, progress=None, mesh=None):
     t = time.monotonic()
     parsed = native.parse_reads(rf, graph.k, fastq)
     if rec_range is not None:
@@ -161,12 +190,11 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
     t = time.monotonic()
     status, path_off, flat = align_bulk(
         graph, parsed, m, effort, batch_size=batch_size, device=device,
-        mode=mode, partial=partial, index_layout=index_layout,
+        mode=mode, partial=partial, index_layout=index_layout, mesh=mesh,
         on_batch=on_batch, xfer=xfer, progress=progress,
     )
     stats.align_seconds += time.monotonic() - t
-    stats.payload_h2d_bytes += xfer["h2d_bytes"]
-    stats.payload_d2h_bytes += xfer["d2h_bytes"]
+    _add_xfer(stats, xfer)
     aligned = _count_stats(stats, status)
     if on_batch is not None:
         paths_out.append(b"".join(parts_p[i] for i in sorted(parts_p)))
@@ -179,15 +207,18 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
         na_out.append(nab)
 
 
-def _upload_index(graph, index_layout, device, stats) -> None:
+def _upload_index(graph, index_layout, devices, stats) -> None:
     """The graph's device index in `index_layout`, built unless the graph
-    carries it, and its tensors on `device` (memoized per device)."""
+    carries it, and its tensors on each of `devices` (memoized per
+    device)."""
     t = time.monotonic()
     di = get_device_index(graph, index_layout)
     stats.device_index_seconds = time.monotonic() - t
     t = time.monotonic()
-    index_tensors(di, device)
-    _sync(device)
+    for device in devices:
+        with on_device(device):
+            index_tensors(di, device)
+        _sync(device)
     stats.upload_seconds = time.monotonic() - t
     stats.index_hbm = hbm_report(di)
 
@@ -211,6 +242,7 @@ def run_pipeline(
     num_processes: int = 1,
     progress_every: int = 0,
     impl: str = "auto",
+    mesh_devices: int = 0,
 ):
     """Returns (paths_bytes, not_aligned_bytes, TorchRunStats).
 
@@ -229,7 +261,10 @@ def run_pipeline(
     process maps a contiguous record range of every input file; the
     caller merges the processes' outputs in order
     (dist.multihost.merge_shards) for the bytes of a single run.
-    `progress_every` prints a stats line every that many batches."""
+    `progress_every` prints a stats line every that many batches.
+    `mesh_devices` (dbgtpu's `--mesh`) shards every batch over the first
+    that many local devices of `device`'s kind (-1: all; 0: no mesh; on
+    the CPU that many shards, dist/mesh.py)."""
     if mode not in DEVICE_MODES + PATH_MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if impl not in IMPLS:
@@ -260,7 +295,8 @@ def run_pipeline(
         return paths, na, stats
 
     t1 = time.monotonic()
-    _upload_index(graph, index_layout, device, stats)
+    mesh = mesh_of(mesh_devices, device)
+    _upload_index(graph, index_layout, mesh or [device], stats)
     progress = make_progress_printer(progress_every)
     paths_out: list[bytes] = []
     na_out: list[bytes] = []
@@ -269,7 +305,8 @@ def run_pipeline(
             progress.segment()
         _run_file(graph, rf, m, effort, fastq, correction, batch_size,
                   device, mode, partial, index_layout, stats, paths_out,
-                  na_out, rec_range=rec_range, progress=progress)
+                  na_out, rec_range=rec_range, progress=progress,
+                  mesh=mesh)
     stats.map_seconds = time.monotonic() - t1
     return b"".join(paths_out), b"".join(na_out), stats
 
@@ -304,6 +341,7 @@ def run_pipeline_resumable(
     index_layout: str = "scan",
     segment_records: int = 0,
     progress_every: int = 0,
+    mesh_devices: int = 0,
 ) -> TorchRunStats:
     """Crash-resumable mapping run (counterpart of dbgtpu/pipeline.py
     run_pipeline_resumable; same journal, so either package resumes the
@@ -317,7 +355,8 @@ def run_pipeline_resumable(
     outputs are truncated to the journaled byte offsets (dropping any
     torn tail past the last fsync) and mapping continues at the
     journaled record offset, so the final bytes equal a single
-    uninterrupted run's.  The journal is removed on completion."""
+    uninterrupted run's.  The journal is removed on completion.
+    `mesh_devices` is run_pipeline's."""
     if mode not in DEVICE_MODES:
         raise ValueError(f"a resumable run takes a device mode, not {mode!r}")
     device = torch.device(device)
@@ -369,7 +408,8 @@ def run_pipeline_resumable(
         setattr(stats, name, val)
     stats.index_seconds = t_ix
     t1 = time.monotonic()
-    _upload_index(graph, index_layout, device, stats)
+    mesh = mesh_of(mesh_devices, device)
+    _upload_index(graph, index_layout, mesh or [device], stats)
     progress = make_progress_printer(progress_every)
 
     with open(paths_file, "ab") as pf, open(na_file, "ab") as naf:
@@ -390,7 +430,8 @@ def run_pipeline_resumable(
                 status, path_off, flat = align_bulk(
                     graph, parsed, m, effort, batch_size=batch_size,
                     device=device, mode=mode, partial=partial,
-                    index_layout=index_layout, progress=progress, xfer=xfer,
+                    index_layout=index_layout, mesh=mesh, progress=progress,
+                    xfer=xfer,
                 )
                 aligned = _count_stats(stats, status)
                 pb, nab = _format_outputs(
@@ -398,8 +439,7 @@ def run_pipeline_resumable(
                     aligned,
                 )
                 stats.align_seconds += time.monotonic() - t
-                stats.payload_h2d_bytes += xfer["h2d_bytes"]
-                stats.payload_d2h_bytes += xfer["d2h_bytes"]
+                _add_xfer(stats, xfer)
                 pf.write(pb)
                 pf.flush()
                 os.fsync(pf.fileno())

@@ -8,6 +8,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import types
@@ -200,10 +201,10 @@ def test_cli_mphf_layouts_equal_spec_and_jax_engine(tmp_path, flags, mode,
         assert 0 < hbm["anchor_table"] < 60 * want[2].read_number * 100
 
 
-_REFUSED = (["--mesh", "2"], ["--shard-index", "--mesh", "2"],
-            ["--profile-dir", "prof"],
-            ["--coordinator", "h:1", "--num-processes", "2"],
+_REFUSED = (["--shard-index", "--mesh", "2"],
             ["--resume", "--impl", "python"])
+# a coordinated run's address: a free localhost port at run time
+_FREE_PORT = "127.0.0.1:{port}"
 
 
 @pytest.mark.parametrize("flags", [
@@ -213,21 +214,22 @@ _REFUSED = (["--mesh", "2"], ["--shard-index", "--mesh", "2"],
     ["--save-index", "x.npz"], ["--load-index", "x.npz"], ["--resume"],
     ["--profile-dir", "prof"],
     ["--mesh", "0"], ["--shard-index", "--mesh", "2"],
-    ["--coordinator", "h:1", "--num-processes", "2"],
+    ["--coordinator", _FREE_PORT, "--num-processes", "2"],
     ["--impl", "python"], ["--impl", "jax"], ["--impl", "auto"],
     ["--resume", "--impl", "python"], ["--impl", "python", "-b"],
 ])
 def test_cli_refuses_flags_outside_the_slice(tmp_path, monkeypatch, flags,
                                              capsys):
-    """dbgtpu's flags that need more than one card or a profiler exit 2
-    naming the flag, before reading input, wherever they would take
-    effect: a nonzero --mesh (with or without --shard-index), --coordinator
-    with more than one process, --profile-dir; and --resume refuses
-    --impl python as dbgtpu does.  Everything else runs and gives
-    dbgtpu's bytes on the same inputs: the flags the port used to refuse
-    (path modes, persistence, --resume, process sharding, --mesh 0,
-    --shard-index without a mesh, --coordinator with one process) and
-    --impl python|jax|auto.  --impl python runs on the host spec."""
+    """dbgtpu's sharded index over more than one device (--shard-index
+    with --mesh 2: two shards on the CPU) exits 2 naming the flag, before
+    reading input; --resume refuses --impl python as dbgtpu does.
+    Everything else runs and gives dbgtpu's bytes on the same inputs:
+    the flags the port used to refuse (path modes, persistence, --resume,
+    process sharding, --mesh 0 and 2, --shard-index without a mesh,
+    --coordinator with one process and with two, --profile-dir) and
+    --impl python|jax|auto.  --impl python runs on the host spec.  The
+    coordinated case runs process 1 as a subprocess beside process 0 in
+    this one, on a free localhost port."""
     if flags in _REFUSED:
         assert cli.main(["-r", "reads.fa", "-k", "21", "--device", "cpu"]
                         + flags) == 2
@@ -249,6 +251,26 @@ def test_cli_refuses_flags_outside_the_slice(tmp_path, monkeypatch, flags,
                                     str(pid)]) == 0
         assert not (tmp_path / "paths").exists()
         assert cli.main(["-r", rf, "--merge-shards", "2"]) == 0
+    elif flags[1:2] == [_FREE_PORT]:
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        flags = [flags[0], _FREE_PORT.format(port=port), *flags[2:]]
+        env = dict(os.environ, PYTHONPATH=str(ROOT), CUDA_VISIBLE_DEVICES="")
+        peer = subprocess.Popen(
+            [sys.executable, "-m", "dbgtpu_torch", *base[:-2], *flags,
+             "--process-id", "1"], env=env, cwd=tmp_path,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            assert cli.main(base + flags) == 0
+            out, err = peer.communicate(timeout=300)
+        finally:
+            if peer.poll() is None:
+                peer.kill()
+        assert peer.returncode == 0, err[-2000:]
+        assert "Reads :" not in out
+        assert f"Reads : {want[2].read_number}\n" in capsys.readouterr().out
+        assert cli.main(["-r", rf, "--merge-shards", "2"]) == 0
     else:
         assert cli.main(base + flags) == 0
     assert (tmp_path / "paths").read_bytes() == want[0]
@@ -256,6 +278,8 @@ def test_cli_refuses_flags_outside_the_slice(tmp_path, monkeypatch, flags,
     assert want[2].aligned > 0
     if flags[0] == "--save-index":
         assert (tmp_path / "x.npz").exists()
+    if flags[0] == "--profile-dir":
+        assert len(list((tmp_path / "prof").glob("*.json"))) == 1
     device = json.loads((tmp_path / "s.json").read_text())["device"]
     on_host = "-p" in flags or "python" in flags
     assert (device == "host-spec") == on_host, device
@@ -287,6 +311,7 @@ def test_port_runs_without_jax_and_without_dbgtpu(tmp_path):
         "import dbgtpu_torch.spec, dbgtpu_torch.native\n"
         "import dbgtpu_torch.index.persist, dbgtpu_torch.paths_mode\n"
         "import dbgtpu_torch.dist.multihost, dbgtpu_torch.engine.gather\n"
+        "import dbgtpu_torch.dist.mesh\n"
         "import dbgtpu_torch.tools.exp_gather, dbgtpu_torch.tools.ggmap\n"
         "import dbgtpu_torch.tools.convert_one_line, dbgtpu_torch.tools.no_n\n"
         "import dbgtpu_torch.tools.get_large_unitigs\n"
@@ -349,7 +374,8 @@ def test_port_sources_never_import_jax_or_dbgtpu():
     assert len(paths) > 40
     names = {str(p.relative_to(ROOT)) for p in paths}
     assert {"dbgtpu_torch/index/persist.py", "dbgtpu_torch/paths_mode.py",
-            "dbgtpu_torch/dist/multihost.py", "dbgtpu_torch/engine/gather.py",
+            "dbgtpu_torch/dist/multihost.py", "dbgtpu_torch/dist/mesh.py",
+            "dbgtpu_torch/engine/gather.py",
             "dbgtpu_torch/tools/exp_gather.py",
             "dbgtpu_torch/tools/ggmap.py"} <= names
     for path in paths:

@@ -12,7 +12,9 @@ with its anchor table for -G) and, in each mode, maps the cell's 131,072
 reads warm with `dbgtpu_torch.pipeline.run_pipeline` `--reps` times,
 splitting the align phase into host pack, H2D, the mode's kernels
 (synchronized), the host rebuild of the compact result and native
-formatting; the payload bytes of the compact result fetch are printed
+formatting (the H2D and kernel stages synchronize, so these runs hold
+the pipelined runner to one batch on the device at a time; the rebuild
+and format run on its drain thread); the payload bytes of the compact result fetch are printed
 beside what padded rows would have taken.  One more warm run goes under
 torch.profiler: the device busy share is the summed duration of the
 device-side events (kernels, copies, memsets) over that run's host wall.
@@ -111,24 +113,6 @@ class StageTimer:
             return r
 
         setattr(mod, attr, timed)
-
-
-def device_busy(prof, wall_s: float):
-    """(summed device-event ms, busy share, per-name (device ms, event
-    count)).  The counts show a trace that lost events: every kernel of
-    a mode's path runs once per batch."""
-    from torch.autograd import DeviceType
-
-    total_us, by_name = 0.0, {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        us = e.time_range.elapsed_us()
-        total_us += us
-        ms, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (ms + us / 1e3, n + 1)
-    by_name = dict(sorted(by_name.items(), key=lambda x: -x[1][0]))
-    return total_us / 1e3, total_us / 1e3 / (wall_s * 1e3), by_name
 
 
 def measure_copy_rate(device) -> float:
@@ -277,6 +261,7 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
     from dbgtpu_torch.engine import runner
     from dbgtpu_torch.engine.pack import out_dtype_for
     from dbgtpu_torch.kernels import build
+    from dbgtpu_torch.kernels.measure import device_busy
     from dbgtpu_torch.pipeline import run_pipeline
     from dbgtpu_torch.spec import run_pipeline as spec_pipeline
 
@@ -292,13 +277,13 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
     B, L = min(BATCH, n_reads), runner._bucket_len(read_len, K)
     pmax = min(runner._pmax_for(di, L), runner._pmax_cap(L))
     st = StageTimer()
-    saved = [(runner, "pack_records"), (runner, "to_device"),
+    saved = [(runner, "pack_records"), (runner, "upload"),
              (runner, "align_batch_packed_compact"),
              (runner, "expand_compact"), (native, "format_paths_native"),
              (native, "format_notaligned_native")]
     saved = [(mod, attr, getattr(mod, attr)) for mod, attr in saved]
     st.wrap(runner, "pack_records", "pack")
-    st.wrap(runner, "to_device", "h2d", sync=True)
+    st.wrap(runner, "upload", "h2d", sync=True)
     st.wrap(runner, "align_batch_packed_compact", "kernels", sync=True)
     st.wrap(runner, "expand_compact", "expand")
     st.wrap(native, "format_paths_native", "format")
