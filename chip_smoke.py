@@ -104,13 +104,11 @@ its own kernel), then:
   5. the run modes.  `[runner]`: 1,048,576 reads of 100 bp on the survey
      genome (32 batches of 32,768; survey_workload's generator and seed)
      through `cli.main` from a loaded index, greedy / scan and -G / mphf,
-     in turns (four each, first and last in alternating order): this
-     tree's pipelined runner, the same runner with every
-     prefix fetched by its drain once `meta` is on the host
-     ("drain-fetch": no prefix queued at launch) and, with
+     four times: this tree's pipelined runner and, with
      `--baseline-runner FILE` (an older tree's
      dbgtpu_torch/engine/runner.py, loaded into this tree's engine
-     package), that runner; each run's align_seconds, mapping and
+     package), that runner, in turns (baseline, this, this, baseline,
+     twice); each run's align_seconds, mapping and
      end-to-end reads/s, the legs per batch (launch, drain, the drain's
      wait for the device, the launching thread's wait for the drain),
      peak device memory, payload bytes and launches, then one run of
@@ -1744,22 +1742,17 @@ def load_runner(path: str):
 
 class runner_variant:
     """Within the block, `dbgtpu_torch.pipeline` maps with `variant`:
-    "pipelined" (this tree's runner as it is), "drain-fetch" (this
-    tree's runner with no prefix queued at launch: the drain fetches
-    every prefix once `meta` is on the host) or "baseline" (the module
-    of `load_runner`)."""
+    "pipelined" (this tree's runner) or "baseline" (the module of
+    `load_runner`, whose align_bulk takes no mesh and times no legs)."""
 
     def __init__(self, variant: str, baseline=None):
         self.variant, self.baseline = variant, baseline
 
     def __enter__(self):
         from dbgtpu_torch import pipeline
-        from dbgtpu_torch.engine import runner
 
-        self.saved = (pipeline.align_bulk, runner.queued_prefix)
-        if self.variant == "drain-fetch":
-            runner.queued_prefix = lambda rows, pmax, density: 0
-        elif self.variant == "baseline":
+        self.saved = pipeline.align_bulk
+        if self.variant == "baseline":
             older = self.baseline.align_bulk
 
             def align_bulk(*a, mesh=None, xfer=None, **kw):
@@ -1767,8 +1760,8 @@ class runner_variant:
                     raise AssertionError("the baseline runner has no mesh")
                 xfer = {} if xfer is None else xfer
                 out = older(*a, xfer=xfer, **kw)
-                for key in ("d2h_spare_bytes", "launch_s", "drain_s",
-                            "format_s", "wait_s", "stall_s"):
+                for key in ("launch_s", "drain_s", "format_s", "wait_s",
+                            "stall_s"):
                     xfer.setdefault(key, 0)
                 return out
 
@@ -1777,9 +1770,8 @@ class runner_variant:
 
     def __exit__(self, *exc):
         from dbgtpu_torch import pipeline
-        from dbgtpu_torch.engine import runner
 
-        pipeline.align_bulk, runner.queued_prefix = self.saved
+        pipeline.align_bulk = self.saved
         return False
 
 
@@ -1837,9 +1829,9 @@ def records(blob: bytes) -> dict:
 def runner_phase(td: Path, uf: Path, graphs, baseline_path) -> None:
     """[runner]: RUNNER_READS survey reads through `cli.main` from a
     loaded index, greedy / scan and -G / mphf, this tree's pipelined
-    runner beside its drain-fetch variant and, with `baseline_path`, an
-    older tree's runner, in turns; bytes equal across the runners and,
-    on 128 reads of every batch, to the spec."""
+    runner and, with `baseline_path`, an older tree's runner, in turns;
+    bytes equal across the runs and, on 128 reads of every batch, to
+    the spec."""
     import numpy as np
 
     from dbgtpu_torch import native
@@ -1852,7 +1844,7 @@ def runner_phase(td: Path, uf: Path, graphs, baseline_path) -> None:
     log(f"[runner] {RUNNER_READS} reads of {READ_LEN} bases on the survey "
         f"genome: {time.monotonic() - t0:.1f} s to make")
     baseline = load_runner(baseline_path) if baseline_path else None
-    names = (["baseline"] if baseline else []) + ["pipelined", "drain-fetch"]
+    names = (["baseline"] if baseline else []) + ["pipelined"]
     order = (names + names[::-1]) * 2
     # 128 reads of each batch, against the spec
     parsed = native.parse_reads(str(rf), K, False)
@@ -1920,9 +1912,8 @@ def runner_phase(td: Path, uf: Path, graphs, baseline_path) -> None:
                 f"{row['wait']:.2f} ms, launch thread stalled "
                 f"{row['stall']:.2f} ms; max_memory_allocated +{r['peak']}"
                 f" B; payload H2D {summ['payload_h2d_bytes']} B, D2H "
-                f"{summ['payload_d2h_bytes']} B (+"
-                f"{summ['payload_d2h_spare_bytes']} B queued beyond the "
-                f"prefix); launches {r['launches']}")
+                f"{summ['payload_d2h_bytes']} B; launches "
+                f"{r['launches']}")
         want = spec_pipeline([str(sf)], str(uf), k=K, m=M, graph=graph,
                              mode=mode)
         for what, blob, spec_blob in (("paths", outputs["bytes"][0], want[0]),
@@ -2297,9 +2288,7 @@ def main(argv=None) -> int:
                 f"launches {counts}; hbm_report "
                 f"{summ['index_hbm_bytes']}; payload H2D "
                 f"{summ['payload_h2d_bytes']} B, D2H "
-                f"{summ['payload_d2h_bytes']} B (+"
-                f"{summ['payload_d2h_spare_bytes']} B of prefix queued "
-                f"beyond it; padded rows would be "
+                f"{summ['payload_d2h_bytes']} B (padded rows would be "
                 f"{summ['reads'] * (2 + pmax) * 2} B)")
             if n_paths != summ["aligned"]:
                 raise AssertionError(f"{tag} output does not match its stats")

@@ -15,11 +15,11 @@ no other host fallback: a device failure raises.
 The batches run as a pipeline, as dbgtpu's do (runner.py:552-694).
 The calling thread packs a batch, uploads it through pinned memory
 without blocking, launches its kernels and queues the copy of `meta`
-and of a guessed prefix of `flat` into pinned buffers behind them, then
-goes on to the next batch.  One drain thread takes the batches in slot
-order: it waits for the batch's copies (an event), fetches the rest of
-the prefix, rebuilds the rows, recomputes the rows over pmax and calls
-`on_batch` and `progress`.  The native pack and format release the
+into a pinned buffer behind them, then goes on to the next batch.  One
+drain thread takes the batches in slot order: it waits for `meta` (an
+event), fetches the populated prefix of `flat` on a side stream,
+rebuilds the rows, recomputes the rows over pmax and calls `on_batch`
+and `progress`.  The native pack and format release the
 GIL, so a batch's pack and an earlier batch's format run side by side.
 Every kernel launches from the calling thread (the launch counts and
 K8's scratch per stream are not shared with the drain), and at most
@@ -32,7 +32,9 @@ order.  The index is replicated (index_tensors memoizes it per device).
 
 dbgtpu's runner quantises the fetched prefix and ratchets pmax, against
 XLA recompiles and a slow link; neither is needed here, and the prefix
-is sliced exactly.
+is sliced exactly.  Nor does it queue a prefix guessed from the running
+maximum at launch, as dbgtpu does (runner.py:608-621): on the H100 that
+guess timed level with the drain's fetch and added 7% to D2H.
 """
 
 from __future__ import annotations
@@ -149,17 +151,6 @@ def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def queued_prefix(rows: int, pmax: int, density: float) -> int:
-    """Entries of a shard's `flat` whose copy is queued at launch, beside
-    `meta`: the most populated slots per read seen so far in this call
-    (`density`), with 12% and 256 entries to spare (dbgtpu's speculative
-    prefix, runner.py:608-621).  The drain fetches whatever the guess
-    leaves out; before the first batch is drained it guesses 0."""
-    if not density:
-        return 0
-    return min(rows * pmax, int(rows * density * 1.12) + 256)
-
-
 def on_device(device: torch.device):
     """The context in which `device`'s kernels launch: on a card, that
     card made current, so its current stream is the one launched on."""
@@ -169,46 +160,37 @@ def on_device(device: torch.device):
 
 
 class _Shard:
-    """One device's rows of a batch, launched: the device result and its
-    host copies (queued behind the kernels on a card, the result itself
-    on the CPU)."""
+    """One device's rows of a batch, launched: the device result and the
+    host copy of `meta` (queued behind the kernels on a card, the result
+    itself on the CPU)."""
 
-    def __init__(self, meta_d, flat_d, pre: int, fetch_stream):
+    def __init__(self, meta_d, flat_d, fetch_stream):
         self.flat_d, self.fetch_stream = flat_d, fetch_stream
         self.event = None
         if meta_d.device.type != "cuda":
-            self.meta_h, self.pre_h = meta_d, flat_d[:0]
+            self.meta_h = meta_d
             return
         self.meta_h = torch.empty(meta_d.shape, dtype=meta_d.dtype,
                                   pin_memory=True)
         self.meta_h.copy_(meta_d, non_blocking=True)
-        self.pre_h = torch.empty(pre, dtype=flat_d.dtype, pin_memory=True)
-        if pre:
-            self.pre_h.copy_(flat_d[:pre], non_blocking=True)
         self.event = torch.cuda.Event()
         self.event.record()
 
     def fetch(self, pmax: int):
-        """(meta, counts, prefix, bytes queued beyond the prefix) on the
-        host, from the drain thread: waits for the queued copies, then
-        copies what the queued prefix left out on the device's fetch
-        stream (a copy, no kernel)."""
-        if self.event is not None:
-            self.event.synchronize()
+        """(meta, counts, prefix) on the host, from the drain thread: waits
+        for `meta`, then copies the populated prefix of `flat` on the
+        device's fetch stream (a copy, no kernel)."""
+        if self.event is None:
+            meta = self.meta_h.numpy()
+            counts = compact_counts(meta, pmax)
+            return meta, counts, self.flat_d[: int(counts.sum())].numpy()
+        self.event.synchronize()
         meta = self.meta_h.numpy()
         counts = compact_counts(meta, pmax)
-        n = int(counts.sum())
-        pre = self.pre_h.shape[0]
-        if n <= pre:
-            prefix = self.pre_h[:n].numpy()
-        elif self.event is None:
-            prefix = self.flat_d[:n].numpy()
-        else:
-            with torch.cuda.stream(self.fetch_stream):
-                self.fetch_stream.wait_event(self.event)
-                rest = self.flat_d[pre:n].cpu()
-            prefix = np.concatenate([self.pre_h.numpy(), rest.numpy()])
-        return meta, counts, prefix, max(pre - n, 0) * self.pre_h.itemsize
+        with torch.cuda.stream(self.fetch_stream):
+            self.fetch_stream.wait_event(self.event)
+            prefix = self.flat_d[: int(counts.sum())].cpu()
+        return meta, counts, prefix.numpy()
 
 
 def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
@@ -225,9 +207,8 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
     batches run on `device`.  `on_batch(slot, s0, nb, status, counts,
     flat)` is called after each batch, in slot order, on the drain
     thread (the caller formats output there); `xfer` collects the batch
-    payload bytes (h2d_bytes; d2h_bytes, meta and the populated prefix;
-    d2h_spare_bytes, the queued prefix beyond it) and the seconds of the
-    pipeline's legs (launch_s: pack, upload, launches and queued copies
+    payload bytes (h2d_bytes; d2h_bytes, meta and the populated prefix)
+    and the seconds of the pipeline's legs (launch_s: pack, upload, launches and queued copies
     on this thread; drain_s: the drain's work, of which format_s is in
     `on_batch`; wait_s: the drain waiting for the device and fetching;
     stall_s: this thread waiting for the drain); `progress(done, total,
@@ -252,11 +233,11 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
     flat_parts: list = []
     if xfer is None:
         xfer = {}
-    for key in ("h2d_bytes", "d2h_bytes", "d2h_spare_bytes"):
+    for key in ("h2d_bytes", "d2h_bytes"):
         xfer.setdefault(key, 0)
     for key in ("launch_s", "drain_s", "format_s", "wait_s", "stall_s"):
         xfer.setdefault(key, 0.0)
-    seen = {"aligned": 0, "density": 0.0}
+    seen = {"aligned": 0}
 
     def launch(s0, nb, L, pmax) -> list:
         """Pack records [s0, s0+nb), launch each shard's kernels on its
@@ -274,20 +255,15 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
                     upload(blens[a:b], dev), mode=mode, k=k, m=m,
                     effort=effort, L=L, pmax=pmax, partial=partial,
                 )
-                pre = (queued_prefix(b - a, pmax, seen["density"])
-                       if dev.type == "cuda" else 0)
-                shards.append(_Shard(meta_d, flat_d, pre, fs))
+                shards.append(_Shard(meta_d, flat_d, fs))
         return shards
 
     def drain(slot, s0, nb, pmax, shards):
         t0 = time.perf_counter()
         metas, rows = [], []
         for sh in shards:
-            meta, counts, prefix, spare = sh.fetch(pmax)
+            meta, counts, prefix = sh.fetch(pmax)
             xfer["d2h_bytes"] += meta.nbytes + prefix.nbytes
-            xfer["d2h_spare_bytes"] += spare
-            seen["density"] = max(seen["density"],
-                                  int(counts.sum()) / max(len(counts), 1))
             metas.append(meta)
             rows.append(expand_compact(meta, prefix, pmax))
         t1 = time.perf_counter()

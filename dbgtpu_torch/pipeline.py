@@ -67,7 +67,6 @@ class TorchRunStats(RunStats):
     format_seconds: float = 0.0
     wait_seconds: float = 0.0
     stall_seconds: float = 0.0
-    payload_d2h_spare_bytes: int = 0    # queued prefix beyond the payload
 
     def as_dict(self) -> dict:
         d = super().as_dict()
@@ -82,7 +81,6 @@ class TorchRunStats(RunStats):
             format_seconds=round(self.format_seconds, 3),
             wait_seconds=round(self.wait_seconds, 3),
             stall_seconds=round(self.stall_seconds, 3),
-            payload_d2h_spare_bytes=self.payload_d2h_spare_bytes,
         )
         return d
 
@@ -140,7 +138,6 @@ def _add_xfer(stats, xfer) -> None:
     """One align_bulk call's payload bytes and leg seconds into stats."""
     stats.payload_h2d_bytes += xfer["h2d_bytes"]
     stats.payload_d2h_bytes += xfer["d2h_bytes"]
-    stats.payload_d2h_spare_bytes += xfer["d2h_spare_bytes"]
     for leg in ("launch", "drain", "format", "wait", "stall"):
         setattr(stats, f"{leg}_seconds",
                 getattr(stats, f"{leg}_seconds") + xfer[f"{leg}_s"])

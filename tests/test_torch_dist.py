@@ -135,7 +135,7 @@ def test_resume_on_a_mesh(tmp_path, monkeypatch):
     assert not (tmp_path / "paths.resume.json").exists()
 
 
-def _coordinated(tmp_path, rf, uf, extra=()):
+def _coordinated(tmp_path, rf, uf):
     """Two `python -m dbgtpu_torch` processes joined by --coordinator on a
     free localhost port: their stdout."""
     port = _free_port()
@@ -145,7 +145,7 @@ def _coordinated(tmp_path, rf, uf, extra=()):
          "--device", "cpu", "--batch-size", "16", "-f", "paths", "-a",
          "notAligned.fa", "--coordinator", f"127.0.0.1:{port}",
          "--num-processes", "2", "--process-id", str(pid),
-         "--json-summary", f"s{pid}.json", *extra],
+         "--json-summary", f"s{pid}.json"],
         env=env, cwd=tmp_path, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True) for pid in (0, 1)]
     outs = []
@@ -210,14 +210,15 @@ def test_init_distributed_and_stats_sum_in_one_process(monkeypatch):
         dist.destroy_process_group()
 
 
-def test_profile_dir_writes_a_trace(tmp_path, monkeypatch):
-    """--profile-dir writes a Chrome trace of the mapping call into DIR;
-    the bytes do not change."""
+@pytest.mark.parametrize("extra", [[], ["--resume", "--batch-size", "8"]])
+def test_profile_dir_writes_a_trace(tmp_path, monkeypatch, extra):
+    """--profile-dir writes a Chrome trace of the mapping call into DIR,
+    of a journaled run too; the bytes do not change."""
     rf, uf = _files(tmp_path)
     monkeypatch.chdir(tmp_path)
     want = dbgtpu_pipeline([rf], uf, k=21, impl="python")
     assert cli.main(["-r", rf, "-k", "21", "-g", uf, "--device", "cpu",
-                     "--profile-dir", "prof"]) == 0
+                     "--profile-dir", "prof", *extra]) == 0
     assert (tmp_path / "paths").read_bytes() == want[0]
     assert (tmp_path / "notAligned.fa").read_bytes() == want[1]
     traces = list((tmp_path / "prof").glob("*.json"))

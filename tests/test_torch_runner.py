@@ -177,8 +177,8 @@ def test_runner_in_flight_bound(tmp_path_factory, monkeypatch):
 
 
 def test_runner_under_frequent_thread_switches(tmp_path_factory):
-    """The launching thread and the drain share the result arrays, the
-    byte counts and the prefix guess; with the interpreter switching
+    """The launching thread and the drain share the result arrays and
+    the byte and leg counts; with the interpreter switching
     threads every microsecond the rows, the callbacks' order and the
     byte counts stay those of an undisturbed run (a lost update would
     break one)."""
@@ -207,8 +207,7 @@ def test_runner_under_frequent_thread_switches(tmp_path_factory):
 def test_runner_payload_bytes_equal_serial_arithmetic(tmp_path_factory, mode):
     """xfer's H2D bytes are each batch's packed words, N bits and
     lengths, its D2H bytes each batch's meta and populated prefix: what
-    a serial runner (pack, launch, fetch, one batch at a time) counts;
-    nothing is queued beyond the prefix on the CPU."""
+    a serial runner (pack, launch, fetch, one batch at a time) counts."""
     k, rf, uf = _files(tmp_path_factory, "with_n")
     graph = build_graph(uf, k, dog_mode=mode == "anchors")
     parsed = native.parse_reads(rf, k, False)
@@ -234,16 +233,5 @@ def test_runner_payload_bytes_equal_serial_arithmetic(tmp_path_factory, mode):
         n = int(runner.compact_counts(meta, pmax).sum())
         d2h += meta.nbytes + flat[:n].numpy().nbytes
     assert (xfer["h2d_bytes"], xfer["d2h_bytes"]) == (h2d, d2h)
-    assert xfer["d2h_spare_bytes"] == 0
     for leg in ("launch_s", "drain_s", "format_s", "wait_s", "stall_s"):
         assert xfer[leg] >= 0.0
-
-
-def test_queued_prefix_guess():
-    """The prefix queued at launch: none before a batch was drained, the
-    running density with 12% and 256 entries to spare, never more than
-    the shard's rows times pmax."""
-    assert runner.queued_prefix(32768, 30, 0.0) == 0
-    assert runner.queued_prefix(32768, 30, 1.0) == int(32768 * 1.12) + 256
-    assert runner.queued_prefix(100, 30, 29.0) == 100 * 30
-    assert runner.queued_prefix(0, 30, 2.0) == 0
