@@ -5,7 +5,7 @@
 
 Runs with `dbgtpu` and `jax` blocked in sys.modules (the port stands on
 its own) and fails if either was imported by the end.  Builds the CUDA
-kernels from dbgtpu_torch/csrc (K1-K8; K3 has two entry points, each
+kernels from dbgtpu_torch/csrc (K1-K13; K3 has two entry points, each
 its own kernel), then:
   1. prints the card's name and power limit, the kernel build time and
      ptxas's registers and spills per mapping kernel (with the warps per
@@ -61,11 +61,25 @@ its own kernel), then:
      versions at the edges of their plan (kernels/edge_batch.py
      gather_edges: direct and bucketed paths, B = 1, J = 1 to 128, slice
      and switch edges, one bucket, 64-bit entries, unaligned tables,
-     indices outside the table; reps 0, 1, 8), K10 gather_rowsum at the
+     indices outside the table; reps 0, 1, 8), K2 (both branches) and K3
+     greedy_walk on the edge batch's scan index cut into the most ranges
+     (up to 8) that dbgtpu's --shard-index guards allow, resident on the
+     card, K10 gather_rowsum at the
      edges of its one-launch schedule (rowsum_edges: CH = 1 to 4,097,
      chunk counts around the grid's warp count, warp ranges that end on
      or cross chunk boundaries, W = 1 to 25, an unaligned table, stray
-     indices, sums that wrap).  Then `tools.exp_gather.main()`, the entry
+     indices, sums that wrap).  The sharded index (--shard-index,
+     `[shard]` lines): the survey scan index cut into 2, 4 and 8 ranges
+     resident on the card (peer pointers and local ones are one address
+     space), and, where two or more cards reach each other, into one
+     range per card; on each, K13 sharded_rows against its plain version
+     at every range's first and last row and outside the table, and on
+     the upload check's ids and the batch's probe keys, timed alone
+     (also by the graph timer), through its wrapper, plain and beside
+     `whole[ids]` on the unsharded table; K2 (both branches) and K3
+     greedy_walk against their plain versions on the survey batch, timed
+     on 8 ranges on one card and on the real cards.  Then
+     `tools.exp_gather.main()`, the entry
      point of the gather kernels (counts set to 0 just before, each of the four
      launched > 0 times): K9 gather_rows (G=1 and G=8), K10
      gather_rowsum, K11 and K12 against their plain versions and the one
@@ -82,9 +96,9 @@ its own kernel), then:
      across the layouts, and requires each path's kernels to be launched
      > 0 times in its own run and no other kernel launched (counts set
      to 0 just before each run).  mphf_slots counts only launches of the
-     standalone K7 kernel: one per MPHF table of the run's index (its
-     check at upload, whatever the table's size), none under the scan
-     layout.  Then
+     standalone K7 kernel: one per MPHF table of the run's index and
+     card of the run (its check at upload, whatever the table's size),
+     none under the scan layout.  Then
      `--save-index` followed by `--load-index` in greedy/scan, -G/mphf
      and -b/scan:
      bytes equal to the built run, the mode's kernels launched,
@@ -116,7 +130,14 @@ its own kernel), then:
      across every run and, on 128 reads of each batch, to the spec.
      `[mesh]`: `--mesh -1` (every local device) in greedy / scan and -b /
      mphf, bytes equal to the run without a mesh, launches checked as in
-     phase 3.  `[coordinator]`: two processes on the card joined by
+     phase 3.  `[shard-index]`: `--mesh -1 --shard-index` in greedy /
+     scan (with one card `--mesh 1 --shard-index`, a mesh of one device
+     holding the tables as one range; the line says which ran): bytes
+     equal to the run without a mesh, sharded_rows launched twice per
+     card (the upload's check of each table), the index bytes each card
+     holds; `-G`, `-b` and `--index-layout mphf` with `--shard-index
+     --mesh 1` each raise dbgtpu's ValueError text and write nothing.
+     `[coordinator]`: two processes on the card joined by
      `--coordinator 127.0.0.1:<free port> --num-processes 2` (each with
      jax and dbgtpu blocked): process 0's stats block holds the whole
      file's counts, process 1 prints none, the merged shards equal the
@@ -129,7 +150,10 @@ its own kernel), then:
      K2, K3, walk_inits, K5 and K6 with the launches of the
      `--index-layout mphf` runs and the timings on the mphf index; K9-K12
      carry the launches of the `tools.exp_gather.main()` run and their
-     "scripts" timings.
+     "scripts" timings; sharded_rows, member@shard and greedy_walk@shard
+     carry the launches of the `[shard-index]` run, K13 its timing at the
+     upload check's shape (the batch's probe keys under `batch`), K2 and
+     K3 their timings on 8 ranges on one card.
 Any failure raises, and the script exits non-zero without a result.
 
 Bounds.  `bound_ms` is the larger of bytes / 3.35e12 B/s (the H100's
@@ -156,9 +180,14 @@ slot, evaluation, candidate, window word or key: the OPS_* constants and
 ops_* functions below.  For
 the gathers K9-K12 they are what the function needs whatever the
 kernel's layout (tools/exp_gather.py): no operation for K9's copy, one
-add per table word summed for K10-K12.  `library_ms` is the time of one
-PyTorch call that computes the same function: for K9-K12 a gather, for
-the mapping kernels none (null).
+add per table word summed for K10-K12.  K13's bound counts the ids,
+its rows written and the table rows read (never more than the table);
+on real cards (D - 1) / D of the table rows read cross NVLink at
+450 GB/s into the card, and the byte time is the larger of that and the
+memory's (kernels/measure.py).  `library_ms` is the time of one PyTorch
+call that computes the same function: for K9-K12 a gather, for K13
+`whole[ids]` on the unsharded table, for the mapping kernels none
+(null).
 """
 
 from __future__ import annotations
@@ -350,6 +379,16 @@ MPHF_ENTRIES = {
     "dog_anchors": ("anchors", "dbgtpu/engine/dog.py:68"),
     "exhaustive_dfs": ("exhaustive", "dbgtpu/engine/core.py:409"),
 }
+# K13 and the kernels that read a sharded index (--shard-index) through
+# csrc/common.cuh scan_row: the `<kernel>@shard` entries of the JSON line
+SHARD_KERNELS = (
+    ("sharded_rows", "dbgtpu_torch/csrc/shard.cu",
+     "dbgtpu/engine/core.py:351"),
+    ("member@shard", "dbgtpu_torch/csrc/member.cu",
+     "dbgtpu/engine/core.py:498"),
+    ("greedy_walk@shard", "dbgtpu_torch/csrc/walk.cu",
+     "dbgtpu/engine/core.py:388"),
+)
 MODE_FLAGS = {"greedy": [], "anchors": ["-G"], "exhaustive": ["-b"]}
 # what the kernels' JSON line states of a kernel besides its name, route,
 # source, the stage it replaces and its launches
@@ -537,7 +576,7 @@ def graph_rotation(name, alones, lib) -> float:
 
 def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                     timed: bool, partial: bool = False, perpos_ix=None,
-                    more=()):
+                    more=(), remote_share: float = 0.0):
     """Each kernel of `mode`'s path against its plain version on the same
     CUDA inputs.  Integer outputs must be exactly equal (tolerance 0).
     Returns {name: dict(max_abs_err, ms, plain_ms, bound_ms, bound_by,
@@ -547,7 +586,10 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     without its probe table) adds K2 on its per-position branch as
     "member (per-position)" / "member (inter, per-position)".  `more`
     holds the run's other batches, (words, nmbits, lens) each: the alone
-    timer rotates over them and this one."""
+    timer rotates over them and this one.  On an index sharded over cards
+    `remote_share` of the table rows read lie on other cards (the bounds
+    count their bytes over NVLink too); the table bytes are the whole
+    table's."""
     import types
 
     import torch
@@ -583,7 +625,7 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     # bytes of one junction lookup and of the junction table
     j_row = 20 + 40 if jl_mphf else ix.st_fused.shape[1] * 4
     j_table = (nbytes(ix.mph_rows, ix.mph_jrows, ix.mph_f) if jl_mphf
-               else nbytes(ix.st_fused))
+               else nbytes(*ix.st_shards or [ix.st_fused]))
 
     def j_ops(vals):
         return (ops_mphf_lookup(vals) if jl_mphf
@@ -630,7 +672,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         if err:
             raise AssertionError(f"{name}: kernel != plain version "
                                  f"(max abs err {err})")
-        bound_ms, bound_by = bound_of(stream, touched, table, ops)
+        bound_ms, bound_by = bound_of(stream, touched, table, ops,
+                                      remote_share)
         ms = cuda_ms(fk, reps_k) if timed else None
         pms = cuda_ms(fr, reps_r) if timed else None
         # no one PyTorch call computes any of these kernels' functions
@@ -708,7 +751,7 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                 stream=nbytes(sk.rep1, sk.le1, sk.rows[0], lens)
                 + n_masks * B * Lk,
                 touched=windows * S * 4 + found * SECTOR_BYTES * (W - 1),
-                table=nbytes(ix_.pt_rows),
+                table=nbytes(*ix_.pt_shards or [ix_.pt_rows]),
                 ops=ops_member_probe(windows, positions, S, W))
         found = int((masks[0][:, 1:].bool() & valid[:, 1:]).sum())
         lookups = positions
@@ -919,7 +962,9 @@ def compare_edge_batch(device):
     K2's masks), K3 walk_inits (on K5's inits) and K6 exhaustive_dfs
     (on K2's `inter`, with and without -i) under the scan and mphf
     layouts and on a pool-chunk index (unitigs longer than the embedded
-    width), against their plain versions on each case of the edge batch
+    width), and K2 (both branches) with K3 greedy_walk on the scan index
+    cut into the most ranges its tables allow (`shard_count`), against
+    their plain versions on each case of the edge batch
     (dbgtpu_torch/kernels/edge_batch.py), exact.  Returns the number of
     comparisons."""
     import numpy as np
@@ -929,7 +974,7 @@ def compare_edge_batch(device):
     from dbgtpu_torch.engine.exhaustive import (
         depth_for, exhaustive_dfs, exhaustive_ref,
     )
-    from dbgtpu_torch.engine.index import index_tensors
+    from dbgtpu_torch.engine.index import index_tensors, sharded_index_tensors
     from dbgtpu_torch.engine.member import inter, inter_ref, member, member_ref
     from dbgtpu_torch.engine.read_scan import read_scan
     from dbgtpu_torch.engine.walk import (
@@ -1041,16 +1086,50 @@ def compare_edge_batch(device):
                                          f"{name} != plain (max abs err "
                                          f"{err})")
                 compared += 1
+        # the scan index cut into the most ranges its tables allow (up to
+        # 8) on this card (--shard-index): K2 on both branches, K3
+        # greedy_walk on its masks
+        D = shard_count(dis["scan"])
+        sx = sharded_index_tensors(dis["scan"], [device] * D)[0]
+        kw = dict(k=k, m=2, effort=case.effort, L=L)
+        for probe in (True, False):
+            px = sx if probe else dataclasses.replace(
+                sx, pt_rows=sx.pt_rows[:0], pt_shards=())
+            m1, m2 = member(px, sk, lens, L=L, k1=k - 1)
+            pairs = list(zip((m1, m2), member_ref(px, sk, lens, L=L,
+                                                  k1=k - 1)))
+            pairs += walks_pairs(greedy_walk(px, sk, m1, m2, lens, **kw),
+                                 walk_ref(px, sk, m1, m2, lens, **kw))
+            torch.cuda.synchronize()
+            err = max(_max_abs_err(g, w) for g, w in pairs)
+            if err:
+                raise AssertionError(
+                    f"edge {case.name}: K2 / K3 on the index cut into {D} "
+                    f"ranges, {'probe' if probe else 'probe-less'} != plain "
+                    f"(max abs err {err})")
+            compared += 2
         log(f"[edge] {case.name} (k={k}, L={L}, Lk={case.Lk}, {B} reads, "
             f"{len(case.unitigs)} unitigs, lens {int(lens_np.min())}-"
             f"{int(lens_np.max())}, N {bool(sk.has_n.item())}): K2 member "
             f"and inter ({', '.join(sorted(branches))}; scan, window 4, "
-            f"mphf), K5 (scan, mphf, MPHF anchors beside scan; E = 1, 2, "
+            f"mphf; member also on the scan index cut into {D} ranges, "
+            f"with K3 greedy_walk there), K5 (scan, mphf, MPHF anchors "
+            f"beside scan; E = 1, 2, "
             f"5), K3 greedy_walk and walk_inits and K6 exhaustive_dfs "
             f"(with and without -i; scan, mphf, pool chunks; deepest K6 "
             f"path {deepest} of D = {depth_for(L, k)}) == plain versions "
             f"(tolerance 0)")
     return compared
+
+
+def shard_count(di) -> int:
+    """The most ranges (1 to 8) that dbgtpu's --shard-index guards let
+    `di`'s scan and probe tables be cut into."""
+    nb_st = di.scan_tbl.keys.shape[0]
+    nb_pt = di.probe_tbl.rows.shape[0] if di.probe_tbl is not None else 0
+    return max(D for D in (1, 2, 4, 8)
+               if nb_st >= D and not nb_st % D and not nb_pt % D
+               and not 0 < nb_pt < D)
 
 
 def compare_result_edges(device) -> int:
@@ -1542,6 +1621,186 @@ def report_gathers(results) -> dict:
         if r["geometry"] == "scripts":
             out.setdefault(r["name"], dict(r, alone_ms=r["ms"]))
     return out
+
+
+# the guards of --shard-index, word for word as dbgtpu raises them
+# (dbgtpu/engine/runner.py:294-296): -G, -b and the mphf layout fail so
+SHARD_GUARD_TEXT = ("--shard-index requires greedy mode and index tables "
+                    "with at least one bucket row per device")
+SHARD_COUNTS = (2, 4, 8)    # shards of the survey index on one card
+
+
+def sharded_rows_case(name, shards, ids, whole, remote_share=0.0) -> dict:
+    """K13 on `shards` for the global bucket ids `ids` (int32, inside the
+    table, on the card that reads) against its plain version, exact, and
+    timed: alone (its C entry point back to back), through its wrapper,
+    its plain version, and the one PyTorch call that computes the same
+    function on the whole table (`whole[ids]`).  Bound: the ids read
+    once, the rows written once, the rows read once but never more than
+    the table; `remote_share` of the rows read lie on other cards and
+    cross NVLink."""
+    import torch
+
+    from dbgtpu_torch.engine.shard import (
+        sharded_rows, sharded_rows_launch, sharded_rows_ref,
+    )
+
+    got = sharded_rows(shards, ids)
+    want = sharded_rows_ref(shards, ids)
+    torch.cuda.synchronize()
+    err = _max_abs_err(got, want)
+    ids64 = ids.long()
+    if err or not torch.equal(want, whole[ids64]):
+        raise AssertionError(f"{name}: sharded_rows != plain version (max "
+                             f"abs err {err}) or the whole table's rows")
+    rows = nbytes(got)
+    bound, by = bound_of(nbytes(ids) + rows, rows, nbytes(*shards), 0,
+                         remote_share)
+    res = dict(max_abs_err=err, ms=cuda_ms(lambda: sharded_rows(shards, ids),
+                                           20),
+               plain_ms=cuda_ms(lambda: sharded_rows_ref(shards, ids), 3),
+               library_ms=cuda_ms(lambda: whole[ids64], 20),
+               bound_ms=bound, bound_by=by, q=ids.numel(),
+               w=shards[0].shape[1], d=len(shards))
+    res.update(time_alone(name, [(lambda: sharded_rows_launch(shards, ids),
+                                  lambda o: [(o, want)])], graph=True))
+    log(f"[shard] {name}: K13 == plain version (max abs err {err}, "
+        f"tolerance 0; == the whole table's rows); Q {res['q']} ids of rows "
+        f"of {res['w']} words over {res['d']} shards: alone "
+        f"{res['alone_ms']:.4f} ms" + graph_part(res) + f", wrapper "
+        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, whole[ids] "
+        f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms "
+        f"({by}; remote share {remote_share:.3f})")
+    return res
+
+
+def edge_ids(nb: int, D: int, device):
+    """Every shard's first and last row and one id on each side of a
+    table of nb rows cut into D ranges (int32 on `device`)."""
+    import numpy as np
+    import torch
+
+    nbl = nb // D
+    ids = np.concatenate([np.arange(D) * nbl, np.arange(1, D + 1) * nbl - 1,
+                          [-1, nb]]).astype(np.int32)
+    return torch.from_numpy(ids).to(device)
+
+
+def compare_shard_edges(shards, whole, device, what) -> int:
+    """K13 at every shard's first and last row and outside the table:
+    equal to its plain version, the table's rows, zeros outside."""
+    import torch
+
+    from dbgtpu_torch.engine.shard import sharded_rows, sharded_rows_ref
+
+    nb = shards[0].shape[0] * len(shards)
+    ids = edge_ids(nb, len(shards), device)
+    got = sharded_rows(shards, ids)
+    want = sharded_rows_ref(shards, ids)
+    torch.cuda.synchronize()
+    inside = (ids >= 0) & (ids < nb)
+    if (_max_abs_err(got, want)
+            or not torch.equal(got[inside], whole[ids[inside].long()])
+            or bool(got[~inside].any())):
+        raise AssertionError(f"[edge] K13 {what} over {len(shards)} shards: "
+                             "the shards' edge rows differ")
+    return 1
+
+
+def compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
+    """Phase 2's sharded index (--shard-index): the survey's scan index cut
+    into D = 2, 4 and 8 ranges resident on `device` (peer pointers and
+    local ones are one address space, so this runs on one card), and,
+    where two or more cards can reach each other, into one range per card
+    (up to 8).  On each: K13 at every shard's edge rows and on the batch's
+    probe keys against its plain version; K2 (both branches) and K3
+    greedy_walk against theirs on the survey batch (compare_kernels, timed
+    on 8 shards on one card and on the real cards).  Returns the JSON
+    line's sharded_rows, member@shard and greedy_walk@shard results."""
+    # an older tree's kernels read no sharded index: none is timed here
+    saved, BASELINE["lib"] = BASELINE["lib"], None
+    try:
+        return _compare_shards(di, ix, batches, device, k=k, m=m,
+                               effort=effort, L=L, pmax=pmax)
+    finally:
+        BASELINE["lib"] = saved
+
+
+def _compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
+    import torch
+
+    from dbgtpu_torch.dist.mesh import make_mesh
+    from dbgtpu_torch.engine.index import sharded_index_tensors
+    from dbgtpu_torch.engine.kmer import mix32_ref, split_ref
+    from dbgtpu_torch.engine.read_scan import read_scan
+
+    words, nmbits, lens = batches[0]
+    k1 = k - 1
+    sk = read_scan(words, nmbits, lens, L=L, k1=k1)
+    W = ix.pt_window
+    Lk = sk.rep1.shape[1]
+    p = (torch.arange(0, Lk, W, device=device) + 1).clamp(max=Lk - 1)
+    hi, lo = split_ref(sk.rep1[:, p].reshape(-1))
+    whole = {"junction": ix.st_fused, "probe": ix.pt_rows}
+    seeds = {"junction": ix.st_seed, "probe": ix.pt_seed}
+    layouts = [("one card", [device] * D, 0.0) for D in SHARD_COUNTS]
+    cards = make_mesh(None, device)[:8]
+    n = len(cards)
+    if n > 1 and all(torch.cuda.can_device_access_peer(a.index, b.index)
+                     for a in cards for b in cards if a != b):
+        layouts.append((f"{n} cards", cards, (n - 1) / n))
+    elif n > 1:
+        log(f"[shard] {n} cards that cannot all reach each other: no run "
+            "over real cards")
+    out, ids_of = {}, {}
+    for where, devices, share in layouts:
+        D = len(devices)
+        t0 = time.monotonic()
+        ixs = sharded_index_tensors(di, devices)
+        sx = ixs[0]
+        log(f"[shard] the survey index cut into {D} ranges on {where} "
+            f"({time.monotonic() - t0:.1f} s, K13's check at upload): "
+            f"junction {tuple(sx.st_fused.shape)} and probe "
+            f"{tuple(sx.pt_rows.shape)} per range; bytes each device holds "
+            f"{[x.held_bytes() for x in ixs]}, replicated "
+            f"{ix.held_bytes()}")
+        tag = f"{D} shards on {where}"
+        for what, shards in (("junction", sx.st_shards),
+                             ("probe", sx.pt_shards)):
+            compare_shard_edges(shards, whole[what], device, f"{what} {tag}")
+            nb = shards[0].shape[0] * D
+            if what not in ids_of:
+                ids_of[what] = (mix32_ref(hi ^ seeds[what], lo)
+                                & (nb - 1)).to(torch.int32)
+            # the upload's check (the main path's shape) and the batch's
+            # probe keys (a lookup's shape)
+            check = edge_ids(nb, D, device)[: 2 * D]
+            for shape, ids in (("upload check", check),
+                               ("batch probe keys", ids_of[what])):
+                r = sharded_rows_case(f"sharded_rows {what} {tag}, {shape}",
+                                      shards, ids, whole[what], share)
+                out[what, D, where, shape] = r
+        perpos = dataclasses.replace(sx, pt_rows=sx.pt_rows[:0],
+                                     pt_shards=())
+        timed = (D == max(SHARD_COUNTS) or where != "one card")
+        res = compare_kernels(sx, words, nmbits, lens, mode="greedy", k=k,
+                              m=m, effort=effort, L=L, pmax=pmax, timed=timed,
+                              perpos_ix=perpos, more=batches[1:],
+                              remote_share=share)
+        for name in ("member", "member (per-position)", "greedy_walk"):
+            r = res[name]
+            log(f"[shard] {name} on {tag}: == plain version (max abs err "
+                f"{r['max_abs_err']}, tolerance 0)" + (
+                    f"; alone {r['alone_ms']:.4f} ms, wrapper "
+                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
+                    if timed else ""))
+        out[D, where] = res
+    D = max(SHARD_COUNTS)
+    return {"sharded_rows": out["junction", D, "one card", "upload check"],
+            "member": out[D, "one card"]["member"],
+            "greedy_walk": out[D, "one card"]["greedy_walk"],
+            "all": out}
 
 
 def survey_batches(codes_all, L, device):
@@ -2150,6 +2409,12 @@ def main(argv=None) -> int:
     log(f"[edge] {n_edge} kernel outputs == plain versions "
         f"({time.monotonic() - t0:.1f} s)")
 
+    # --shard-index: K13 and K2 / K3 on the survey index cut into ranges
+    t0 = time.monotonic()
+    shard_results = compare_shards(di, ixs["scan", False], batches, device,
+                                   k=k, m=m, effort=effort, L=L, pmax=pmax)
+    log(f"[shard] the sharded index: {time.monotonic() - t0:.1f} s")
+
     # the timers' floor: a kernel that does nothing
     floor = launch_floor_ms()
     log(f"[floor] a kernel that does nothing (one block of one warp), 200 "
@@ -2239,14 +2504,16 @@ def main(argv=None) -> int:
         write_fasta(rf, (chars[r].tobytes() for r in codes_all))
         launches, outputs, summaries = {}, {}, {}
 
-        def cli_run(layout, mode, extra=(), reads=rf, batch=B, suffix=""):
+        def cli_run(layout, mode, extra=(), reads=rf, batch=B, suffix="",
+                    also=()):
             """One `cli.main` run of `mode` under `layout` with the counts
             set to 0 just before it: (paths bytes, notAligned bytes,
             summary, launches); `suffix` is what the run appends to its
             output files' names (a shard).  Fails unless the run's output
-            matches its stats, each kernel of the mode's path was launched,
-            mphf_slots once per MPHF table of the run's index that
-            holds keys (its check at upload), and no other kernel."""
+            matches its stats, each kernel of the mode's path and of
+            `also` was launched, mphf_slots once per MPHF table of the
+            run's index that holds keys and card of the run (its check
+            at upload), and no other kernel."""
             flags = MODE_FLAGS[mode] + ["--index-layout", layout, *extra]
             js = td / "summary.json"
             argv = ["-r", str(reads), "-k", str(k), "-g", str(uf),
@@ -2294,17 +2561,19 @@ def main(argv=None) -> int:
                 raise AssertionError(f"{tag} output does not match its stats")
             if not summ["aligned"]:
                 raise AssertionError(f"{tag} aligned no read")
-            want = PATH_KERNELS[mode] + (
+            want = PATH_KERNELS[mode] + tuple(also) + (
                 ("mphf_slots",) if layout == "mphf" else ())
-            # one K7 launch per MPHF table of the run's index, at its
+            # one K7 launch per MPHF table of the run's index and card
+            # that holds it (a mesh uploads the index to each), at its
             # upload, whatever the table's size
             ix = ixs[layout, mode == "anchors"]
-            checks = sum(1 for meta in (ix.mph_meta, ix.amph_meta)
-                         if meta is not None and meta.n_keys)
+            checks = len(summ["index_card_bytes"]) * sum(
+                1 for meta in (ix.mph_meta, ix.amph_meta)
+                if meta is not None and meta.n_keys)
             if counts["mphf_slots"] != checks:
                 raise AssertionError(
                     f"{tag} mphf_slots launched {counts['mphf_slots']} "
-                    f"times, its index's tables need {checks}")
+                    f"times, its index's tables on its cards need {checks}")
             missing = [n for n in want if counts[n] <= 0]
             if missing:
                 raise AssertionError(f"{tag} kernels not launched: {missing}")
@@ -2590,6 +2859,47 @@ def main(argv=None) -> int:
             log(f"[mesh] {flags}: the mesh took "
                 f"{[str(d) for d in mesh]}; bytes == the run without a mesh;"
                 f" launches {counts}; align_seconds {summ['align_seconds']}")
+        # --shard-index: every local card's range of the two large tables
+        # (one card: the mesh of one, the tables as one range); K13 checks
+        # each table at upload, one launch per card and table
+        n_cards = torch.cuda.device_count()
+        mesh_flag = "-1" if n_cards > 1 else "1"
+        paths_b, na_b, summ, shard_launches = cli_run(
+            "scan", "greedy", ["--mesh", mesh_flag, "--shard-index"],
+            also=("sharded_rows",))
+        held = summ["index_card_bytes"]
+        if (paths_b, na_b) != outputs["scan", "greedy"]:
+            raise AssertionError("[shard-index] bytes differ from the run "
+                                 "without a mesh")
+        if shard_launches["sharded_rows"] != 2 * len(held):
+            raise AssertionError(f"[shard-index] sharded_rows launched "
+                                 f"{shard_launches['sharded_rows']} times for "
+                                 f"{len(held)} cards and 2 tables")
+        log(f"[shard-index] ran --mesh {mesh_flag} --shard-index ("
+            + ("every local card" if n_cards > 1 else "one card: a mesh of "
+               "one device, the tables as one range")
+            + f"): bytes == the run without a mesh; index bytes each card "
+            f"holds {held} (replicated: {summ['index_hbm_bytes']['total']} "
+            f"B, hbm_report {summ['index_hbm_bytes']}); launches "
+            f"{shard_launches}; align_seconds {summ['align_seconds']}")
+        for flags in (["-G"], ["-b"], ["--index-layout", "mphf"]):
+            argv = ["-r", str(td / "r4096.fa"), "-k", str(k), "-g", str(uf),
+                    "-f", str(td / "refused_paths"), "-a",
+                    str(td / "refused_na"), "--mesh", "1",
+                    "--shard-index"] + flags
+            try:
+                cli.main(argv)
+            except ValueError as e:
+                if str(e) != SHARD_GUARD_TEXT:
+                    raise
+            else:
+                raise AssertionError(f"[shard-index] {' '.join(flags)} with "
+                                     "--shard-index --mesh 1 ran")
+            if (td / "refused_paths").exists():
+                raise AssertionError(f"[shard-index] {' '.join(flags)} wrote "
+                                     "output")
+            log(f"[shard-index] {' '.join(flags)} --shard-index --mesh 1: "
+                f"ValueError, dbgtpu's text: {SHARD_GUARD_TEXT!r}")
         coordinator_phase(td, rf, uf, outputs["scan", "greedy"],
                           summaries["scan", "greedy"])
         prof_dir = td / "prof"
@@ -2633,6 +2943,23 @@ def main(argv=None) -> int:
                             replaces=replaces,
                             launches=gather_launches[name],
                             **{key: r[key] for key in KERNEL_KEYS}))
+    # K13 at its main-path shape (the upload check) with the batch's probe
+    # keys beside it; K2 and K3 on the survey index cut into 8 ranges on
+    # one card, with the launches of the [shard-index] run
+    for name, source, replaces in SHARD_KERNELS:
+        base = name.split("@")[0]
+        r = shard_results[base]
+        extra = {}
+        if base == "sharded_rows":
+            b = shard_results["all"]["junction", max(SHARD_COUNTS),
+                                     "one card", "batch probe keys"]
+            extra["batch"] = {key: b[key] for key in (
+                "q", "w", "d", "alone_ms", "ms", "plain_ms", "bound_ms",
+                "library_ms")}
+        kernels.append(dict(name=name, route="cuda", source=source,
+                            replaces=replaces,
+                            launches=shard_launches[base],
+                            **{key: r[key] for key in KERNEL_KEYS}, **extra))
     log(card_line())        # the card's name and power limit, as printed
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,10 +11,12 @@ Takes dbgtpu's flags:
   run), --progress N, --num-processes / --process-id (this process maps
   its share of every input file and writes <out>.shard<id>),
   --coordinator HOST:PORT (with --num-processes > 1: the processes join
-  one torch.distributed group, gloo over TCP, and process 0 prints and
-  writes the stats block summed over all of them; the others print
-  none), --merge-shards N, --mesh N (each batch split over the first N
-  local devices, -1 all; on the CPU, N shards), --profile-dir DIR (a
+  one torch.distributed group, gloo over TCP, and process 0 prints the
+  stats block summed over all of them; the others print none, and each
+  writes its --json-summary, process 0's with the sums), --merge-shards
+  N, --mesh N (each batch split over the first N local devices, -1 all;
+  on the CPU, N shards), --shard-index (with --mesh: the junction and
+  probe tables cut over the mesh's devices), --profile-dir DIR (a
   torch.profiler Chrome trace of the mapping call, CPU activity and,
   on a card, CUDA activity, written into DIR), and --device (where the
   kernels run; default cuda).
@@ -25,9 +27,11 @@ run on the host spec too.  A run on the host spec launches no kernel and
 reports `"device": "host-spec"` in --json-summary; `--resume` refuses
 `--impl python`, as dbgtpu does.
 dbgtpu's multi-device flags take its types and defaults.  `--shard-index`
-runs where it changes nothing (no mesh, or a mesh of one device); with
-a mesh of more than one device (dbgtpu's sharded index, B15) the command
-exits with code 2 before reading input, naming the flag.  `--coordinator`
+without a mesh changes nothing; with one, of any size, it takes dbgtpu's
+guards (greedy mode, the scan layout, row counts the device count
+divides) and fails with dbgtpu's ValueError outside them; over more than
+one device each card holds its range of the two tables and reads the
+others' through peer access (on the CPU, N row ranges).  `--coordinator`
 with one process changes nothing; `--resume` refuses more than one
 process, as dbgtpu does.  Without a GPU the command stops unless
 `--device cpu` asks for the plain torch versions of the kernels.
@@ -125,11 +129,14 @@ def make_parser() -> argparse.ArgumentParser:
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="split each batch over the first N local devices "
                         "(-1: all; 0: no mesh, the default); the index is "
-                        "replicated; with --device cpu, N shards")
+                        "replicated unless --shard-index; with --device "
+                        "cpu, N shards")
     p.add_argument("--shard-index", action="store_true",
-                   help="dbgtpu's sharded index: runs without a mesh or "
-                        "on a mesh of one device, where it changes "
-                        "nothing; refused on more than one device")
+                   help="with --mesh: cut the junction and probe tables "
+                        "into one bucket range per device (greedy mode, "
+                        "scan layout; cards read each other's ranges "
+                        "through peer access); without a mesh it changes "
+                        "nothing")
     p.add_argument("--coordinator", metavar="HOST:PORT",
                    help="with --num-processes > 1: join the processes "
                         "into one torch.distributed group (gloo, TCP; "
@@ -142,25 +149,15 @@ def make_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refusal(args, mesh) -> str | None:
-    """Why the command line needs an engine outside this port (naming
-    the flag), or None: only dbgtpu's sharded index over more than one
-    device (B15)."""
-    if args.shard_index and mesh is not None and len(mesh) > 1:
-        return f"--shard-index with --mesh {args.mesh} shards the index " \
-               f"over {len(mesh)} devices (dbgtpu's sharded row gather, B15)"
-    return None
-
-
 def _finish(args, reads_files, stats, print_summary=True) -> int:
-    """The stats block on stdout and in --json-summary; a coordinated
-    run's processes other than 0 write neither."""
-    if not print_summary:
-        return 0
-    print(f"Indexing in seconds : {int(stats.index_seconds)}")
-    for rf in reads_files:
-        print(rf)
-    sys.stdout.write(stats.summary())
+    """The stats block on stdout, unless `print_summary` is false (a
+    coordinated run's processes other than 0), and --json-summary on
+    every process, as dbgtpu writes them (dbgtpu/cli.py:285-295)."""
+    if print_summary:
+        print(f"Indexing in seconds : {int(stats.index_seconds)}")
+        for rf in reads_files:
+            print(rf)
+        sys.stdout.write(stats.summary())
     if args.json_summary:
         import json
 
@@ -243,14 +240,6 @@ def main(argv: list[str] | None = None) -> int:
               "--device cpu to run the plain torch kernels on the CPU",
               file=sys.stderr)
         return 1
-    if not host:
-        from .dist.mesh import mesh_of
-
-        why = _refusal(args, mesh_of(args.mesh, device))
-        if why is not None:
-            print(f"dbgtpu_torch: {why}, which this port does not do yet; "
-                  "use dbgtpu", file=sys.stderr)
-            return 2
 
     if host and device.type == "cuda":
         print("dbgtpu_torch: " + ("path modes (-p)" if args.paths_mode
@@ -291,7 +280,7 @@ def _run(args, mode, device, coordinated) -> int:
         correction=args.correction, batch_size=args.batch_size, graph=graph,
         device=device, mode=mode, partial=args.partial,
         index_layout=args.index_layout, progress_every=args.progress,
-        mesh_devices=args.mesh,
+        mesh_devices=args.mesh, shard_index=args.shard_index,
     )
     if args.resume:
         with _profiled(args.profile_dir, device):

@@ -126,10 +126,19 @@ struct Mphf {
   MphfMeta meta;
 };
 
+// The most cards a sharded index is cut over (--shard-index with --mesh;
+// dbgtpu's tests shard over 8 devices).
+constexpr int MAX_SHARDS = 8;
+
 // The device index tables, as engine/index.py IndexTensors.c_index lays
 // them out (kernels/build.py IndexC mirrors this struct field by field).
 // jl_mphf / al_mphf say which layout the junction table and the dog
-// anchor table have; the two are independent.
+// anchor table have; the two are independent.  Under --shard-index over
+// n_shards > 1 cards, st and pt are cut into n_shards contiguous bucket
+// ranges of st_nb and pt_nb rows each, shard s on card s: st_shards[s]
+// and pt_shards[s] point at them (peer pointers for the other cards'),
+// st and pt at this card's own.  With n_shards 1 the shard arrays are
+// unused and st_nb, pt_nb count the whole tables.
 struct Index {
   const uint32_t* st;      // fused junction scan table [st_nb, st_cols]
   const int32_t* umeta;    // [U+1, ucols] metadata (+ embedded sequence)
@@ -148,6 +157,9 @@ struct Index {
   int32_t jl_mphf, al_mphf;
   Mphf jm;                 // junction MPHF, vrows = jrows [n, 10]
   Mphf am;                 // anchor MPHF, vrows = arows [n, 5]
+  const uint32_t* st_shards[MAX_SHARDS];
+  const uint32_t* pt_shards[MAX_SHARDS];
+  int32_t n_shards;        // 1: the tables are whole
 };
 
 // ---- lane-group bucket probes (K2, K3, K5, K6) ----
@@ -239,14 +251,34 @@ __device__ __forceinline__ const T* group_bcast(const T* v, int src,
       mask, reinterpret_cast<unsigned long long>(v), src, GROUP));
 }
 
-// the fused scan row of `key` in a table of nb rows of `cols` words
-__device__ __forceinline__ const uint32_t* scan_row(const uint32_t* tbl,
-                                                    int nb, int cols,
-                                                    uint32_t seed,
-                                                    uint64_t key) {
-  const uint32_t b =
-      mix32(khi(key) ^ seed, klo(key)) & static_cast<uint32_t>(nb - 1);
-  return tbl + static_cast<size_t>(b) * cols;
+// the fused scan row of `key` in a table of nb rows of `cols` words; or,
+// with n_shards > 1, in a table of nb * n_shards rows cut into shards of
+// nb rows (`shards`, an Index's st_shards or pt_shards): global bucket b
+// lies in shard b / nb at row b - shard * nb (dbgtpu/engine/core.py
+// :389-391, _sharded_rows).  The n_shards test reads a kernel parameter,
+// so the unsharded path has no load more than before.
+__device__ __forceinline__ const uint32_t* scan_row(
+    const uint32_t* tbl, int nb, int cols, uint32_t seed, uint64_t key,
+    const uint32_t* const* shards = nullptr, int n_shards = 1) {
+  const uint32_t h = mix32(khi(key) ^ seed, klo(key));
+  if (n_shards <= 1)
+    return tbl + static_cast<size_t>(h & static_cast<uint32_t>(nb - 1)) * cols;
+  const uint32_t b = h & (static_cast<uint32_t>(nb) * n_shards - 1u);
+  const uint32_t s = b / static_cast<uint32_t>(nb);
+  return shards[s] + static_cast<size_t>(b - s * nb) * cols;
+}
+
+// the row of `key` in the junction scan table and in the closure-probe
+// table, whole or sharded (K2, K3)
+__device__ __forceinline__ const uint32_t* st_row(const Index& ix,
+                                                  uint64_t key) {
+  return scan_row(ix.st, ix.st_nb, ix.st_cols, ix.st_seed, key, ix.st_shards,
+                  ix.n_shards);
+}
+__device__ __forceinline__ const uint32_t* pt_row(const Index& ix,
+                                                  uint64_t key) {
+  return scan_row(ix.pt, ix.pt_nb, ix.pt_cols, ix.pt_seed, key, ix.pt_shards,
+                  ix.n_shards);
 }
 
 // ---- lane-group scans of a byte mask row (K3's anchors, K6's FETCHX) ----

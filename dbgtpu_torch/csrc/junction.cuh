@@ -24,6 +24,14 @@
 // window, so the four candidates' reads are in flight together, and
 // their misses are summed by one shuffle.  Every lane of `mask` (the
 // group's lanes, or the whole warp) must call group_probe together.
+//
+// Under --shard-index the scan table is cut over the cards of a mesh
+// (common.cuh Index, st_row): the row of a key on another card is read
+// through its peer pointer inside the walk, as dbgtpu's _junction_vals
+// reads it through _sharded_rows (core.py:388-392); the same __ldg vector
+// loads serve both, and the chip run holds the walk on an index cut over
+// real cards equal to its plain version (csrc/shard.cu says why peer
+// reads, not a collective).
 #pragma once
 
 #include "mphf.cuh"
@@ -109,8 +117,7 @@ __device__ __forceinline__ int32_t group_cands(const Index& ix, uint64_t key,
                : 0;
   }
   const int S = ix.st_cols / 10;
-  const uint32_t* row =
-      scan_row(ix.st, ix.st_nb, ix.st_cols, ix.st_seed, key);
+  const uint32_t* row = st_row(ix, key);
   const uint32_t* vals = row + 2 * S + (right ? 4 : 0);
   uint32_t v[4] = {0u, 0u, 0u, 0u};
   group_slots(row, S, khi(key), klo(key), 0u, [&](int s) {

@@ -44,6 +44,14 @@
 // batch's N flag lies on the device: with a probe table the entry point
 // launches path (a), which leaves at once on a batch with N, and then
 // path (b), which leaves at once when (a) ran.
+//
+// Under --shard-index the probe table and the scan table are cut over
+// the cards of a mesh: paths (a) and (b) find a key's row through
+// common.cuh pt_row / st_row, which read another card's range through
+// its peer pointer (dbgtpu's _closure_member and _st_member read them
+// through _sharded_rows, core.py:498-503, :420-424).  The __ldg vector
+// loads read peer memory as they read local memory; the chip run holds
+// both paths on an index cut over real cards equal to the plain version.
 #include "mphf.cuh"
 
 namespace {
@@ -104,7 +112,7 @@ __global__ void __launch_bounds__(kThreads)
       const uint64_t q = static_cast<uint64_t>(a.rep1[row0 + p]);
       qhi = dbg::khi(q);
       qlo = dbg::klo(q);
-      row = dbg::scan_row(ix.pt, ix.pt_nb, ix.pt_cols, ix.pt_seed, q);
+      row = dbg::pt_row(ix, q);
     }
     // the group's 8 probes in turn; lane j keeps probe j's neighbour words
     uint32_t w0 = 0, w1 = 0;
@@ -216,8 +224,7 @@ __global__ void __launch_bounds__(kThreads)
     for (int pass = 0; pass < 2; ++pass) {
       const bool want = pass == 0 ? pk.valid : pk.need2;
       const uint64_t key = pass == 0 ? pk.key1 : pk.key2;
-      const uint32_t* row =
-          dbg::scan_row(ix.st, ix.st_nb, ix.st_cols, ix.st_seed, key);
+      const uint32_t* row = dbg::st_row(ix, key);
       // a pass no lane of the warp needs is skipped whole
       if (!__any_sync(dbg::FULL_WARP, want)) continue;
 #pragma unroll

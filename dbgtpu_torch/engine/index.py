@@ -14,10 +14,18 @@ table as `at_fused` or as an MPHF plus `amph_arows` (keysets of
 ANCHOR_MPHF_MIN keys or more, or the mphf layout).  The two choices are
 independent.  `mph_meta` / `amph_meta` hold an MPHF's static structure
 (core.py's `jl_meta` / `al_meta`) and are None under the scan layout.
+
+Under `--shard-index` over D > 1 devices (`sharded_index_tensors`) the
+scan table `st_fused` and the probe table `pt_rows` are cut into D
+contiguous bucket ranges, one on each device, as dbgtpu shards them
+(dbgtpu/dist/mesh.py:152-159); every other table is replicated.  Each
+device's IndexTensors holds its own range as `st_fused` / `pt_rows` and
+every device's in `st_shards` / `pt_shards` (engine/shard.py).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from dataclasses import dataclass, field
@@ -27,8 +35,11 @@ import torch
 
 from ..index.device import PT_SLOTS, DeviceIndex
 from ..index.mphf import _SEEDS_HI, _SEEDS_LO
-from ..kernels.build import MPHF_MAX_LEVELS, IndexC, MphfC, MphfMetaC
+from ..kernels.build import (
+    MAX_SHARDS, MPHF_MAX_LEVELS, IndexC, MphfC, MphfMetaC,
+)
 from .mphf import check_mphf_table
+from .shard import check_sharded_table, enable_peer_access
 
 # umeta column layout (dbgtpu.index.device.build_device_index)
 C_UOFF, C_ULEN = 0, 1
@@ -151,6 +162,13 @@ class IndexTensors:
     amph_arows: torch.Tensor  # int32 [n, 5]: key-hi, key-lo, uid, upos, ucanon
     amph_f: torch.Tensor     # int32 [nbf, 12]
     amph_meta: MphfMeta | None
+    # a sharded index (--shard-index over D > 1 devices): every device's
+    # range of st_fused and of pt_rows, in device order (this device's is
+    # st_fused / pt_rows itself, the others lie on their devices); () for
+    # whole tables.  The other devices' shards are kept alive here, since
+    # c_index points into them.
+    st_shards: tuple = field(default=(), repr=False, compare=False)
+    pt_shards: tuple = field(default=(), repr=False, compare=False)
     # the tables as the struct the kernels take (csrc/common.cuh
     # dbg::Index), built once from the fields above.  It holds raw
     # pointers into them: keep this IndexTensors alive while a kernel that
@@ -164,6 +182,17 @@ class IndexTensors:
                     or t.dtype != torch.int32):
                 raise ValueError("index tables must be contiguous int32 "
                                  "tensors on one device")
+        n_shards = len(self.st_shards) or 1
+        for own, shards in ((self.st_fused, self.st_shards),
+                            (self.pt_rows, self.pt_shards)):
+            if shards and (
+                    len(shards) != n_shards or n_shards > MAX_SHARDS
+                    or not any(t is own for t in shards)
+                    or any(t.shape != own.shape or t.dtype != torch.int32
+                           or not t.is_contiguous() for t in shards)):
+                raise ValueError("a sharded table needs 1 to "
+                                 f"{MAX_SHARDS} contiguous int32 shards of "
+                                 "one shape, this device's among them")
 
         def mphf(rows, frows, vrows, meta):
             if meta is None:
@@ -187,7 +216,12 @@ class IndexTensors:
             jm=mphf(self.mph_rows, self.mph_f, self.mph_jrows, self.mph_meta),
             am=mphf(self.amph_rows, self.amph_f, self.amph_arows,
                     self.amph_meta),
+            n_shards=n_shards,
         )
+        for i, t in enumerate(self.st_shards):
+            self.c_index.st_shards[i] = t.data_ptr()
+        for i, t in enumerate(self.pt_shards):
+            self.c_index.pt_shards[i] = t.data_ptr()
 
     @property
     def device(self) -> torch.device:
@@ -219,7 +253,13 @@ class IndexTensors:
         return self.at_fused.shape[0] > 0 or self.amph_meta is not None
 
     def tensors(self) -> list[torch.Tensor]:
+        """The tables this device holds (its own shards of a sharded
+        index)."""
         return [v for v in vars(self).values() if isinstance(v, torch.Tensor)]
+
+    def held_bytes(self) -> int:
+        """Bytes of the tables this device holds."""
+        return sum(t.numel() * t.element_size() for t in self.tensors())
 
 
 def c_index_arg(ix: IndexTensors, dev) -> int:
@@ -249,20 +289,103 @@ def to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def index_tensors(di: DeviceIndex, device) -> IndexTensors:
-    """DeviceIndex (numpy) -> IndexTensors on `device`, memoized on `di`
-    per device: the index upload is the largest transfer of a run.
-    `cuda` and `cuda:<current>` name one card and share one entry."""
+def on_device(device: torch.device):
+    """The context in which `device`'s kernels launch: on a card, that
+    card made current, so its current stream is the one launched on (a
+    card's default stream is the null stream of whichever card is
+    current)."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def _device(device) -> torch.device:
+    """`cuda` as the current card, so that `cuda` and `cuda:<current>`
+    name one card."""
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _memo(di: DeviceIndex) -> dict:
     memo = getattr(di, "_torch_ix", None)
     if memo is None:
         memo = {}
         di._torch_ix = memo
+    return memo
+
+
+def index_tensors(di: DeviceIndex, device) -> IndexTensors:
+    """DeviceIndex (numpy) -> IndexTensors on `device`, memoized on `di`
+    per device: the index upload is the largest transfer of a run.
+    `cuda` and `cuda:<current>` name one card and share one entry."""
+    device = _device(device)
+    memo = _memo(di)
     key = str(device)
+    if key not in memo:
+        memo[key] = _upload(di, device)
+    return memo[key]
+
+
+def sharded_index_tensors(di: DeviceIndex, devices) -> list[IndexTensors]:
+    """DeviceIndex (numpy, scan layout) -> one IndexTensors per device of
+    `devices` (1 to MAX_SHARDS of them), with `st_fused` and `pt_rows`
+    cut into len(devices) contiguous bucket ranges, range d on device d,
+    and every other table replicated; memoized on `di` per device list.
+    A mesh of one device holds the tables whole, as one range each, as
+    dbgtpu's mesh of one does.
+    On cards each reads the others' ranges through peer pointers
+    (enable_peer_access: a pair of cards without peer access raises).
+    Each card waits for every upload, then K13 reads the first and last
+    row of every range through its pointers against the host's rows
+    (engine/shard.py check_sharded_table).  On the CPU the ranges are
+    row ranges of the one CPU device, as a mesh there is N shards."""
+    devices = [_device(d) for d in devices]
+    D = len(devices)
+    memo = _memo(di)
+    key = "shards:" + ",".join(map(str, devices))
     if key in memo:
         return memo[key]
+    if di.scan_tbl is None:
+        raise ValueError("a sharded index needs the scan layout")
+    st = fuse_scan_table(di.scan_tbl)
+    pt = di.probe_tbl.rows if di.probe_tbl is not None else None
+    if not 1 <= D <= MAX_SHARDS or any(
+            a is not None and a.shape[0] % D for a in (st, pt)):
+        raise ValueError(f"cannot cut tables of {st.shape[0]} and "
+                         f"{0 if pt is None else pt.shape[0]} rows into {D} "
+                         f"equal ranges (1 to {MAX_SHARDS})")
+    cards = [d for d in devices if d.type == "cuda"]
+    if cards:
+        enable_peer_access(cards)
+
+    def cut(a):
+        n = a.shape[0] // D
+        return tuple(to_device(np.asarray(a[i * n : (i + 1) * n], np.uint32),
+                               d) for i, d in enumerate(devices))
+
+    st_shards = cut(st)
+    pt_shards = cut(pt) if pt is not None else ()
+    # every shard must have arrived before any card's kernel reads it
+    for d in cards:
+        torch.cuda.synchronize(d)
+    ixs = []
+    for i, d in enumerate(devices):
+        with on_device(d):
+            ixs.append(_upload(di, d, st_shards, pt_shards, i))
+            check_sharded_table(st_shards, st, d, "junction")
+            if pt is not None:
+                check_sharded_table(pt_shards, pt, d, "probe")
+    memo[key] = ixs
+    return ixs
+
+
+def _upload(di: DeviceIndex, device: torch.device, st_shards=(),
+            pt_shards=(), shard=0) -> IndexTensors:
+    """The IndexTensors of `di` on `device`: every table uploaded, or, of
+    a sharded index, range `shard` of `st_shards` and `pt_shards` (already
+    on their devices) in place of st_fused and pt_rows."""
     t = di.scan_tbl
     pt = di.probe_tbl
     at = di.anchor_scan
@@ -287,20 +410,28 @@ def index_tensors(di: DeviceIndex, device) -> IndexTensors:
         mj, None if mj is None else mj.jrows, 10)
     amph_rows, amph_arows, amph_f, amph_meta = mphf(
         ma, None if ma is None else ma.arows, 5)
+    if st_shards:
+        st_fused = st_shards[shard]
+    else:
+        st_fused = u32(fuse_scan_table(t)) if t is not None else empty(320)
+    if pt_shards:
+        pt_rows = pt_shards[shard]
+    else:
+        pt_rows = u32(pt.rows) if pt is not None else empty(32)
     ix = IndexTensors(
-        st_fused=u32(fuse_scan_table(t)) if t is not None else empty(320),
+        st_fused=st_fused,
         st_seed=int(t.seed) if t is not None else 0,
         umeta=to_device(np.asarray(di.umeta, np.int32), device),
         pool_rows=u32(di.pool_rows),
         n_chunks=int(di.n_chunks),
-        pt_rows=u32(pt.rows) if pt is not None else empty(32),
+        pt_rows=pt_rows,
         pt_seed=int(pt.seed) if pt is not None else 0,
         at_fused=u32(fuse_scan_table(at)) if at is not None else empty(160),
         at_seed=int(at.seed) if at is not None else 0,
         mph_rows=mph_rows, mph_jrows=mph_jrows, mph_f=mph_f,
         mph_meta=mph_meta,
         amph_rows=amph_rows, amph_arows=amph_arows, amph_f=amph_f,
-        amph_meta=amph_meta,
+        amph_meta=amph_meta, st_shards=st_shards, pt_shards=pt_shards,
     )
     # every stored key must come back at its own row (K7, once per table
     # and upload): a table that disagrees with the lookup would show only
@@ -309,5 +440,4 @@ def index_tensors(di: DeviceIndex, device) -> IndexTensors:
         check_mphf_table(mph_rows, mph_f, mph_jrows, mph_meta, "junction")
     if amph_meta is not None:
         check_mphf_table(amph_rows, amph_f, amph_arows, amph_meta, "anchor")
-    memo[key] = ix
     return ix

@@ -7,7 +7,9 @@ positions) when the batch holds no N and a probe table exists, exact
 per-position lookups of rep1 and rep2 in the junction table otherwise
 (`st_fused`, or under the mphf layout the MPHF slot and the stored-key
 verify in `mph_jrows`; core.py:434-435, 454-456).  The kernel is
-csrc/member.cu; `member_ref` is its plain torch version.
+csrc/member.cu; `member_ref` is its plain torch version.  A sharded
+index (`--shard-index`) is read through engine/shard.py scan_rows_ref
+here and through csrc/common.cuh scan_row in the kernel.
 
 The kernel's second mode serves exhaustive mode (-b): the one mask
 `inter` of dbgtpu/engine/exhaustive.py:118-148.  Without N it is the
@@ -24,9 +26,10 @@ import torch
 from ..index.device import PT_SLOTS
 from ..kernels import build
 from .index import LOOKUP_CHUNK, IndexTensors, c_index_arg
-from .kmer import M32, as_i32, mix32_ref, rcb_ref, split_ref
+from .kmer import M32, as_i32, rcb_ref, split_ref
 from .mphf import _signed32, mphf_rows_ref
 from .read_scan import Scan, unpack_fields
+from .shard import scan_rows_ref
 
 
 def junction_vals_ref(ix: IndexTensors, keys: torch.Tensor):
@@ -39,8 +42,7 @@ def junction_vals_ref(ix: IndexTensors, keys: torch.Tensor):
         return found, _signed32(row[..., 2:10])
     S = ix.st_slots
     hi, lo = split_ref(keys)
-    row = ix.st_fused[mix32_ref(hi ^ ix.st_seed, lo)
-                      & (ix.st_fused.shape[0] - 1)]
+    row = scan_rows_ref(ix.st_fused, ix.st_shards, ix.st_seed, hi, lo)
     ok = (row[..., :S] == as_i32(hi)[..., None]) & (
         row[..., S : 2 * S] == as_i32(lo)[..., None])
     vals = row[..., 2 * S :].reshape(ok.shape + (8,)).to(torch.int64) & M32
@@ -72,8 +74,7 @@ def _closure_member_ref(ix: IndexTensors, scan: Scan, L: int,
     p = torch.clamp(W * (i // W) + 1, max=Lk - 1)
     d = i - p
     hi, lo = split_ref(scan.rep1[:, p])                 # [B, Lk]
-    row = ix.pt_rows[mix32_ref(hi ^ ix.pt_seed, lo)
-                     & (ix.pt_rows.shape[0] - 1)]
+    row = scan_rows_ref(ix.pt_rows, ix.pt_shards, ix.pt_seed, hi, lo)
     ok = (row[..., :S] == as_i32(hi ^ M32)[..., None]) & (
         row[..., S : 2 * S] == as_i32(lo)[..., None]
     )

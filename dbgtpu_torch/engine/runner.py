@@ -28,7 +28,10 @@ IN_FLIGHT batches are launched and not yet drained.
 With a mesh (dist/mesh.py make_mesh) each batch is cut into contiguous
 equal shards, one per device; every shard is launched on its own device
 before any is drained, and the drain joins the shards' rows in read
-order.  The index is replicated (index_tensors memoizes it per device).
+order.  The index is replicated (index_tensors memoizes it per device),
+or with `shard_index` its two large tables are cut over the mesh's
+devices (engine/index.py sharded_index_tensors), after dbgtpu's guards
+(`check_shard_index`).
 
 dbgtpu's runner quantises the fetched prefix and ratchets pmax, against
 XLA recompiles and a slow link; neither is needed here, and the prefix
@@ -39,7 +42,6 @@ guess timed level with the drain's fetch and added 7% to D2H.
 
 from __future__ import annotations
 
-import contextlib
 import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -55,7 +57,9 @@ from ..index.persist import device_index_memo
 from ..spec import spec_for
 from .compact import compact_counts, expand_compact
 from .core import align_batch_packed_compact
-from .index import index_tensors
+from .index import (
+    IndexTensors, index_tensors, on_device, sharded_index_tensors,
+)
 
 # device-side path-slot bound (offset + signed ids) before the host
 # recompute takes over; scales with the read length (runner._pmax_cap)
@@ -78,6 +82,46 @@ def get_device_index(graph: UnitigGraph, layout: str = "scan") -> DeviceIndex:
     if layout not in memo:
         memo[layout] = build_device_index(graph, layout=layout)
     return memo[layout]
+
+
+def check_shard_index(di: DeviceIndex, mode: str, n_devices: int) -> None:
+    """dbgtpu's guards of `--shard-index` on a mesh of `n_devices`
+    (dbgtpu/engine/runner.py:287-307, whatever the mesh's size): greedy
+    mode, a scan table (an MPHF index has none: 0 rows) and a probe table
+    of at least one row per device or none, and row counts that the
+    device count divides.  Raises ValueError with dbgtpu's text."""
+    nb_st = di.scan_tbl.keys.shape[0] if di.scan_tbl else 0
+    nb_pt = di.probe_tbl.rows.shape[0] if di.probe_tbl else 0
+    if mode != "greedy" or nb_st < n_devices or 0 < nb_pt < n_devices:
+        raise ValueError(
+            "--shard-index requires greedy mode and index "
+            "tables with at least one bucket row per device"
+        )
+    if nb_st % n_devices or nb_pt % n_devices:
+        raise ValueError(
+            "--shard-index requires the bucket counts to "
+            f"divide the mesh evenly (junction {nb_st} rows, "
+            f"probe {nb_pt} rows, mesh {n_devices}); bucket counts "
+            "are powers of two, so use a power-of-two mesh size"
+        )
+
+
+def mesh_index(graph: UnitigGraph, layout: str, devices, mode: str,
+               mesh: bool = False, shard_index: bool = False
+               ) -> list[IndexTensors]:
+    """The graph's index tensors on each of `devices`: replicated, or with
+    `shard_index` on a mesh (`mesh`) cut over them, after dbgtpu's guards
+    (a mesh of one device holds the tables as one range, checked at
+    upload as every sharded table is)."""
+    di = get_device_index(graph, layout)
+    if mesh and shard_index:
+        check_shard_index(di, mode, len(devices))
+        return sharded_index_tensors(di, devices)
+    ixs = []
+    for d in devices:
+        with on_device(d):
+            ixs.append(index_tensors(di, d))
+    return ixs
 
 
 def _bucket_len(n: int, k: int) -> int:
@@ -151,14 +195,6 @@ def upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def on_device(device: torch.device):
-    """The context in which `device`'s kernels launch: on a card, that
-    card made current, so its current stream is the one launched on."""
-    if device.type == "cuda":
-        return torch.cuda.device(device)
-    return contextlib.nullcontext()
-
-
 class _Shard:
     """One device's rows of a batch, launched: the device result and the
     host copy of `meta` (queued behind the kernels on a card, the result
@@ -196,7 +232,8 @@ class _Shard:
 def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
                batch_size: int, device, mode: str = "greedy",
                partial: bool = False, index_layout: str = "scan",
-               mesh=None, on_batch=None, xfer=None, progress=None):
+               mesh=None, shard_index: bool = False, on_batch=None,
+               xfer=None, progress=None):
     """Mapping of every parsed record in `mode`, input order preserved.
 
     Returns (status int32 [N], path_off int64 [N+1], paths_flat int32):
@@ -204,8 +241,11 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
     empty spans.  `mesh` (a list of devices, dist.mesh.make_mesh) splits
     every batch over its devices, `batch_size` rounded up to a multiple
     of their count (dbgtpu's rule, runner.py:285-286); without one the
-    batches run on `device`.  `on_batch(slot, s0, nb, status, counts,
-    flat)` is called after each batch, in slot order, on the drain
+    batches run on `device`.  `shard_index` (dbgtpu's `--shard-index`)
+    cuts the index's two large tables over the mesh's devices
+    (`mesh_index`); without a mesh it changes nothing.
+    `on_batch(slot, s0, nb, status, counts, flat)` is called after each
+    batch, in slot order, on the drain
     thread (the caller formats output there); `xfer` collects the batch
     payload bytes (h2d_bytes; d2h_bytes, meta and the populated prefix)
     and the seconds of the pipeline's legs (launch_s: pack, upload, launches and queued copies
@@ -219,10 +259,8 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
         batch_size = -(-batch_size // len(devices)) * len(devices)
     spec = spec_for(mode, m, effort, partial)
     di = get_device_index(graph, index_layout)
-    ixs = []
-    for d in devices:
-        with on_device(d):
-            ixs.append(index_tensors(di, d))
+    ixs = mesh_index(graph, index_layout, devices, mode, bool(mesh),
+                     shard_index)
     fetch_streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
                      for d in devices]
     k = graph.k

@@ -18,9 +18,12 @@ counts launches of K7's standalone kernel only (its lookup, and its
 check mode: the check of each MPHF table at upload, one launch per
 table, engine/mphf.py check_mphf_table); the mapping kernels
 run the same device function (csrc/mphf.cuh) inline under an MPHF
-layout and count as themselves.  The gather kernels K9-K12
-(csrc/gather.cu, engine/gather.py) are launched by tools/exp_gather.py
-and by no mapping run.
+layout and count as themselves.  Likewise `sharded_rows` (K13) counts
+its own kernel only (the check of each sharded table at upload,
+engine/shard.py); K2 and K3 read a sharded index through the same
+address arithmetic (csrc/common.cuh scan_row) inline.  The gather
+kernels K9-K12 (csrc/gather.cu, engine/gather.py) are launched by
+tools/exp_gather.py and by no mapping run.
 The device index goes to the kernels as one struct (`IndexC`, csrc/common.cuh
 `dbg::Index`), passed by pointer to the C entry point and by value to
 the kernel; `load` checks that both sides agree on its size.
@@ -64,7 +67,7 @@ NVCC_FLAGS = [
 KERNELS = ("read_scan", "member", "greedy_walk", "walk_inits", "pack_paths",
            "dog_anchors", "exhaustive_dfs", "mphf_slots", "compact_result",
            "gather_rows", "gather_rowsum", "gather_rows_sum",
-           "gather_take_sum")
+           "gather_take_sum", "sharded_rows")
 launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
@@ -95,9 +98,12 @@ _ARGTYPES = {
     "dbg_gather_rows_sum": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I,
                             _P, _P],
     "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
+    "dbg_sharded_rows": [_P, _P, _LL, _P, _P],
+    "dbg_enable_peer_access": [_I, _I],
 }
 
 MPHF_MAX_LEVELS = 25    # csrc/common.cuh; index/mphf.py build_mphf's cap
+MAX_SHARDS = 8          # csrc/common.cuh: the most cards of a sharded index
 COMPACT_TILE = 256      # csrc/compact.cu kTile: K8's scratch unit (rows)
 
 
@@ -136,6 +142,17 @@ class IndexC(ctypes.Structure):
         ("at_seed", ctypes.c_uint32),
         ("jl_mphf", ctypes.c_int32), ("al_mphf", ctypes.c_int32),
         ("jm", MphfC), ("am", MphfC),
+        ("st_shards", _P * MAX_SHARDS), ("pt_shards", _P * MAX_SHARDS),
+        ("n_shards", ctypes.c_int32),
+    ]
+
+
+class ShardTableC(ctypes.Structure):
+    """csrc/shard.cu ShardTable: K13's table, `n_shards` pointers to
+    shards of `nb_local` rows of `cols` words."""
+    _fields_ = [
+        ("shards", _P * MAX_SHARDS), ("n_shards", ctypes.c_int32),
+        ("nb_local", ctypes.c_int32), ("cols", ctypes.c_int32),
     ]
 
 
@@ -304,6 +321,8 @@ def _open(path: Path, older: bool = False) -> ctypes.CDLL:
              (lib.dbg_sizeof_mphf_meta, MphfMetaC)]
     if hasattr(lib, "dbg_sizeof_gather_plan"):   # not in older sources
         sizes.append((lib.dbg_sizeof_gather_plan, GatherPlanC))
+    if hasattr(lib, "dbg_sizeof_shard_table"):
+        sizes.append((lib.dbg_sizeof_shard_table, ShardTableC))
     for fn, ours in sizes:
         fn.argtypes, fn.restype = [], ctypes.c_int
         if fn() != ctypes.sizeof(ours):

@@ -27,17 +27,24 @@ HBM_BYTES_PER_S = 3.35e12       # the H100's published memory rate
 # 32-bit integer operations: a quarter of the published 67 TFLOP/s of
 # float32, which counts a fused multiply-add as two on twice as many lanes
 INT_OPS_PER_S = 67e12 / 4
+# NVLink into one H100 from the other cards of its host: 450 GB/s each
+# way of the published 900 GB/s
+NVLINK_BYTES_PER_S = 450e9
 
 
 def bound_ms(stream_bytes: int, touched: int, table: int,
-             ops: int) -> tuple[float, str]:
+             ops: int, remote_share: float = 0.0) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for a
     function that streams `stream_bytes` (each tensor once), touches
     `touched` bytes of rows in tables of `table` bytes (never more than
     the table) and needs `ops` integer operations: the larger of the
     bytes over the memory rate and the operations over the integer
-    rate."""
-    t_bytes = (stream_bytes + min(touched, table)) / HBM_BYTES_PER_S
+    rate.  `remote_share` of the touched bytes lie on other cards of a
+    sharded index: those bytes also cross NVLink, at NVLINK_BYTES_PER_S
+    into this card, and the byte time is the larger of the two."""
+    rows = min(touched, table)
+    t_bytes = max((stream_bytes + rows) / HBM_BYTES_PER_S,
+                  remote_share * rows / NVLINK_BYTES_PER_S)
     t_ops = ops / INT_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")

@@ -30,8 +30,7 @@ from . import native
 from .constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
 from .dist.mesh import mesh_of
 from .dist.multihost import shard_ranges
-from .engine.index import index_tensors
-from .engine.runner import align_bulk, get_device_index, on_device
+from .engine.runner import align_bulk, get_device_index, mesh_index
 from .index.build import UnitigGraph, build_graph
 from .index.device import hbm_report
 from .index.persist import save_index as persist_index
@@ -67,6 +66,10 @@ class TorchRunStats(RunStats):
     format_seconds: float = 0.0
     wait_seconds: float = 0.0
     stall_seconds: float = 0.0
+    # bytes of index tables each device holds (one entry per device of
+    # the mesh, or the one device): the whole index, or under
+    # --shard-index its own ranges of the two large tables and the rest
+    index_card_bytes: list | None = None
 
     def as_dict(self) -> dict:
         d = super().as_dict()
@@ -82,6 +85,8 @@ class TorchRunStats(RunStats):
             wait_seconds=round(self.wait_seconds, 3),
             stall_seconds=round(self.stall_seconds, 3),
         )
+        if self.index_card_bytes is not None:
+            d["index_card_bytes"] = self.index_card_bytes
         return d
 
 
@@ -145,7 +150,7 @@ def _add_xfer(stats, xfer) -> None:
 
 def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
               mode, partial, index_layout, stats, paths_out, na_out,
-              rec_range=None, progress=None, mesh=None):
+              rec_range=None, progress=None, mesh=None, shard_index=False):
     t = time.monotonic()
     parsed = native.parse_reads(rf, graph.k, fastq)
     if rec_range is not None:
@@ -188,7 +193,8 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
     status, path_off, flat = align_bulk(
         graph, parsed, m, effort, batch_size=batch_size, device=device,
         mode=mode, partial=partial, index_layout=index_layout, mesh=mesh,
-        on_batch=on_batch, xfer=xfer, progress=progress,
+        shard_index=shard_index, on_batch=on_batch, xfer=xfer,
+        progress=progress,
     )
     stats.align_seconds += time.monotonic() - t
     _add_xfer(stats, xfer)
@@ -204,20 +210,24 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
         na_out.append(nab)
 
 
-def _upload_index(graph, index_layout, devices, stats) -> None:
+def _upload_index(graph, index_layout, device, mesh, mode, shard_index,
+                  stats) -> None:
     """The graph's device index in `index_layout`, built unless the graph
-    carries it, and its tensors on each of `devices` (memoized per
-    device)."""
+    carries it, and its tensors on `device` or on each device of `mesh`
+    (memoized; cut over the mesh under `shard_index`, after dbgtpu's
+    guards, runner.mesh_index)."""
     t = time.monotonic()
     di = get_device_index(graph, index_layout)
     stats.device_index_seconds = time.monotonic() - t
     t = time.monotonic()
-    for device in devices:
-        with on_device(device):
-            index_tensors(di, device)
-        _sync(device)
+    devices = mesh or [device]
+    ixs = mesh_index(graph, index_layout, devices, mode, bool(mesh),
+                     shard_index)
+    for d in devices:
+        _sync(d)
     stats.upload_seconds = time.monotonic() - t
     stats.index_hbm = hbm_report(di)
+    stats.index_card_bytes = [ix.held_bytes() for ix in ixs]
 
 
 def run_pipeline(
@@ -240,6 +250,7 @@ def run_pipeline(
     progress_every: int = 0,
     impl: str = "auto",
     mesh_devices: int = 0,
+    shard_index: bool = False,
 ):
     """Returns (paths_bytes, not_aligned_bytes, TorchRunStats).
 
@@ -261,7 +272,11 @@ def run_pipeline(
     `progress_every` prints a stats line every that many batches.
     `mesh_devices` (dbgtpu's `--mesh`) shards every batch over the first
     that many local devices of `device`'s kind (-1: all; 0: no mesh; on
-    the CPU that many shards, dist/mesh.py)."""
+    the CPU that many shards, dist/mesh.py).  `shard_index` (dbgtpu's
+    `--shard-index`) on a mesh takes dbgtpu's guards and, over more than
+    one device, cuts the index's junction and probe tables over the
+    mesh's devices (engine/index.py sharded_index_tensors); without a
+    mesh it changes nothing."""
     if mode not in DEVICE_MODES + PATH_MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if impl not in IMPLS:
@@ -293,7 +308,8 @@ def run_pipeline(
 
     t1 = time.monotonic()
     mesh = mesh_of(mesh_devices, device)
-    _upload_index(graph, index_layout, mesh or [device], stats)
+    _upload_index(graph, index_layout, device, mesh, mode, shard_index,
+                  stats)
     progress = make_progress_printer(progress_every)
     paths_out: list[bytes] = []
     na_out: list[bytes] = []
@@ -303,7 +319,7 @@ def run_pipeline(
         _run_file(graph, rf, m, effort, fastq, correction, batch_size,
                   device, mode, partial, index_layout, stats, paths_out,
                   na_out, rec_range=rec_range, progress=progress,
-                  mesh=mesh)
+                  mesh=mesh, shard_index=shard_index)
     stats.map_seconds = time.monotonic() - t1
     return b"".join(paths_out), b"".join(na_out), stats
 
@@ -339,6 +355,7 @@ def run_pipeline_resumable(
     segment_records: int = 0,
     progress_every: int = 0,
     mesh_devices: int = 0,
+    shard_index: bool = False,
 ) -> TorchRunStats:
     """Crash-resumable mapping run (counterpart of dbgtpu/pipeline.py
     run_pipeline_resumable; same journal, so either package resumes the
@@ -353,7 +370,7 @@ def run_pipeline_resumable(
     torn tail past the last fsync) and mapping continues at the
     journaled record offset, so the final bytes equal a single
     uninterrupted run's.  The journal is removed on completion.
-    `mesh_devices` is run_pipeline's."""
+    `mesh_devices` and `shard_index` are run_pipeline's."""
     if mode not in DEVICE_MODES:
         raise ValueError(f"a resumable run takes a device mode, not {mode!r}")
     device = torch.device(device)
@@ -406,7 +423,8 @@ def run_pipeline_resumable(
     stats.index_seconds = t_ix
     t1 = time.monotonic()
     mesh = mesh_of(mesh_devices, device)
-    _upload_index(graph, index_layout, mesh or [device], stats)
+    _upload_index(graph, index_layout, device, mesh, mode, shard_index,
+                  stats)
     progress = make_progress_printer(progress_every)
 
     with open(paths_file, "ab") as pf, open(na_file, "ab") as naf:
@@ -427,8 +445,8 @@ def run_pipeline_resumable(
                 status, path_off, flat = align_bulk(
                     graph, parsed, m, effort, batch_size=batch_size,
                     device=device, mode=mode, partial=partial,
-                    index_layout=index_layout, mesh=mesh, progress=progress,
-                    xfer=xfer,
+                    index_layout=index_layout, mesh=mesh,
+                    shard_index=shard_index, progress=progress, xfer=xfer,
                 )
                 aligned = _count_stats(stats, status)
                 pb, nab = _format_outputs(

@@ -4,6 +4,7 @@ processes on a free localhost port (dist/multihost.py init_distributed
 and global_stats_sum) and `--profile-dir` (a torch.profiler trace).
 Output bytes against dbgtpu's python spec; tolerance 0."""
 
+import dataclasses
 import json
 import os
 import socket
@@ -106,20 +107,80 @@ def test_cli_mesh_bytes_equal_spec(tmp_path, monkeypatch, mesh):
         assert (tmp_path / "notAligned.fa").read_bytes() == want[1]
 
 
-def test_cli_shard_index_runs_only_on_one_device(tmp_path, monkeypatch,
-                                                 capsys):
-    """--shard-index changes nothing on a mesh of one device and runs;
-    on more than one it exits 2 before reading input, naming B15."""
-    rf, uf = _files(tmp_path)
+# dbgtpu's --shard-index guards (dbgtpu/engine/runner.py:287-307), each
+# on a mesh of one device and of more: (flags, mesh size, the dataset's
+# genome length, probe rows kept (None: all))
+_GUARDS = {
+    "anchors-mesh1": (["-G"], 1, 8000, None),
+    "anchors-mesh2": (["-G"], 2, 8000, None),
+    "exhaustive-mesh1": (["-b"], 1, 8000, None),
+    "exhaustive-mesh2": (["-b"], 2, 8000, None),
+    "mphf-mesh1": (["--index-layout", "mphf"], 1, 8000, None),
+    "mphf-mesh4": (["--index-layout", "mphf"], 4, 8000, None),
+    "junction-rows-below-mesh": ([], 8, 2000, None),
+    "probe-rows-below-mesh": ([], 8, 8000, 4),
+    "uneven-mesh3": ([], 3, 8000, None),
+}
+
+
+@pytest.mark.parametrize("case", list(_GUARDS) + ["no-mesh"])
+def test_cli_shard_index_guards_as_dbgtpu(tmp_path, monkeypatch, case):
+    """--shard-index on a mesh of any size takes dbgtpu's guards: -G, -b,
+    the mphf layout (no scan table: 0 rows), fewer junction or probe rows
+    than devices and a mesh size that does not divide the row counts each
+    raise dbgtpu's ValueError, word for word (the CLI too, for the cases
+    that flags make; the probe table is cut on both packages' built index
+    for its case).  Without a mesh the flag changes nothing and the run
+    writes the spec's bytes."""
+    from dbgtpu import native as jax_native
+    from dbgtpu.dist.mesh import make_mesh as jax_mesh
+    from dbgtpu.engine import runner as jax_runner
+    from dbgtpu.index.build import build_graph as jax_build_graph
+
     monkeypatch.chdir(tmp_path)
-    assert cli.main(["-r", "missing.fa", "-k", "21", "--device", "cpu",
-                     "--shard-index", "--mesh", "2"]) == 2
-    err = capsys.readouterr().err
-    assert "--shard-index" in err and "B15" in err
-    want = dbgtpu_pipeline([rf], uf, k=21, impl="python")
-    assert cli.main(["-r", rf, "-k", "21", "-g", uf, "--device", "cpu",
-                     "--shard-index", "--mesh", "1"]) == 0
-    assert (tmp_path / "paths").read_bytes() == want[0]
+    if case == "no-mesh":
+        rf, uf = _files(tmp_path)
+        want = dbgtpu_pipeline([rf], uf, k=21, impl="python")
+        assert cli.main(["-r", rf, "-k", "21", "-g", uf, "--device", "cpu",
+                         "--shard-index"]) == 0
+        assert (tmp_path / "paths").read_bytes() == want[0]
+        assert (tmp_path / "notAligned.fa").read_bytes() == want[1]
+        return
+    flags, n, genome_len, probe_rows = _GUARDS[case]
+    reads_fa, unitigs_fa = synth.make_dataset(
+        seed=81, genome_len=genome_len, k=21, n_reads=20, n_frac=0.1)
+    rf, uf = str(tmp_path / "reads.fa"), str(tmp_path / "unitigs.fa")
+    Path(rf).write_bytes(reads_fa)
+    Path(uf).write_bytes(unitigs_fa)
+    mode = ("anchors" if "-G" in flags else "exhaustive" if "-b" in flags
+            else "greedy")
+    layout = "mphf" if "mphf" in flags else "scan"
+    graphs = []
+    for build, get in ((jax_build_graph, jax_runner.get_device_index),
+                       (build_graph, runner.get_device_index)):
+        g = build(uf, 21, dog_mode=mode == "anchors")
+        di = get(g, layout)
+        if probe_rows is not None:
+            di.probe_tbl = dataclasses.replace(
+                di.probe_tbl, rows=di.probe_tbl.rows[:probe_rows])
+        graphs.append(g)
+    with pytest.raises(ValueError) as want:
+        jax_runner.align_bulk(graphs[0], jax_native.parse_reads(rf, 21, False),
+                              2, 2, mode=mode, index_layout=layout,
+                              mesh=jax_mesh(n), shard_index=True)
+    assert "--shard-index requires" in str(want.value)
+    with pytest.raises(ValueError) as got:
+        runner.align_bulk(graphs[1], native.parse_reads(rf, 21, False), 2, 2,
+                          batch_size=16, device="cpu", mode=mode,
+                          index_layout=layout,
+                          mesh=mesh_mod.make_mesh(n, "cpu"), shard_index=True)
+    assert str(got.value) == str(want.value)
+    if probe_rows is None:
+        with pytest.raises(ValueError) as got:
+            cli.main(["-r", rf, "-k", "21", "-g", uf, "--device", "cpu",
+                      "--shard-index", "--mesh", str(n)] + flags)
+        assert str(got.value) == str(want.value)
+        assert not (tmp_path / "paths").exists()
 
 
 def test_resume_on_a_mesh(tmp_path, monkeypatch):
@@ -163,8 +224,8 @@ def _coordinated(tmp_path, rf, uf):
 
 def test_coordinator_two_gloo_processes(tmp_path):
     """Process 0 prints the stats block summed over both processes and
-    writes it to --json-summary; process 1 prints none; the merged
-    shards are the single run's bytes."""
+    writes it to --json-summary; process 1 prints none and writes its
+    own counters there; the merged shards are the single run's bytes."""
     rf, uf = _files(tmp_path, n_reads=70)
     want = dbgtpu_pipeline([rf], uf, k=21, impl="python")
     outs = _coordinated(tmp_path, rf, uf)
@@ -177,7 +238,15 @@ def test_coordinator_two_gloo_processes(tmp_path):
                               "no_overlap")] == [
         want[2].read_number, want[2].aligned, want[2].not_aligned,
         want[2].no_overlap]
-    assert not (tmp_path / "s1.json").exists()
+    # every process writes its --json-summary (dbgtpu/cli.py:291-295):
+    # process 1's holds its own record range's counters
+    own = dbgtpu_pipeline([rf], uf, k=21, impl="python", num_processes=2,
+                          process_id=1)[2]
+    summ1 = json.loads((tmp_path / "s1.json").read_text())
+    assert [summ1[f] for f in ("reads", "aligned", "not_aligned",
+                               "no_overlap")] == [
+        own.read_number, own.aligned, own.not_aligned, own.no_overlap]
+    assert 0 < own.read_number < n
     for base in ("paths", "notAligned.fa"):
         multihost.merge_shards(str(tmp_path / base), 2)
     assert (tmp_path / "paths").read_bytes() == want[0]

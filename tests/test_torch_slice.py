@@ -201,8 +201,7 @@ def test_cli_mphf_layouts_equal_spec_and_jax_engine(tmp_path, flags, mode,
         assert 0 < hbm["anchor_table"] < 60 * want[2].read_number * 100
 
 
-_REFUSED = (["--shard-index", "--mesh", "2"],
-            ["--resume", "--impl", "python"])
+_REFUSED = (["--resume", "--impl", "python"],)
 # a coordinated run's address: a free localhost port at run time
 _FREE_PORT = "127.0.0.1:{port}"
 
@@ -220,13 +219,13 @@ _FREE_PORT = "127.0.0.1:{port}"
 ])
 def test_cli_refuses_flags_outside_the_slice(tmp_path, monkeypatch, flags,
                                              capsys):
-    """dbgtpu's sharded index over more than one device (--shard-index
-    with --mesh 2: two shards on the CPU) exits 2 naming the flag, before
-    reading input; --resume refuses --impl python as dbgtpu does.
-    Everything else runs and gives dbgtpu's bytes on the same inputs:
-    the flags the port used to refuse (path modes, persistence, --resume,
-    process sharding, --mesh 0 and 2, --shard-index without a mesh,
-    --coordinator with one process and with two, --profile-dir) and
+    """--resume refuses --impl python as dbgtpu does: it exits 2 naming
+    the flag, before reading input.  Everything else runs and gives
+    dbgtpu's bytes on the same inputs: the flags the port used to refuse
+    (path modes, persistence, --resume, process sharding, --mesh 0 and
+    2, --shard-index without a mesh and with --mesh 2 (the index cut
+    into two row ranges on the CPU), --coordinator with one process and
+    with two, --profile-dir) and
     --impl python|jax|auto.  --impl python runs on the host spec.  The
     coordinated case runs process 1 as a subprocess beside process 0 in
     this one, on a free localhost port."""

@@ -48,6 +48,15 @@ Workloads:
            work of minutes.
 Cells are `workload:layout` with layout scan or mphf.
 
+`--shard survey1M,scale1M [--meshes 1,2,4] [--turns N]` measures
+`--shard-index` instead (shard_runs): greedy / scan runs through
+`cli.main` from a loaded index with `--mesh D`, replicated and sharded,
+in turns (1,048,576 survey reads; scale1M's 131,072 reads at the largest
+D; a D beyond the local cards is skipped), bytes equal across all, with
+align seconds, end-to-end reads/s and the index bytes each card holds;
+then K2 and K3 alone on the index replicated, cut into D ranges on one
+card, and cut over D cards where there are D.
+
 Prints one line per measurement and, last, one JSON object per cell.
 Needs a CUDA device; imports neither JAX nor dbgtpu.
 """
@@ -58,6 +67,7 @@ import argparse
 import dataclasses
 import json
 import os
+import statistics
 import sys
 import tempfile
 import time
@@ -376,6 +386,145 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
     return out
 
 
+SHARD_WORKLOADS = ("survey1M", "scale1M")
+
+
+def shard_kernels(tag, di, batches, meshes, L, pmax, device) -> dict:
+    """K2 and K3 alone on the first batch against their plain versions
+    (chip_smoke.compare_kernels, greedy, timed), on the index replicated
+    on `device` and, for each D in `meshes`, cut into D ranges resident
+    on `device` and cut over the first D cards where there are D (remote
+    share (D - 1) / D of the table rows read): (D, where) -> results of
+    member and greedy_walk beside the replicated index's."""
+    import torch
+
+    import chip_smoke as cs
+    from dbgtpu_torch.engine.index import index_tensors, sharded_index_tensors
+
+    out = {}
+    whole = index_tensors(di, device)
+    rep = cs.compare_kernels(whole, *batches[0], mode="greedy", k=K, m=M,
+                             effort=EFFORT, L=L, pmax=pmax, timed=True,
+                             more=batches[1:])
+    layouts = [(D, "one card", [device] * D, 0.0) for D in meshes if D > 1]
+    layouts += [(D, f"{D} cards",
+                 [torch.device("cuda", i) for i in range(D)], (D - 1) / D)
+                for D in meshes if D <= torch.cuda.device_count()]
+    for D, where, devices, share in layouts:
+        sx = sharded_index_tensors(di, devices)[0]
+        res = cs.compare_kernels(sx, *batches[0], mode="greedy", k=K, m=M,
+                                 effort=EFFORT, L=L, pmax=pmax, timed=True,
+                                 more=batches[1:], remote_share=share)
+        out[f"{D} on {where}"] = {}
+        for name in ("member", "greedy_walk"):
+            r, w = res[name], rep[name]
+            out[f"{D} on {where}"][name] = dict(
+                sharded_alone_ms=r["alone_ms"], replicated_alone_ms=w[
+                    "alone_ms"], sharded_bound_ms=r["bound_ms"],
+                replicated_bound_ms=w["bound_ms"], plain_ms=r["plain_ms"])
+            cs.log(f"{tag} {name} alone on the index cut into {D} ranges "
+                   f"on {where}: {r['alone_ms']:.4f} ms (== plain version, "
+                   f"err {r['max_abs_err']}; bound {r['bound_ms']:.4f} ms "
+                   f"with {share:.3f} of the rows over NVLink), replicated "
+                   f"{w['alone_ms']:.4f} ms (bound {w['bound_ms']:.4f} ms), "
+                   f"plain {r['plain_ms']:.4f} ms")
+    return out
+
+
+def shard_runs(name, meshes, turns, device, card) -> dict:
+    """`--shard-index` against the replicated mesh, greedy / scan, warm
+    through `cli.main` from a loaded index: survey1M maps 1,048,576
+    survey reads (chip_smoke's [runner] reads) with `--mesh D` and
+    `--mesh D --shard-index` for each D in `meshes`, in turns (the order,
+    then reversed, `turns` times); scale1M its 131,072 reads with
+    `--mesh D` and `--mesh D --shard-index` for the largest D.  Bytes must
+    be equal across every run; each run's align seconds, end-to-end
+    reads/s and the index bytes each card holds are logged.  Then K2 and
+    K3 alone on the index replicated and cut into D ranges
+    (shard_kernels).  Mesh sizes beyond the local cards run no CLI."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from dbgtpu_torch.engine import runner
+    from dbgtpu_torch.index.build import build_graph
+    from dbgtpu_torch.index.persist import load_index, save_index
+
+    td = Path(tempfile.mkdtemp(dir=SCRATCH))
+    uf = td / "unitig.fa"
+    chars = np.frombuffer(b"ACGT", np.uint8)
+    t0 = time.monotonic()
+    if name == "survey1M":
+        unitigs, codes_all = survey()
+        rf = td / "r1m.fa"
+        cs.write_fasta(uf, unitigs)
+        cs.runner_reads(rf)
+        n_reads = cs.RUNNER_READS
+    else:
+        unitigs, codes_all = scale1m()
+        rf = td / "reads.fa"
+        cs.write_fasta(uf, unitigs)
+        cs.write_fasta(rf, (chars[r].tobytes() for r in codes_all))
+        n_reads = codes_all.shape[0]
+        meshes = meshes[-1:]
+    graph = build_graph(str(uf), K)
+    npz = td / "index.npz"
+    save_index(graph, str(npz), layout="scan")
+    tag = f"[shard {name}]"
+    cs.log(f"{tag} {len(unitigs)} unitigs, {n_reads} reads: workload, "
+           f"graph, device index and --save-index "
+           f"{time.monotonic() - t0:.1f} s; index file "
+           f"{npz.stat().st_size} B")
+    argv = ["-r", str(rf), "--load-index", str(npz), "-m", str(M), "-e",
+            str(EFFORT), "--batch-size", str(BATCH), "-f", str(td / "paths"),
+            "-a", str(td / "notAligned.fa"), "--json-summary",
+            str(td / "summary.json")]
+    cards = torch.cuda.device_count()
+    if max(meshes) > cards:
+        cs.log(f"{tag} {cards} cards: runs with --mesh "
+               f"{[D for D in meshes if D > cards]} not taken")
+    configs = [(D, sharded) for D in meshes if D <= cards
+               for sharded in (False, True)]
+    order = (configs + configs[::-1]) * turns
+    runs, first = {}, None
+    for D, sharded in order:
+        flags = ["--mesh", str(D)] + ["--shard-index"] * sharded
+        want = cs.PATH_KERNELS["greedy"] + ("sharded_rows",) * sharded
+        r = cs.cli_timed(argv + flags, want)
+        got = ((td / "paths").read_bytes(),
+               (td / "notAligned.fa").read_bytes())
+        first = first or got
+        if got != first:
+            raise AssertionError(f"{tag} {' '.join(flags)}: bytes differ")
+        summ = r["summ"]
+        row = dict(align_s=summ["align_seconds"], wall_s=r["wall"],
+                   e2e_rps=n_reads / r["wall"],
+                   map_rps=n_reads / summ["align_seconds"],
+                   upload_s=summ["upload_seconds"],
+                   card_bytes=summ["index_card_bytes"],
+                   sharded_rows=r["launches"]["sharded_rows"])
+        runs.setdefault(" ".join(flags), []).append(row)
+        cs.log(f"{tag} {' '.join(flags)}: align_seconds {row['align_s']}, "
+               f"wall {row['wall_s']:.3f} s (end-to-end {row['e2e_rps']:.1f}"
+               f" reads/s, mapping {row['map_rps']:.1f} reads/s), upload "
+               f"{row['upload_s']} s; index bytes each card holds "
+               f"{row['card_bytes']}; sharded_rows launches "
+               f"{row['sharded_rows']}; bytes == the first run's")
+    for flags, rows in runs.items():
+        cs.log(f"{tag} {flags}: median of {len(rows)}: align_seconds "
+               f"{statistics.median(x['align_s'] for x in rows):.4f}, "
+               f"end-to-end "
+               f"{statistics.median(x['e2e_rps'] for x in rows):.1f} reads/s")
+    g = load_index(str(npz))
+    di = runner.get_device_index(g, "scan")
+    L = runner._bucket_len(codes_all.shape[1], K)
+    pmax = min(runner._pmax_for(di, L), runner._pmax_cap(L))
+    kern = shard_kernels(tag, di, cs.survey_batches(codes_all, L, device),
+                         meshes, L, pmax, device)
+    npz.unlink()
+    return {"shard": name, "card": card, "runs": runs, "kernels": kern}
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -383,6 +532,15 @@ def main(argv=None) -> int:
     ap.add_argument("--cells", default=DEFAULT_CELLS)
     ap.add_argument("--modes", default=",".join(MODES))
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--shard", metavar="WORKLOADS",
+                    help="instead of the cells: --shard-index against the "
+                         "replicated mesh on WORKLOADS (comma separated: "
+                         "survey1M, scale1M; shard_runs)")
+    ap.add_argument("--meshes", default="1,2,4",
+                    help="with --shard: the mesh sizes (scale1M takes the "
+                         "largest)")
+    ap.add_argument("--turns", type=int, default=1,
+                    help="with --shard: passes of the runs in turns")
     ap.add_argument("--baseline-csrc", metavar="DIR",
                     help="also build the kernels of DIR (another tree's "
                          "dbgtpu_torch/csrc) and time each kernel alone "
@@ -426,6 +584,14 @@ def main(argv=None) -> int:
            f"{floor[0]:.4f} ms a launch back to back from Python, "
            f"{floor[1]:.4f} ms replayed from a CUDA graph")
     results = []
+    if args.shard:
+        meshes = [int(x) for x in args.meshes.split(",")]
+        for name in args.shard.split(","):
+            if name not in SHARD_WORKLOADS:
+                ap.error(f"unknown --shard workload {name!r}")
+            results.append(shard_runs(name, meshes, args.turns, device,
+                                      card))
+        cells = {}
     for name, layouts in cells.items():
         results += run_workload(name, layouts, modes, args.reps, device, card,
                                 copy_rate)
