@@ -74,9 +74,14 @@ its own kernel), then:
      space), and, where two or more cards reach each other, into one
      range per card; on each, K13 sharded_rows against its plain version
      at every range's first and last row and outside the table, and on
-     the upload check's ids and the batch's probe keys, timed alone
-     (also by the graph timer), through its wrapper, plain and beside
-     `whole[ids]` on the unsharded table; K2 (both branches) and K3
+     the upload check's ids and the batch's probe keys by its plan's
+     path, timed alone (also by the graph timer; with `--baseline-csrc`
+     in turns with DIR's K13), through its wrapper, plain and beside
+     `whole[ids]` on the unsharded table, and, on 8 ranges and on the
+     real cards, each path forced (direct, staged by plain launches,
+     staged by one cooperative launch; the distinct rows staged); the
+     sparse shape, a seeded [1,048,576, 96] table in 4 ranges on the
+     card and one per card, at 917,504 uniform ids; K2 (both branches) and K3
      greedy_walk against their plain versions on the survey batch, timed
      on 8 ranges on one card and on the real cards.  Then
      `tools.exp_gather.main()`, the entry
@@ -181,10 +186,10 @@ ops_* functions below.  For
 the gathers K9-K12 they are what the function needs whatever the
 kernel's layout (tools/exp_gather.py): no operation for K9's copy, one
 add per table word summed for K10-K12.  K13's bound counts the ids,
-its rows written and the table rows read (never more than the table);
-on real cards (D - 1) / D of the table rows read cross NVLink at
-450 GB/s into the card, and the byte time is the larger of that and the
-memory's (kernels/measure.py).  `library_ms` is the time of one PyTorch
+its rows written and the distinct table rows the ids ask for, read
+once; those in shards on other cards cross NVLink at 450 GB/s into the
+card, and the byte time is the larger of that and the memory's
+(kernels/measure.py).  `library_ms` is the time of one PyTorch
 call that computes the same function: for K9-K12 a gather, for K13
 `whole[ids]` on the unsharded table, for the mapping kernels none
 (null).
@@ -1630,19 +1635,60 @@ SHARD_GUARD_TEXT = ("--shard-index requires greedy mode and index tables "
 SHARD_COUNTS = (2, 4, 8)    # shards of the survey index on one card
 
 
-def sharded_rows_case(name, shards, ids, whole, remote_share=0.0) -> dict:
-    """K13 on `shards` for the global bucket ids `ids` (int32, inside the
-    table, on the card that reads) against its plain version, exact, and
-    timed: alone (its C entry point back to back), through its wrapper,
-    its plain version, and the one PyTorch call that computes the same
-    function on the whole table (`whole[ids]`).  Bound: the ids read
-    once, the rows written once, the rows read once but never more than
-    the table; `remote_share` of the rows read lie on other cards and
-    cross NVLink."""
+SPARSE_ROWS, SPARSE_W = 1_048_576, 96   # scale1M's probe table: 403 MB
+SPARSE_IDS, SPARSE_SEED = 917_504, 1313
+
+
+def on_any(prep):
+    """prep() -> (build.Launch, outputs) as prep() -> (go, outputs), go(lib)
+    launching on any kernel library: an older tree's through
+    measure.on (OLDER_ENTRIES), its arguments mapped once per library."""
+    def wrapped():
+        launch, outputs = prep()
+        bound = {}
+
+        def go(lib=None):
+            if id(lib) not in bound:
+                bound[id(lib)] = on(lib, launch)
+            bound[id(lib)]()
+
+        return go, outputs
+
+    return wrapped
+
+
+def k13_path(plan) -> str:
+    if plan.direct:
+        return "direct"
+    return "staged, cooperative" if plan.coop else "staged, plain launches"
+
+
+def staged_ones(shards, device):
+    """Which shards a staged measurement stages: those on other cards, or,
+    with every shard on `device`, all but the first (as if the others
+    lay on other cards: the same passes, the rows from this card)."""
+    local = [s.device == device for s in shards]
+    return local if not all(local) else [i == 0 for i in range(len(local))]
+
+
+def sharded_rows_case(name, shards, ids, whole, paths: bool = False) -> dict:
+    """K13 on `shards` for the global bucket ids `ids` (int32, on the card
+    that reads) against its plain version and the whole table's rows,
+    exact, by the host's plan, and timed: alone (its C entry point back
+    to back; with `--baseline-csrc`, in turns with the older tree's
+    K13), by the graph timer, through its wrapper, its plain version, and
+    the one PyTorch call that computes the same function on the whole
+    table (`whole[ids]`).  `paths`: each path forced (direct, staged by
+    plain launches, staged by one cooperative launch) too, exact and
+    timed alone and by graph, each staged run's distinct remote rows
+    read back from its flags.  Bound: the ids read once, the rows
+    written once, the distinct rows the ids ask for read once; those in
+    shards on other cards cross NVLink."""
     import torch
 
     from dbgtpu_torch.engine.shard import (
-        sharded_rows, sharded_rows_launch, sharded_rows_ref,
+        plan_for, shard_plan, sharded_rows, sharded_rows_launch,
+        sharded_rows_ref,
     )
 
     got = sharded_rows(shards, ids)
@@ -1650,27 +1696,77 @@ def sharded_rows_case(name, shards, ids, whole, remote_share=0.0) -> dict:
     torch.cuda.synchronize()
     err = _max_abs_err(got, want)
     ids64 = ids.long()
-    if err or not torch.equal(want, whole[ids64]):
+    inside = (ids64 >= 0) & (ids64 < whole.shape[0])
+    if (err or not torch.equal(want[inside], whole[ids64[inside]])
+            or bool(want[~inside].any())):
         raise AssertionError(f"{name}: sharded_rows != plain version (max "
                              f"abs err {err}) or the whole table's rows")
+    plan = plan_for(shards, ids)
+    nbl, W = shards[0].shape
+    distinct = torch.unique(ids64[inside])
+    remote = sum(int(((distinct // nbl) == s).sum())
+                 for s, sh in enumerate(shards) if sh.device != ids.device)
     rows = nbytes(got)
-    bound, by = bound_of(nbytes(ids) + rows, rows, nbytes(*shards), 0,
-                         remote_share)
+    bound, by = bound_of(nbytes(ids) + rows, distinct.numel() * W * 4,
+                         nbytes(*shards), 0,
+                         remote / max(1, distinct.numel()))
+    lib_ids = ids64 if bool(inside.all()) else None
     res = dict(max_abs_err=err, ms=cuda_ms(lambda: sharded_rows(shards, ids),
                                            20),
                plain_ms=cuda_ms(lambda: sharded_rows_ref(shards, ids), 3),
-               library_ms=cuda_ms(lambda: whole[ids64], 20),
-               bound_ms=bound, bound_by=by, q=ids.numel(),
-               w=shards[0].shape[1], d=len(shards))
-    res.update(time_alone(name, [(lambda: sharded_rows_launch(shards, ids),
-                                  lambda o: [(o, want)])], graph=True))
+               library_ms=(cuda_ms(lambda: whole[lib_ids], 20)
+                           if lib_ids is not None else None),
+               bound_ms=bound, bound_by=by, q=ids.numel(), w=W,
+               d=len(shards), path=k13_path(plan), distinct=distinct.numel(),
+               remote_distinct=remote)
+    res.update(time_alone(name, [(on_any(lambda: sharded_rows_launch(
+        shards, ids)), lambda o: [(o, want)])], graph=True))
     log(f"[shard] {name}: K13 == plain version (max abs err {err}, "
         f"tolerance 0; == the whole table's rows); Q {res['q']} ids of rows "
-        f"of {res['w']} words over {res['d']} shards: alone "
-        f"{res['alone_ms']:.4f} ms" + graph_part(res) + f", wrapper "
-        f"{res['ms']:.4f} ms, plain {res['plain_ms']:.4f} ms, whole[ids] "
-        f"{res['library_ms']:.4f} ms, bound {res['bound_ms']:.6f} ms "
-        f"({by}; remote share {remote_share:.3f})")
+        f"of {W} words over {res['d']} shards, {res['distinct']} distinct "
+        f"rows, {remote} of them on other cards; plan: {res['path']}; "
+        f"alone {res['alone_ms']:.4f} ms"
+        + (f" (baseline K13 {res['baseline_alone_ms']:.4f} ms; turns "
+           + ", ".join(f"{t:.4f}" for t in res["alone_turns_ms"]) + ")"
+           if "baseline_alone_ms" in res else "")
+        + graph_part(res) + f", wrapper {res['ms']:.4f} ms, plain "
+        f"{res['plain_ms']:.4f} ms, whole[ids] "
+        + (f"{res['library_ms']:.4f} ms" if lib_ids is not None
+           else "- (ids outside the table)")
+        + f", bound {res['bound_ms']:.6f} ms ({by})")
+    if not paths:
+        return res
+    stage = staged_ones(shards, ids.device)
+    forced = {"direct": plan_for(shards, ids, staged=False)}
+    for coop in (0, 1):
+        p = shard_plan(ids.numel(), nbl, W, stage, staged=True, coop=coop)
+        forced[k13_path(p)] = p
+    res["paths"] = {}
+    for label, p in forced.items():
+        def bind(p=p):
+            launch, out = sharded_rows_launch(shards, ids, p)
+            return launch, (out, launch.tensors[3])
+
+        launch, (out, flags) = bind()
+        alone = cuda_ms(launch, ALONE_REPS, launches=ALONE_LAUNCHES)
+        torch.cuda.synchronize()
+        if _max_abs_err(out, want):
+            raise AssertionError(f"{name}: K13 {label} != plain version")
+        graph, (gout, _) = graph_ms(bind, ALONE_REPS, ALONE_LAUNCHES)
+        if _max_abs_err(gout, want):
+            raise AssertionError(f"{name}: K13 {label} from a graph != "
+                                 "plain version")
+        staged_rows = int(flags.sum()) if flags.numel() else 0
+        res["paths"][label] = dict(alone_ms=alone, graph_ms=graph,
+                                   staged_rows=staged_rows,
+                                   remote_rows=p.remote_rows)
+        log(f"[shard] {name}, {label} (forced): == plain version (tolerance "
+            f"0); alone {alone:.4f} ms, graph {graph:.4f} ms"
+            + (f"; {staged_rows} distinct rows of {p.remote_rows} staged "
+               f"(shards {list(p.remote)}"
+               + (", on this card" if all(s.device == ids.device
+                                          for s in shards) else "")
+               + ")" if p.staged else ""))
     return res
 
 
@@ -1713,20 +1809,14 @@ def compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
     local ones are one address space, so this runs on one card), and,
     where two or more cards can reach each other, into one range per card
     (up to 8).  On each: K13 at every shard's edge rows and on the batch's
-    probe keys against its plain version; K2 (both branches) and K3
-    greedy_walk against theirs on the survey batch (compare_kernels, timed
-    on 8 shards on one card and on the real cards).  Returns the JSON
+    probe keys against its plain version (every path forced too, on 8
+    shards on one card and on the real cards), and on the sparse shape
+    (`compare_sparse_shape`); K2 (both branches) and K3 greedy_walk
+    against theirs on the survey batch (compare_kernels, timed on 8
+    shards on one card and on the real cards).  With `--baseline-csrc`
+    K13 is timed in turns with the older tree's; K2 and K3 are not (an
+    older tree's K2 and K3 may read no sharded index).  Returns the JSON
     line's sharded_rows, member@shard and greedy_walk@shard results."""
-    # an older tree's kernels read no sharded index: none is timed here
-    saved, BASELINE["lib"] = BASELINE["lib"], None
-    try:
-        return _compare_shards(di, ix, batches, device, k=k, m=m,
-                               effort=effort, L=L, pmax=pmax)
-    finally:
-        BASELINE["lib"] = saved
-
-
-def _compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
     import torch
 
     from dbgtpu_torch.dist.mesh import make_mesh
@@ -1743,18 +1833,19 @@ def _compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
     hi, lo = split_ref(sk.rep1[:, p].reshape(-1))
     whole = {"junction": ix.st_fused, "probe": ix.pt_rows}
     seeds = {"junction": ix.st_seed, "probe": ix.pt_seed}
-    layouts = [("one card", [device] * D, 0.0) for D in SHARD_COUNTS]
+    layouts = [("one card", [device] * D) for D in SHARD_COUNTS]
     cards = make_mesh(None, device)[:8]
     n = len(cards)
     if n > 1 and all(torch.cuda.can_device_access_peer(a.index, b.index)
                      for a in cards for b in cards if a != b):
-        layouts.append((f"{n} cards", cards, (n - 1) / n))
+        layouts.append((f"{n} cards", cards))
     elif n > 1:
         log(f"[shard] {n} cards that cannot all reach each other: no run "
             "over real cards")
     out, ids_of = {}, {}
-    for where, devices, share in layouts:
+    for where, devices in layouts:
         D = len(devices)
+        share = (D - 1) / D if where != "one card" else 0.0
         t0 = time.monotonic()
         ixs = sharded_index_tensors(di, devices)
         sx = ixs[0]
@@ -1775,18 +1866,24 @@ def _compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
             # the upload's check (the main path's shape) and the batch's
             # probe keys (a lookup's shape)
             check = edge_ids(nb, D, device)[: 2 * D]
+            timed = (D == max(SHARD_COUNTS) or where != "one card")
             for shape, ids in (("upload check", check),
                                ("batch probe keys", ids_of[what])):
-                r = sharded_rows_case(f"sharded_rows {what} {tag}, {shape}",
-                                      shards, ids, whole[what], share)
+                r = sharded_rows_case(
+                    f"sharded_rows {what} {tag}, {shape}", shards, ids,
+                    whole[what], paths=timed and shape != "upload check")
                 out[what, D, where, shape] = r
         perpos = dataclasses.replace(sx, pt_rows=sx.pt_rows[:0],
                                      pt_shards=())
-        timed = (D == max(SHARD_COUNTS) or where != "one card")
-        res = compare_kernels(sx, words, nmbits, lens, mode="greedy", k=k,
-                              m=m, effort=effort, L=L, pmax=pmax, timed=timed,
-                              perpos_ix=perpos, more=batches[1:],
-                              remote_share=share)
+        # an older tree's K2 and K3 may read no sharded index
+        saved, BASELINE["lib"] = BASELINE["lib"], None
+        try:
+            res = compare_kernels(sx, words, nmbits, lens, mode="greedy",
+                                  k=k, m=m, effort=effort, L=L, pmax=pmax,
+                                  timed=timed, perpos_ix=perpos,
+                                  more=batches[1:], remote_share=share)
+        finally:
+            BASELINE["lib"] = saved
         for name in ("member", "member (per-position)", "greedy_walk"):
             r = res[name]
             log(f"[shard] {name} on {tag}: == plain version (max abs err "
@@ -1796,11 +1893,36 @@ def _compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
                     f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
                     if timed else ""))
         out[D, where] = res
+    for where, devices in ([("one card", [device] * 4)]
+                           + layouts[len(SHARD_COUNTS):]):
+        out["sparse", where] = compare_sparse_shape(devices, device, where)
     D = max(SHARD_COUNTS)
     return {"sharded_rows": out["junction", D, "one card", "upload check"],
             "member": out[D, "one card"]["member"],
             "greedy_walk": out[D, "one card"]["greedy_walk"],
             "all": out}
+
+
+def compare_sparse_shape(devices, device, where) -> dict:
+    """K13 on the sparse shape: a seeded int32 table of [SPARSE_ROWS,
+    SPARSE_W] (the size of scale1M's probe table) cut into one range per
+    device of `devices`, read on `device` at SPARSE_IDS uniform ids:
+    fewer ids than rows, so they cannot repeat much (the plan's
+    choice).  Every path against the plain version, exact, timed, beside
+    `whole[ids]`."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(SPARSE_SEED)
+    whole = torch.randint(0, 2**31 - 1, (SPARSE_ROWS, SPARSE_W),
+                          generator=g, device=device, dtype=torch.int32)
+    ids = torch.randint(0, SPARSE_ROWS, (SPARSE_IDS,), generator=g,
+                        device=device, dtype=torch.int32)
+    D = len(devices)
+    shards = [c.to(d) for c, d in zip(whole.chunk(D), devices)]
+    return sharded_rows_case(
+        f"sharded_rows sparse [{SPARSE_ROWS}, {SPARSE_W}] table, {D} "
+        f"shards on {where}, {SPARSE_IDS} uniform ids", shards, ids, whole,
+        paths=True)
 
 
 def survey_batches(codes_all, L, device):
@@ -2282,6 +2404,10 @@ def main(argv=None) -> int:
                     help="also map the [runner] reads with FILE (another "
                          "tree's dbgtpu_torch/engine/runner.py), in turns "
                          "with this tree's runner")
+    ap.add_argument("--shard-only", action="store_true",
+                    help="build, then run the sharded index's [shard] "
+                         "lines alone (K13, K2 and K3 on the survey index "
+                         "cut into ranges) and stop without a result line")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2336,6 +2462,20 @@ def main(argv=None) -> int:
                              "(g++): the run would take the python fallback")
     log(f"[build] native parser/formatter: available "
         f"({time.monotonic() - t0:.1f} s, g++)")
+
+    if args.shard_only:
+        unitigs, codes_all = survey_workload()
+        di = get_device_index(build_graph_from_seqs(unitigs, K), "scan")
+        L = _bucket_len(codes_all.shape[1], K)
+        t0 = time.monotonic()
+        compare_shards(di, index_tensors(di, device),
+                       survey_batches(codes_all, L, device), device, k=K,
+                       m=M, effort=EFFORT, L=L,
+                       pmax=min(_pmax_for(di, L), _pmax_cap(L)))
+        assert_reference_packages_unused()
+        log(f"[shard] the sharded index: {time.monotonic() - t0:.1f} s; "
+            "--shard-only: no result line")
+        return 0
 
     # ---- phase 2: kernels against their plain versions ----
     t0 = time.monotonic()
@@ -2951,11 +3091,19 @@ def main(argv=None) -> int:
         r = shard_results[base]
         extra = {}
         if base == "sharded_rows":
-            b = shard_results["all"]["junction", max(SHARD_COUNTS),
-                                     "one card", "batch probe keys"]
-            extra["batch"] = {key: b[key] for key in (
-                "q", "w", "d", "alone_ms", "ms", "plain_ms", "bound_ms",
-                "library_ms")}
+            # the batch's probe keys and the sparse shape, on one card and
+            # over the cards, by the plan's path
+            for key, b in shard_results["all"].items():
+                if key[-1] == "batch probe keys" and (
+                        key[1] == max(SHARD_COUNTS) or key[2] != "one card"):
+                    label = f"{key[0]} {key[1]} shards on {key[2]}"
+                elif key[0] == "sparse":
+                    label = f"sparse on {key[1]}"
+                else:
+                    continue
+                extra.setdefault("batch", {})[label] = {k: b[k] for k in (
+                    "q", "w", "d", "path", "alone_ms", "ms", "plain_ms",
+                    "bound_ms", "library_ms")}
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=shard_launches[base],

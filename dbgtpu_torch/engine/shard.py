@@ -12,22 +12,30 @@ b - shard * nb_local.
 
 dbgtpu answers the lookups with a collective between lockstep walk
 steps.  The port's K3 walks each read to completion in one launch, so
-its lookups read the other cards' shards from inside the kernels,
-through peer pointers (csrc/common.cuh scan_row; csrc/shard.cu says
-why).  The kernel here, csrc/shard.cu, is that read on its own: the
-check of each sharded table at upload (`check_sharded_table`, one launch
-per card and table) and the yardstick of the peer reads.
-`sharded_rows_ref` is its plain torch version: it restates dbgtpu's
-function as written, each shard answering the ids in its own range with
-zeros elsewhere and the answers summed (psum_scatter's meaning); the
-plain versions of K2 and K3 read a sharded index through it
-(`scan_rows_ref`).
+K2 and K3 read the other cards' shards from inside the kernels through
+peer pointers, one lookup at a time, each row where it lies
+(csrc/common.cuh scan_row; csrc/shard.cu says why).  The kernel here,
+csrc/shard.cu, answers a whole set of ids at once and need not read a
+remote row more than once: its host plan (`shard_plan`, `ShardPlan`)
+takes the direct path (one launch, each row read where it lies) when
+every shard is on the reading card or the ids cannot repeat much, else
+the staged path (each remote row that an id asks for crosses NVLink
+once into scratch on the reading card, and out is written from there).
+Its bound is out's local write for a set of ids larger than the table.
+It is the check of each sharded table at upload (`check_sharded_table`,
+one launch per card and table, direct) and the yardstick of the sharded
+gather in chip_smoke.py.  `sharded_rows_ref` is its plain torch
+version: it restates dbgtpu's function as written, each shard answering
+the ids in its own range with zeros elsewhere and the answers summed
+(psum_scatter's meaning); the plain versions of K2 and K3 read a
+sharded index through it (`scan_rows_ref`).
 """
 
 from __future__ import annotations
 
 import ctypes
 from collections.abc import Sequence
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -64,11 +72,90 @@ def scan_rows_ref(table: torch.Tensor, shards: Sequence[torch.Tensor],
     return sharded_rows_ref(shards, h & (shards[0].shape[0] * len(shards) - 1))
 
 
-def sharded_rows_launch(shards: Sequence[torch.Tensor], b: torch.Tensor):
+# the staged path's passes in one cooperative launch (1) or as plain
+# launches (0)
+STAGED_COOP = 0
+
+
+@dataclass(frozen=True)
+class ShardPlan:
+    """How K13 answers a set of ids; csrc/shard.cu `ShardPlan`, field for
+    field."""
+    staged: int        # 0: the direct path, every row read where it lies
+    coop: int          # the staged passes in one cooperative launch
+    remote_rows: int   # stage rows: nb_local for each staged shard
+    stage_base: tuple  # per shard its first stage row, -1: read in place
+    remote: tuple      # the staged shards, in stage order
+
+    @property
+    def direct(self) -> bool:
+        return not self.staged
+
+    def scratch_words(self, W: int) -> int:
+        """int32 words of scratch a call allocates: a flag and a row of W
+        words per stage row."""
+        return self.remote_rows * (1 + W)
+
+
+def shard_plan(Q: int, nb_local: int, W: int, local: Sequence[bool],
+               staged: bool | None = None,
+               coop: int = STAGED_COOP) -> ShardPlan:
+    """K13's path for Q ids over D = len(local) shards of nb_local rows of
+    W words, `local[s]` saying whether shard s lies on the reading card.
+
+    The staged path when some shard lies on another card and the ids can
+    repeat: Q above the table's nb_local * D rows, that is, more ids
+    expected in the remote shards (Q * remote / D) than they have rows.
+    Else the direct path: staging would only add local traffic (the
+    upload check's 2 * D ids among those).  `staged` True or False takes
+    that path whatever the rule says (a measurement of both); a staged
+    plan stages every shard that is not local."""
+    D = len(local)
+    remote = tuple(s for s in range(D) if not local[s])
+    if staged is None:
+        staged = bool(remote) and Q > nb_local * D
+    if not staged:
+        return ShardPlan(staged=0, coop=0, remote_rows=0,
+                         stage_base=(-1,) * D, remote=())
+    base = [-1] * D
+    for i, s in enumerate(remote):
+        base[s] = i * nb_local
+    return ShardPlan(staged=1, coop=int(coop), remote_rows=len(remote) *
+                     nb_local, stage_base=tuple(base), remote=remote)
+
+
+def plan_for(shards: Sequence[torch.Tensor], b: torch.Tensor,
+             staged: bool | None = None,
+             coop: int = STAGED_COOP) -> ShardPlan:
+    """`shard_plan` for ids `b` read on b's card."""
+    nbl, W = shards[0].shape
+    return shard_plan(b.numel(), nbl, W, [s.device == b.device
+                                           for s in shards], staged, coop)
+
+
+def _plan_c(plan: ShardPlan) -> build.ShardPlanC:
+    c = build.ShardPlanC(staged=plan.staged, coop=plan.coop,
+                         remote_rows=plan.remote_rows,
+                         n_remote=len(plan.remote))
+    for s in range(build.MAX_SHARDS):
+        c.stage_base[s] = (plan.stage_base[s] if s < len(plan.stage_base)
+                           else -1)
+        c.remote[s] = plan.remote[s] if s < len(plan.remote) else -1
+    return c
+
+
+def sharded_rows_launch(shards: Sequence[torch.Tensor], b: torch.Tensor,
+                        plan: ShardPlan | None = None):
     """K13's checks and allocation on a CUDA id tensor, with its card
     current: (build.Launch into the output, out int32 [*b.shape, W]).
     Every shard must be a contiguous int32 [nb_local, W] tensor on b's
-    card or on a card b's card can read (enable_peer_access)."""
+    card or on a card b's card can read (enable_peer_access).  `plan`
+    (default `plan_for(shards, b)`) chooses the path.  A staged plan
+    allocates its scratch here through PyTorch's caching allocator,
+    `plan.scratch_words(W)` int32 words on b's card: a flag per stage
+    row and the stage, uint32 [remote_rows, W].  The plan stages only
+    where Q exceeds the table's rows, so the scratch is never more than
+    out plus 4 bytes per table row."""
     dev = b.device
     if dev.type != "cuda":
         raise ValueError(f"no sharded_rows kernel for device {dev}")
@@ -93,24 +180,36 @@ def sharded_rows_launch(shards: Sequence[torch.Tensor], b: torch.Tensor):
     if shape[0] < 1 or shape[1] < 1:
         raise ValueError("shards must hold at least one row of one word")
     b = b.contiguous()
-    table = build.ShardTableC(n_shards=len(shards), nb_local=shape[0],
-                              cols=shape[1])
-    for i, s in enumerate(shards):
-        table.shards[i] = s.data_ptr()
+    plan = plan_for(shards, b) if plan is None else plan
+    if len(plan.stage_base) != len(shards):
+        raise ValueError(f"a plan for {len(plan.stage_base)} shards, not "
+                         f"{len(shards)}")
+    flags = torch.empty(plan.remote_rows, dtype=torch.int32, device=dev)
+    stage = torch.empty(plan.remote_rows, shape[1], dtype=torch.int32,
+                        device=dev)
     out = torch.empty(b.shape + (shape[1],), dtype=torch.int32, device=dev)
-    launch = build.Launch("sharded_rows", "dbg_sharded_rows", (
-        ctypes.addressof(table), b.data_ptr(), b.numel(), out.data_ptr(),
-        build.stream_ptr(dev)), (table, tuple(shards), b, out))
+    args = build.ShardArgsC(
+        table=build.ShardTableC(n_shards=len(shards), nb_local=shape[0],
+                                cols=shape[1]),
+        plan=_plan_c(plan), ids=b.data_ptr(), Q=b.numel(),
+        flags=flags.data_ptr(), stage=stage.data_ptr(), out=out.data_ptr(),
+        stream=build.stream_ptr(dev))
+    for i, s in enumerate(shards):
+        args.table.shards[i] = s.data_ptr()
+    launch = build.Launch("sharded_rows", "dbg_sharded_rows",
+                          (ctypes.addressof(args),),
+                          (args, tuple(shards), b, flags, stage, out))
     return launch, out
 
 
-def sharded_rows(shards: Sequence[torch.Tensor],
-                 b: torch.Tensor) -> torch.Tensor:
-    """K13 on b's device: the kernel on CUDA, the plain version on the
-    CPU, an error anywhere else."""
+def sharded_rows(shards: Sequence[torch.Tensor], b: torch.Tensor,
+                 plan: ShardPlan | None = None) -> torch.Tensor:
+    """K13 on b's device: the kernel on CUDA (by `plan`, default the
+    host's plan), the plain version on the CPU, an error anywhere
+    else."""
     if b.device.type == "cpu":
         return sharded_rows_ref(shards, b)
-    launch, out = sharded_rows_launch(shards, b)
+    launch, out = sharded_rows_launch(shards, b, plan)
     if b.numel():
         launch()
         build.count("sharded_rows")

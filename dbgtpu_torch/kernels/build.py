@@ -19,9 +19,10 @@ check mode: the check of each MPHF table at upload, one launch per
 table, engine/mphf.py check_mphf_table); the mapping kernels
 run the same device function (csrc/mphf.cuh) inline under an MPHF
 layout and count as themselves.  Likewise `sharded_rows` (K13) counts
-its own kernel only (the check of each sharded table at upload,
-engine/shard.py); K2 and K3 read a sharded index through the same
-address arithmetic (csrc/common.cuh scan_row) inline.  The gather
+its own kernel only, once per call whichever path its plan takes (the
+check of each sharded table at upload, engine/shard.py); K2 and K3 read
+a sharded index through the same address arithmetic (csrc/common.cuh
+scan_row) inline.  The gather
 kernels K9-K12 (csrc/gather.cu, engine/gather.py) are launched by
 tools/exp_gather.py and by no mapping run.
 The device index goes to the kernels as one struct (`IndexC`, csrc/common.cuh
@@ -98,7 +99,7 @@ _ARGTYPES = {
     "dbg_gather_rows_sum": [_P, _I, _P, _I, _I, _I, _I, _P, _P, _P, _I,
                             _P, _P],
     "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
-    "dbg_sharded_rows": [_P, _P, _LL, _P, _P],
+    "dbg_sharded_rows": [_P],
     "dbg_enable_peer_access": [_I, _I],
 }
 
@@ -153,6 +154,25 @@ class ShardTableC(ctypes.Structure):
     _fields_ = [
         ("shards", _P * MAX_SHARDS), ("n_shards", ctypes.c_int32),
         ("nb_local", ctypes.c_int32), ("cols", ctypes.c_int32),
+    ]
+
+
+class ShardPlanC(ctypes.Structure):
+    """csrc/shard.cu ShardPlan (engine/shard.py ShardPlan)."""
+    _fields_ = [
+        ("staged", ctypes.c_int32), ("coop", ctypes.c_int32),
+        ("remote_rows", ctypes.c_int32), ("n_remote", ctypes.c_int32),
+        ("stage_base", ctypes.c_int32 * MAX_SHARDS),
+        ("remote", ctypes.c_int32 * MAX_SHARDS),
+    ]
+
+
+class ShardArgsC(ctypes.Structure):
+    """csrc/shard.cu ShardArgs: one K13 call's arguments."""
+    _fields_ = [
+        ("table", ShardTableC), ("plan", ShardPlanC), ("ids", _P),
+        ("Q", ctypes.c_longlong), ("flags", _P), ("stage", _P), ("out", _P),
+        ("stream", _P),
     ]
 
 
@@ -323,6 +343,8 @@ def _open(path: Path, older: bool = False) -> ctypes.CDLL:
         sizes.append((lib.dbg_sizeof_gather_plan, GatherPlanC))
     if hasattr(lib, "dbg_sizeof_shard_table"):
         sizes.append((lib.dbg_sizeof_shard_table, ShardTableC))
+    if hasattr(lib, "dbg_sizeof_shard_args"):
+        sizes.append((lib.dbg_sizeof_shard_args, ShardArgsC))
     for fn, ours in sizes:
         fn.argtypes, fn.restype = [], ctypes.c_int
         if fn() != ctypes.sizeof(ours):

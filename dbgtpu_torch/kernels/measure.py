@@ -194,6 +194,13 @@ def _older_k12(launch):
     return a[:6] + _card_of(launch.tensors[1].device) + a[-2:], ()
 
 
+def _older_k13(launch):
+    """K13 before its plan: (table, ids, Q, out, stream) from this tree's
+    one ShardArgs (the first tensor its launch keeps)."""
+    a = launch.tensors[0]
+    return (ctypes.addressof(a.table), a.ids, a.Q, a.out, a.stream), ()
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # this tree's C entry points whose arguments differ in older trees:
 # entry -> (an entry point that only the newer trees have, the older
@@ -213,6 +220,9 @@ OLDER_ENTRIES = {
     "dbg_gather_take_sum": ("dbg_sizeof_gather_plan",
                             [_P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
                             _older_k12),
+    # K13 before its plan: (table, ids, Q, out, stream), the direct path
+    "dbg_sharded_rows": ("dbg_sizeof_shard_args", [_P, _P, _LL, _P, _P],
+                         _older_k13),
 }
 
 
@@ -220,16 +230,20 @@ def on(lib, launch):
     """() -> None: this tree's `launch` (a build.Launch, its arguments
     bound) on kernel library `lib` (None: this tree's), its arguments
     mapped once through OLDER_ENTRIES where `lib` is an older tree's whose
-    entry point takes other ones."""
+    entry point takes other ones.  Either way the entry point is bound
+    once and called the same way, so that timing launches in turns
+    charges both libraries the same host work."""
     from . import build
 
     newer, argtypes, older = OLDER_ENTRIES.get(launch.entry,
                                                (None, None, None))
     if lib is None or newer is None or hasattr(lib, newer):
-        return lambda: launch(lib)
-    fn = lib[launch.entry]           # a fresh binding: its own argtypes
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    args, keep = older(launch)
+        fn = getattr(build.load() if lib is None else lib, launch.entry)
+        args, keep = launch.args, launch.tensors
+    else:
+        fn = lib[launch.entry]       # a fresh binding: its own argtypes
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        args, keep = older(launch)
 
     def go(keep=keep):
         build.check(fn(*args), launch.name)
