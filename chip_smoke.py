@@ -78,8 +78,8 @@ its own kernel), then:
      path, timed alone (also by the graph timer; with `--baseline-csrc`
      in turns with DIR's K13), through its wrapper, plain and beside
      `whole[ids]` on the unsharded table, and, on 8 ranges and on the
-     real cards, each path forced (direct, staged by plain launches,
-     staged by one cooperative launch; the distinct rows staged); the
+     real cards, each path forced (direct, staged; the distinct rows
+     staged); the
      sparse shape, a seeded [1,048,576, 96] table in 4 ranges on the
      card and one per card, at 917,504 uniform ids; K2 (both branches) and K3
      greedy_walk against their plain versions on the survey batch, timed
@@ -1657,12 +1657,6 @@ def on_any(prep):
     return wrapped
 
 
-def k13_path(plan) -> str:
-    if plan.direct:
-        return "direct"
-    return "staged, cooperative" if plan.coop else "staged, plain launches"
-
-
 def staged_ones(shards, device):
     """Which shards a staged measurement stages: those on other cards, or,
     with every shard on `device`, all but the first (as if the others
@@ -1672,16 +1666,16 @@ def staged_ones(shards, device):
 
 
 def sharded_rows_case(name, shards, ids, whole, paths: bool = False) -> dict:
-    """K13 on `shards` for the global bucket ids `ids` (int32, on the card
-    that reads) against its plain version and the whole table's rows,
+    """K13 on `shards` for the global bucket ids `ids` (int32, inside the
+    table, on the card that reads) against its plain version and the
+    whole table's rows,
     exact, by the host's plan, and timed: alone (its C entry point back
     to back; with `--baseline-csrc`, in turns with the older tree's
     K13), by the graph timer, through its wrapper, its plain version, and
     the one PyTorch call that computes the same function on the whole
-    table (`whole[ids]`).  `paths`: each path forced (direct, staged by
-    plain launches, staged by one cooperative launch) too, exact and
-    timed alone and by graph, each staged run's distinct remote rows
-    read back from its flags.  Bound: the ids read once, the rows
+    table (`whole[ids]`).  `paths`: each path forced (direct, staged) too,
+    exact and timed alone and by graph, the staged run's distinct remote
+    rows read back from its flags.  Bound: the ids read once, the rows
     written once, the distinct rows the ids ask for read once; those in
     shards on other cards cross NVLink."""
     import torch
@@ -1696,28 +1690,25 @@ def sharded_rows_case(name, shards, ids, whole, paths: bool = False) -> dict:
     torch.cuda.synchronize()
     err = _max_abs_err(got, want)
     ids64 = ids.long()
-    inside = (ids64 >= 0) & (ids64 < whole.shape[0])
-    if (err or not torch.equal(want[inside], whole[ids64[inside]])
-            or bool(want[~inside].any())):
+    if err or not torch.equal(want, whole[ids64]):
         raise AssertionError(f"{name}: sharded_rows != plain version (max "
                              f"abs err {err}) or the whole table's rows")
     plan = plan_for(shards, ids)
     nbl, W = shards[0].shape
-    distinct = torch.unique(ids64[inside])
+    distinct = torch.unique(ids64)
     remote = sum(int(((distinct // nbl) == s).sum())
                  for s, sh in enumerate(shards) if sh.device != ids.device)
     rows = nbytes(got)
     bound, by = bound_of(nbytes(ids) + rows, distinct.numel() * W * 4,
                          nbytes(*shards), 0,
                          remote / max(1, distinct.numel()))
-    lib_ids = ids64 if bool(inside.all()) else None
     res = dict(max_abs_err=err, ms=cuda_ms(lambda: sharded_rows(shards, ids),
                                            20),
                plain_ms=cuda_ms(lambda: sharded_rows_ref(shards, ids), 3),
-               library_ms=(cuda_ms(lambda: whole[lib_ids], 20)
-                           if lib_ids is not None else None),
+               library_ms=cuda_ms(lambda: whole[ids64], 20),
                bound_ms=bound, bound_by=by, q=ids.numel(), w=W,
-               d=len(shards), path=k13_path(plan), distinct=distinct.numel(),
+               d=len(shards), path="direct" if plan.direct else "staged",
+               distinct=distinct.numel(),
                remote_distinct=remote)
     res.update(time_alone(name, [(on_any(lambda: sharded_rows_launch(
         shards, ids)), lambda o: [(o, want)])], graph=True))
@@ -1730,17 +1721,14 @@ def sharded_rows_case(name, shards, ids, whole, paths: bool = False) -> dict:
            + ", ".join(f"{t:.4f}" for t in res["alone_turns_ms"]) + ")"
            if "baseline_alone_ms" in res else "")
         + graph_part(res) + f", wrapper {res['ms']:.4f} ms, plain "
-        f"{res['plain_ms']:.4f} ms, whole[ids] "
-        + (f"{res['library_ms']:.4f} ms" if lib_ids is not None
-           else "- (ids outside the table)")
-        + f", bound {res['bound_ms']:.6f} ms ({by})")
+        f"{res['plain_ms']:.4f} ms, whole[ids] {res['library_ms']:.4f} ms, "
+        f"bound {res['bound_ms']:.6f} ms ({by})")
     if not paths:
         return res
-    stage = staged_ones(shards, ids.device)
-    forced = {"direct": plan_for(shards, ids, staged=False)}
-    for coop in (0, 1):
-        p = shard_plan(ids.numel(), nbl, W, stage, staged=True, coop=coop)
-        forced[k13_path(p)] = p
+    forced = {"direct": plan_for(shards, ids, staged=False),
+              "staged": shard_plan(ids.numel(), nbl, W,
+                                   staged_ones(shards, ids.device),
+                                   staged=True)}
     res["paths"] = {}
     for label, p in forced.items():
         def bind(p=p):

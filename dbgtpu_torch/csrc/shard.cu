@@ -43,8 +43,9 @@
 //     (c) write: each id's row from the local shard or from the stage
 //         into out.
 //     Local ids never pass through the stage.  The passes run as a
-//     memset of the flags and three plain launches, or as the memset and
-//     one cooperative launch with two grid-wide barriers (plan.coop).
+//     memset of the flags and one cooperative launch with two grid-wide
+//     barriers between them (a few percent faster on the card than
+//     three plain launches, PERF.md "PR 13").
 // The write pass is the direct path's kernel with a second source.  A
 // warp takes a contiguous range of ids, 32 at a time: a lane loads one
 // id and finds its row, and the 32 rows, one contiguous run of out, are
@@ -85,7 +86,6 @@ struct ShardTable {
 // the host's plan (engine/shard.py ShardPlan, field for field)
 struct ShardPlan {
   int32_t staged;       // 0: the direct path
-  int32_t coop;         // staged passes in one cooperative launch
   int32_t remote_rows;  // stage rows: nb_local for each staged shard
   int32_t n_remote;     // staged shards
   // shard s's first stage row, or -1: its rows are read where they lie
@@ -227,25 +227,6 @@ __device__ __forceinline__ long long grid_warps() {
   return static_cast<long long>(gridDim.x) * kWarps;
 }
 
-__global__ void __launch_bounds__(kThreads)
-    mark_kernel(const __grid_constant__ ShardTable t,
-                const __grid_constant__ ShardPlan p,
-                const int32_t* __restrict__ ids, long long Q,
-                uint32_t* flags) {
-  mark_ids(t, p, ids, Q, flags,
-           static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x,
-           static_cast<long long>(gridDim.x) * blockDim.x);
-}
-
-template <class V>
-__global__ void __launch_bounds__(kThreads)
-    pull_kernel(const __grid_constant__ ShardTable t,
-                const __grid_constant__ ShardPlan p, const uint32_t* flags,
-                V* stage) {
-  pull_rows(t, p, flags, stage, global_warp(), grid_warps(),
-            threadIdx.x % 32);
-}
-
 template <class V>
 __global__ void __launch_bounds__(kThreads)
     write_kernel(const __grid_constant__ ShardTable t,
@@ -343,40 +324,28 @@ int launch(const ShardTable& t, const ShardPlan& p, const int32_t* ids,
   Card* card = nullptr;
   int err = card_of(&card);
   if (err) return err;
-  const bool coop = p.staged && p.coop;
   const void* kernel =
-      coop ? reinterpret_cast<const void*>(&staged_kernel<V>)
-           : reinterpret_cast<const void*>(&write_kernel<V>);
-  const int most = resident(card, kernel, 2 * coop + vec);
+      p.staged ? reinterpret_cast<const void*>(&staged_kernel<V>)
+               : reinterpret_cast<const void*>(&write_kernel<V>);
+  const int most = resident(card, kernel, 2 * p.staged + vec);
   if (most < 0) return -most;
   // the write pass: a warp per id at most, in one wave
-  const unsigned grid = coop ? most : blocks_for(Q * 32, most);
+  const unsigned grid = p.staged ? most : blocks_for(Q * 32, most);
   long long per = Q / (static_cast<long long>(grid) * kWarps);
   int extra = static_cast<int>(Q - per * grid * kWarps);
-  if (p.staged && p.remote_rows > 0) {
-    err = static_cast<int>(cudaMemsetAsync(
-        flags, 0, static_cast<size_t>(p.remote_rows) * sizeof(uint32_t), s));
-    if (err) return err;
-  }
-  if (coop) {
+  if (p.staged) {
+    if (p.remote_rows > 0) {
+      err = static_cast<int>(cudaMemsetAsync(
+          flags, 0, static_cast<size_t>(p.remote_rows) * sizeof(uint32_t),
+          s));
+      if (err) return err;
+    }
     void* args[] = {const_cast<ShardTable*>(&t), const_cast<ShardPlan*>(&p),
                     &ids, &Q, &flags, &stage, &out, &per, &extra};
     err = static_cast<int>(cudaLaunchCooperativeKernel(
         kernel, dim3(grid), dim3(kThreads), args, 0, s));
     if (err) return err;
     DBG_RETURN_LAUNCH_STATUS();
-  }
-  if (p.staged && p.remote_rows > 0) {
-    const long long full = static_cast<long long>(card->sms) *
-                           kMaxBlocksPerSm;
-    mark_kernel<<<blocks_for(Q, full), kThreads, 0, s>>>(t, p, ids, Q, flags);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    pull_kernel<V><<<blocks_for(static_cast<long long>(p.remote_rows) * 32,
-                                full),
-                     kThreads, 0, s>>>(t, p, flags, stage);
-    err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
   }
   const long long n = Q * (t.cols * 4 / static_cast<int>(sizeof(V)));
   if (n <= static_cast<long long>(most) * kThreads)
@@ -391,7 +360,8 @@ int launch(const ShardTable& t, const ShardPlan& p, const int32_t* ids,
 // the plan fits the table: stage rows inside [0, remote_rows), none on
 // the direct path, each staged shard listed where its rows start
 bool plan_fits(const ShardTable& t, const ShardPlan& p) {
-  if (p.remote_rows < 0 || p.n_remote < 0 || p.n_remote > t.n_shards ||
+  if ((p.staged != 0 && p.staged != 1) || p.remote_rows < 0 ||
+      p.n_remote < 0 || p.n_remote > t.n_shards ||
       static_cast<long long>(p.n_remote) * t.nb_local != p.remote_rows ||
       (!p.staged && p.n_remote != 0))
     return false;

@@ -72,17 +72,11 @@ def scan_rows_ref(table: torch.Tensor, shards: Sequence[torch.Tensor],
     return sharded_rows_ref(shards, h & (shards[0].shape[0] * len(shards) - 1))
 
 
-# the staged path's passes in one cooperative launch (1) or as plain
-# launches (0)
-STAGED_COOP = 0
-
-
 @dataclass(frozen=True)
 class ShardPlan:
     """How K13 answers a set of ids; csrc/shard.cu `ShardPlan`, field for
     field."""
     staged: int        # 0: the direct path, every row read where it lies
-    coop: int          # the staged passes in one cooperative launch
     remote_rows: int   # stage rows: nb_local for each staged shard
     stage_base: tuple  # per shard its first stage row, -1: read in place
     remote: tuple      # the staged shards, in stage order
@@ -98,8 +92,7 @@ class ShardPlan:
 
 
 def shard_plan(Q: int, nb_local: int, W: int, local: Sequence[bool],
-               staged: bool | None = None,
-               coop: int = STAGED_COOP) -> ShardPlan:
+               staged: bool | None = None) -> ShardPlan:
     """K13's path for Q ids over D = len(local) shards of nb_local rows of
     W words, `local[s]` saying whether shard s lies on the reading card.
 
@@ -115,27 +108,25 @@ def shard_plan(Q: int, nb_local: int, W: int, local: Sequence[bool],
     if staged is None:
         staged = bool(remote) and Q > nb_local * D
     if not staged:
-        return ShardPlan(staged=0, coop=0, remote_rows=0,
-                         stage_base=(-1,) * D, remote=())
+        return ShardPlan(staged=0, remote_rows=0, stage_base=(-1,) * D,
+                         remote=())
     base = [-1] * D
     for i, s in enumerate(remote):
         base[s] = i * nb_local
-    return ShardPlan(staged=1, coop=int(coop), remote_rows=len(remote) *
-                     nb_local, stage_base=tuple(base), remote=remote)
+    return ShardPlan(staged=1, remote_rows=len(remote) * nb_local,
+                     stage_base=tuple(base), remote=remote)
 
 
 def plan_for(shards: Sequence[torch.Tensor], b: torch.Tensor,
-             staged: bool | None = None,
-             coop: int = STAGED_COOP) -> ShardPlan:
+             staged: bool | None = None) -> ShardPlan:
     """`shard_plan` for ids `b` read on b's card."""
     nbl, W = shards[0].shape
     return shard_plan(b.numel(), nbl, W, [s.device == b.device
-                                           for s in shards], staged, coop)
+                                           for s in shards], staged)
 
 
 def _plan_c(plan: ShardPlan) -> build.ShardPlanC:
-    c = build.ShardPlanC(staged=plan.staged, coop=plan.coop,
-                         remote_rows=plan.remote_rows,
+    c = build.ShardPlanC(staged=plan.staged, remote_rows=plan.remote_rows,
                          n_remote=len(plan.remote))
     for s in range(build.MAX_SHARDS):
         c.stage_base[s] = (plan.stage_base[s] if s < len(plan.stage_base)
@@ -202,14 +193,13 @@ def sharded_rows_launch(shards: Sequence[torch.Tensor], b: torch.Tensor,
     return launch, out
 
 
-def sharded_rows(shards: Sequence[torch.Tensor], b: torch.Tensor,
-                 plan: ShardPlan | None = None) -> torch.Tensor:
-    """K13 on b's device: the kernel on CUDA (by `plan`, default the
-    host's plan), the plain version on the CPU, an error anywhere
-    else."""
+def sharded_rows(shards: Sequence[torch.Tensor],
+                 b: torch.Tensor) -> torch.Tensor:
+    """K13 on b's device: the kernel on CUDA (by the host's plan), the
+    plain version on the CPU, an error anywhere else."""
     if b.device.type == "cpu":
         return sharded_rows_ref(shards, b)
-    launch, out = sharded_rows_launch(shards, b, plan)
+    launch, out = sharded_rows_launch(shards, b)
     if b.numel():
         launch()
         build.count("sharded_rows")

@@ -160,8 +160,8 @@ class ShardTableC(ctypes.Structure):
 class ShardPlanC(ctypes.Structure):
     """csrc/shard.cu ShardPlan (engine/shard.py ShardPlan)."""
     _fields_ = [
-        ("staged", ctypes.c_int32), ("coop", ctypes.c_int32),
-        ("remote_rows", ctypes.c_int32), ("n_remote", ctypes.c_int32),
+        ("staged", ctypes.c_int32), ("remote_rows", ctypes.c_int32),
+        ("n_remote", ctypes.c_int32),
         ("stage_base", ctypes.c_int32 * MAX_SHARDS),
         ("remote", ctypes.c_int32 * MAX_SHARDS),
     ]

@@ -134,8 +134,8 @@ def test_staged_schedule_matches_ref_and_jax_sharded_rows(D):
             assert plan.staged and plan.remote_rows == (D - 1) * nbl
             assert reader not in plan.remote and len(plan.remote) == D - 1
             _check_staged(shards, bt, plan, np.asarray(w))
-        # the wrapper on CPU tensors takes the plain version, whatever plan
-        assert torch.equal(sharded_rows(shards, bt, plan),
+        # the wrapper on CPU tensors takes the plain version
+        assert torch.equal(sharded_rows(shards, bt),
                            sharded_rows_ref(shards, bt))
 
 
@@ -191,8 +191,6 @@ def test_plan_threshold(D):
     assert shard_plan(10 * nbl * D, nbl, W, [True] * D).direct
     assert shard_plan(1, nbl, W, local, staged=True).staged
     assert shard_plan(10 * nbl * D, nbl, W, local, staged=False).direct
-    assert shard_plan(nbl * D + 1, nbl, W, local, coop=1).coop == 1
-    assert shard_plan(nbl * D, nbl, W, local, coop=1).coop == 0
 
 
 def _edge_cases(rng, nb, D):
@@ -241,11 +239,11 @@ def test_plan_for_cpu_and_the_c_struct():
     assert plan_for(shards, torch.zeros(1000, dtype=torch.int32)).direct
     plan = shard_plan(1000, 16, 8, [False, True, False, False])
     c = _plan_c(plan)
-    assert ctypes.sizeof(build.ShardPlanC) == 4 * (4 + 2 * build.MAX_SHARDS)
+    assert ctypes.sizeof(build.ShardPlanC) == 4 * (3 + 2 * build.MAX_SHARDS)
     # csrc/shard.cu ShardArgs: the table, the plan, then six 8-byte fields
-    assert ctypes.sizeof(build.ShardArgsC) == (
-        ctypes.sizeof(build.ShardTableC) + ctypes.sizeof(build.ShardPlanC)
-        + 6 * 8)
-    assert (c.staged, c.coop, c.remote_rows, c.n_remote) == (1, 0, 48, 3)
+    head = ctypes.sizeof(build.ShardTableC) + ctypes.sizeof(build.ShardPlanC)
+    assert build.ShardArgsC.ids.offset == -(-head // 8) * 8
+    assert ctypes.sizeof(build.ShardArgsC) == build.ShardArgsC.ids.offset + 48
+    assert (c.staged, c.remote_rows, c.n_remote) == (1, 48, 3)
     assert list(c.stage_base) == [0, -1, 16, 32] + [-1] * 4
     assert list(c.remote) == [0, 2, 3] + [-1] * 5
