@@ -46,19 +46,20 @@
 //     memset of the flags and one cooperative launch with two grid-wide
 //     barriers between them (a few percent faster on the card than
 //     three plain launches, PERF.md "PR 13").
-// The write pass is the direct path's kernel with a second source.  A
-// warp takes a contiguous range of ids, 32 at a time: a lane loads one
-// id and finds its row, and the 32 rows, one contiguous run of out, are
-// copied with each lane holding kUnroll 16-byte loads in flight before
-// it stores them, neighbouring lanes on neighbouring vectors (a warp
-// holding one row load at a time left 96-word rows latency-bound).  Its
-// grid is what the SMs hold at once, since the ranges are fixed by it.
-// Where a thread per vector of out fits that one wave (the upload check's
-// few ids), the write pass is a thread per vector instead
-// (vector_kernel): latency sets the pace there, and the shorter kernel
-// has less of it.  out is written with streaming stores, so that the 1.2 GB of a batch's
-// rows do not push the stage and the local shard (a few MB, read again
-// and again) out of L2.
+// The write pass (write_rows) is the same loop on both paths, the staged
+// one with a second source.  A warp takes a contiguous range of ids, 32
+// at a time: a lane loads one id and finds its row, and the 32 rows, one
+// contiguous run of out, are copied with each lane holding kUnroll
+// 16-byte loads in flight before it stores them, neighbouring lanes on
+// neighbouring vectors (a warp holding one row load at a time left
+// 96-word rows latency-bound).  Its grid is what the SMs hold at once,
+// since the ranges are fixed by it.  Where a thread per vector of out
+// fits that one wave on the direct path (the upload check's few ids), a
+// thread per vector copies it instead (vector_kernel): latency sets the
+// pace there, and the shorter kernel has less of it.  out is written
+// with streaming stores, so that the 1.2 GB of a batch's rows do not push
+// the stage and the local shard (a few MB, read again and again) out of
+// L2.
 // Shard rows are read with __ldg (the non-coherent path), as K2 and K3
 // read them: the tables are read-only while a kernel runs.  Flags and
 // stage, written in the same call, are read through L2 (__ldcg).
@@ -175,8 +176,8 @@ __device__ void pull_rows(const ShardTable& t, const ShardPlan& p,
 
 // (c) warp w copies the rows of its range of ids into out: `per` ids,
 // one more for the first `extra` warps (the grid's split of Q, made on
-// the host), 32 ids at a time: lane l loads id l of the chunk and finds its row
-// (shfl'd to the lanes that copy it); the chunk's rows are one
+// the host), 32 ids at a time: lane l loads id l of the chunk and finds
+// its row (shfl'd to the lanes that copy it); the chunk's rows are one
 // contiguous run of n * per_row vectors of out, which the lanes copy
 // kUnroll vectors each at a time, loads first, then stores
 template <class V>
@@ -227,6 +228,7 @@ __device__ __forceinline__ long long grid_warps() {
   return static_cast<long long>(gridDim.x) * kWarps;
 }
 
+// the direct path's write pass (its plan stages no shard)
 template <class V>
 __global__ void __launch_bounds__(kThreads)
     write_kernel(const __grid_constant__ ShardTable t,
@@ -238,21 +240,28 @@ __global__ void __launch_bounds__(kThreads)
              threadIdx.x % 32);
 }
 
-// the write pass where a thread per vector of out fits one wave (the
+// the direct path where a thread per vector of out fits one wave (the
 // upload check's few ids): latency sets the pace there, and the shortest
-// kernel has the least of it
+// kernel, with the fewest parameters, has the least of it
 template <class V>
 __global__ void __launch_bounds__(kThreads)
     vector_kernel(const __grid_constant__ ShardTable t,
-                  const __grid_constant__ ShardPlan p,
-                  const int32_t* __restrict__ ids, int n, const V* stage,
+                  const int32_t* __restrict__ ids, int n,
                   V* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int per_row = vectors_per_row<V>(t);
   const int q = i / per_row;
-  const unsigned long long row = row_of(t, p, __ldg(ids + q), stage);
-  out[i] = row ? load_row<V>(row, i - q * per_row) : V{};
+  const int32_t b = __ldg(ids + q);
+  V x{};
+  if (b >= 0 && b < t.nb_local * t.n_shards) {
+    const int s = b / t.nb_local;
+    x = __ldg(reinterpret_cast<const V*>(
+                  t.shards[s] + static_cast<size_t>(b - s * t.nb_local) *
+                                    t.cols) +
+              (i - q * per_row));
+  }
+  out[i] = x;
 }
 
 // the three passes in one cooperative launch (flags zeroed before it)
@@ -350,10 +359,10 @@ int launch(const ShardTable& t, const ShardPlan& p, const int32_t* ids,
   const long long n = Q * (t.cols * 4 / static_cast<int>(sizeof(V)));
   if (n <= static_cast<long long>(most) * kThreads)
     vector_kernel<V><<<blocks_for(n, most), kThreads, 0, s>>>(
-        t, p, ids, static_cast<int>(n), stage, out);
+        t, ids, static_cast<int>(n), out);
   else
-    write_kernel<V><<<grid, kThreads, 0, s>>>(t, p, ids, Q, stage, out, per,
-                                              extra);
+    write_kernel<V><<<grid, kThreads, 0, s>>>(t, p, ids, Q, nullptr, out,
+                                              per, extra);
   DBG_RETURN_LAUNCH_STATUS();
 }
 
