@@ -774,18 +774,22 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                 3 + (OPS_RCB + 2 if n_masks == 1 else 0)))
 
     def member_alone(ix_, exhaustive):
-        """K2 alone on chain c's batch, against the wrapper there."""
+        """K2 alone on chain c's batch, against the wrapper there; on a
+        sharded index by its plan's path, launched through measure.on
+        (a baseline's K2 reads the ranges in place)."""
+        wrap = on_any if ix_.st_shards else (lambda prep: prep)
+
         def alone(c):
             if exhaustive:
                 want = c.xk if ix_ is ix else inter(ix_, c.sk, c.lens, L=L,
                                                     k1=k1)
-                return (lambda: member_launch(ix_, c.sk, c.lens, L=L, k1=k1,
-                                              exhaustive=True),
+                return (wrap(lambda: member_launch(
+                            ix_, c.sk, c.lens, L=L, k1=k1, exhaustive=True)),
                         lambda x: [(x, want)])
             want = c.mk if ix_ is ix else member(ix_, c.sk, c.lens, L=L,
                                                  k1=k1)
-            return (lambda: member_launch(ix_, c.sk, c.lens, L=L, k1=k1,
-                                          exhaustive=False),
+            return (wrap(lambda: member_launch(ix_, c.sk, c.lens, L=L, k1=k1,
+                                               exhaustive=False)),
                     lambda r: list(zip(r, want)))
         return alone
 
@@ -1101,10 +1105,18 @@ def compare_edge_batch(device):
             px = sx if probe else dataclasses.replace(
                 sx, pt_rows=sx.pt_rows[:0], pt_shards=())
             m1, m2 = member(px, sk, lens, L=L, k1=k - 1)
-            pairs = list(zip((m1, m2), member_ref(px, sk, lens, L=L,
-                                                  k1=k - 1)))
+            want = member_ref(px, sk, lens, L=L, k1=k - 1)
+            pairs = list(zip((m1, m2), want))
             pairs += walks_pairs(greedy_walk(px, sk, m1, m2, lens, **kw),
                                  walk_ref(px, sk, m1, m2, lens, **kw))
+            # K2's staged path, forced (ranges 1.. staged as if remote),
+            # in both modes, the stage's unmarked rows poisoned
+            if D > 1:
+                pairs += list(zip(staged_member(px, sk, lens, L=L,
+                                                k1=k - 1)[0], want))
+                pairs.append((staged_member(px, sk, lens, L=L, k1=k - 1,
+                                            exhaustive=True)[0],
+                              inter_ref(px, sk, lens, L=L, k1=k - 1)))
             torch.cuda.synchronize()
             err = max(_max_abs_err(g, w) for g, w in pairs)
             if err:
@@ -1112,13 +1124,14 @@ def compare_edge_batch(device):
                     f"edge {case.name}: K2 / K3 on the index cut into {D} "
                     f"ranges, {'probe' if probe else 'probe-less'} != plain "
                     f"(max abs err {err})")
-            compared += 2
+            compared += 2 + 2 * (D > 1)
         log(f"[edge] {case.name} (k={k}, L={L}, Lk={case.Lk}, {B} reads, "
             f"{len(case.unitigs)} unitigs, lens {int(lens_np.min())}-"
             f"{int(lens_np.max())}, N {bool(sk.has_n.item())}): K2 member "
             f"and inter ({', '.join(sorted(branches))}; scan, window 4, "
             f"mphf; member also on the scan index cut into {D} ranges, "
-            f"with K3 greedy_walk there), K5 (scan, mphf, MPHF anchors "
+            f"with K3 greedy_walk there, and by its staged path, ranges "
+            f"1.. staged, the stage poisoned), K5 (scan, mphf, MPHF anchors "
             f"beside scan; E = 1, 2, "
             f"5), K3 greedy_walk and walk_inits and K6 exhaustive_dfs "
             f"(with and without -i; scan, mphf, pool chunks; deepest K6 "
@@ -1665,6 +1678,24 @@ def staged_ones(shards, device):
     return local if not all(local) else [i == 0 for i in range(len(local))]
 
 
+def staged_member(ix, sk, lens, *, L, k1, exhaustive=False, local=None):
+    """K2 on the sharded index `ix` by its staged path, forced, staging
+    the ranges `local` names False (default `staged_ones`), the stage
+    filled with 0x5A bytes before the launch: K2 reading a stage row
+    that its stage pass did not mark reads the poison, and differs from
+    the plain version.  Not counted.  -> (outputs, build.Launch, plan)"""
+    from dbgtpu_torch.engine.member import member_launch, plan_for
+
+    local = (staged_ones(ix.st_shards, sk.rep1.device) if local is None
+             else local)
+    plan = plan_for(ix, sk, staged=True, local=local)
+    launch, out = member_launch(ix, sk, lens, L=L, k1=k1,
+                                exhaustive=exhaustive, plan=plan)
+    launch.tensors[-1].fill_(0x5A5A5A5A)
+    launch()
+    return out, launch, plan
+
+
 def sharded_rows_case(name, shards, ids, whole, paths: bool = False) -> dict:
     """K13 on `shards` for the global bucket ids `ids` (int32, inside the
     table, on the card that reads) against its plain version and the
@@ -1801,10 +1832,12 @@ def compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
     shards on one card and on the real cards), and on the sparse shape
     (`compare_sparse_shape`); K2 (both branches) and K3 greedy_walk
     against theirs on the survey batch (compare_kernels, timed on 8
-    shards on one card and on the real cards).  With `--baseline-csrc`
-    K13 is timed in turns with the older tree's; K2 and K3 are not (an
-    older tree's K2 and K3 may read no sharded index).  Returns the JSON
-    line's sharded_rows, member@shard and greedy_walk@shard results."""
+    shards on one card and on the real cards; K2 by its plan's path),
+    and there K2 by each path forced (`member_paths`).  With
+    `--baseline-csrc` K13, K2 and K3 are timed in turns with the older
+    tree's (whose K2 reads the ranges in place: measure.OLDER_ENTRIES).
+    Returns the JSON line's sharded_rows, member@shard and
+    greedy_walk@shard results."""
     import torch
 
     from dbgtpu_torch.dist.mesh import make_mesh
@@ -1863,32 +1896,239 @@ def compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
                 out[what, D, where, shape] = r
         perpos = dataclasses.replace(sx, pt_rows=sx.pt_rows[:0],
                                      pt_shards=())
-        # an older tree's K2 and K3 may read no sharded index
-        saved, BASELINE["lib"] = BASELINE["lib"], None
-        try:
-            res = compare_kernels(sx, words, nmbits, lens, mode="greedy",
-                                  k=k, m=m, effort=effort, L=L, pmax=pmax,
-                                  timed=timed, perpos_ix=perpos,
-                                  more=batches[1:], remote_share=share)
-        finally:
-            BASELINE["lib"] = saved
+        res = compare_kernels(sx, words, nmbits, lens, mode="greedy",
+                              k=k, m=m, effort=effort, L=L, pmax=pmax,
+                              timed=timed, perpos_ix=perpos,
+                              more=batches[1:], remote_share=share)
         for name in ("member", "member (per-position)", "greedy_walk"):
             r = res[name]
             log(f"[shard] {name} on {tag}: == plain version (max abs err "
                 f"{r['max_abs_err']}, tolerance 0)" + (
-                    f"; alone {r['alone_ms']:.4f} ms, wrapper "
-                    f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
-                    f"{r['bound_ms']:.4f} ms ({r['bound_by']})"
-                    if timed else ""))
+                    f"; alone {r['alone_ms']:.4f} ms"
+                    + (f" (baseline {r['baseline_alone_ms']:.4f} ms; turns "
+                       "baseline, this, this, baseline: " + ", ".join(
+                           f"{t:.4f}" for t in r["alone_turns_ms"]) + ")"
+                       if "baseline_alone_ms" in r else "")
+                    + f", wrapper {r['ms']:.4f} ms, plain "
+                    f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                    f"({r['bound_by']})" if timed else ""))
+        if timed:
+            res["member paths"] = member_paths(tag, sx, perpos, words,
+                                               nmbits, lens, L=L, k1=k1)
         out[D, where] = res
     for where, devices in ([("one card", [device] * 4)]
                            + layouts[len(SHARD_COUNTS):]):
         out["sparse", where] = compare_sparse_shape(devices, device, where)
+        out["member sparse", where] = member_sparse_shape(
+            ix, sk, lens, devices, where, L=L, k1=k1)
     D = max(SHARD_COUNTS)
     return {"sharded_rows": out["junction", D, "one card", "upload check"],
             "member": out[D, "one card"]["member"],
             "greedy_walk": out[D, "one card"]["greedy_walk"],
             "all": out}
+
+
+def member_paths(tag, sx, perpos, words, nmbits, lens, *, L, k1) -> dict:
+    """K2 on a sharded index by each path forced, on the survey batch's
+    closure-probe path (`sx`) and per-position path (`perpos`, the same
+    index without its probe table): direct, and staged (the ranges on
+    other cards, or with every range on this card ranges 1.. as if
+    remote), each equal to the plain version, the staged one with its
+    stage poisoned (`staged_member`), and timed alone (ALONE_LAUNCHES
+    back to back, the median of ALONE_REPS runs); beside them the path
+    the plan takes, and of the staged run the distinct rows its stage
+    pass marked (read back from its flags) and the bytes they pull."""
+    import torch
+
+    from dbgtpu_torch.engine.member import member_launch, member_ref, plan_for
+    from dbgtpu_torch.engine.read_scan import read_scan
+
+    sk = read_scan(words, nmbits, lens, L=L, k1=k1)
+    out = {}
+    for path, ix in (("probe", sx), ("per-position", perpos)):
+        want = member_ref(ix, sk, lens, L=L, k1=k1)
+        plan = plan_for(ix, sk)
+        table = "probe" if path == "probe" else "scan"
+        cols = (ix.pt_rows if path == "probe" else ix.st_fused).shape[1]
+        res = {"plan": "direct" if getattr(plan, table).direct
+               else "staged"}
+        for label in ("direct", "staged"):
+            if label == "staged":
+                got, launch, p = staged_member(ix, sk, lens, L=L, k1=k1)
+            else:
+                p = plan_for(ix, sk, staged=False)
+                launch, got = member_launch(ix, sk, lens, L=L, k1=k1,
+                                            exhaustive=False, plan=p)
+                launch()
+            torch.cuda.synchronize()
+            err = max(_max_abs_err(g, w) for g, w in zip(got, want))
+            if err:
+                raise AssertionError(f"[shard] member ({path} path) on {tag},"
+                                     f" {label} (forced) != plain version "
+                                     f"(max abs err {err})")
+            r = dict(alone_ms=cuda_ms(launch, ALONE_REPS,
+                                      launches=ALONE_LAUNCHES))
+            torch.cuda.synchronize()
+            if _max_abs_err(got[0], want[0]) or _max_abs_err(got[1], want[1]):
+                raise AssertionError(f"[shard] member ({path} path) on {tag},"
+                                     f" {label}: its timed launches differ")
+
+            def bind(p=p):
+                go, out = member_launch(ix, sk, lens, L=L, k1=k1,
+                                        exhaustive=False, plan=p)
+                return go, out
+
+            r["graph_ms"], gout = graph_ms(bind, ALONE_REPS, ALONE_LAUNCHES)
+            if max(_max_abs_err(g, w) for g, w in zip(gout, want)):
+                raise AssertionError(f"[shard] member ({path} path) on {tag},"
+                                     f" {label} from a graph != plain version")
+            r["device_split_ms"] = device_split(launch)
+            if label == "staged":
+                # the stage pass's parts by the graph timer: the flags'
+                # memset and the mark (passes 1), then the pull (3), then
+                # K2 (7), each the difference to the one before
+                upto = {q: graph_ms(lambda q=q: member_launch(
+                    ix, sk, lens, L=L, k1=k1, exhaustive=False, plan=p,
+                    passes=q), ALONE_REPS, ALONE_LAUNCHES)[0]
+                    for q in (1, 3)}
+                r["parts_ms"] = {"memset and mark": upto[1],
+                                 "pull": upto[3] - upto[1],
+                                 "K2": r["graph_ms"] - upto[3]}
+            if label == "staged":
+                sp = getattr(p, table)
+                rows = int((launch.tensors[-2][: sp.remote_rows] != 0).sum())
+                r.update(staged_rows=rows, stage_bytes=rows * cols * 4,
+                         remote_rows=sp.remote_rows, staged_ranges=list(
+                             sp.remote))
+            res[label] = r
+        log(f"[shard] member ({path} path) on {tag}: the plan takes "
+            f"{res['plan']}; forced, == plain version (tolerance 0; staged "
+            f"with its unmarked stage rows poisoned): "
+            + "; ".join(f"{label} alone {res[label]['alone_ms']:.4f} ms, "
+                        f"graph {res[label]['graph_ms']:.4f} ms, device "
+                        "split (torch.profiler, ms a call) " + ", ".join(
+                            f"{k} {v:.4f}" for k, v in
+                            res[label]['device_split_ms'].items())
+                        for label in ("direct", "staged"))
+            + "; staged parts (graph, ms) " + ", ".join(
+                f"{k} {v:.4f}" for k, v in res["staged"]["parts_ms"].items())
+            + f"; {res['staged']['staged_rows']} distinct rows of "
+            f"{res['staged']['remote_rows']} staged "
+            f"({res['staged']['stage_bytes']} B; ranges "
+            f"{res['staged']['staged_ranges']}"
+            + (", on this card" if all(s.device == sk.rep1.device
+                                       for s in ix.st_shards) else "")
+            + ")")
+        out[path] = res
+    return out
+
+
+SPARSE_ST_ROWS = 131_072      # scale1M's junction table: 168 MB
+
+
+# the kernels of K2's two paths, as named in a torch.profiler trace
+K2_PASSES = ("member_stage_kernel", "member_probe_kernel",
+             "member_scan_kernel", "emset")
+
+
+def device_split(launch, calls: int = 20) -> dict:
+    """Mean device ms a call of `launch` spends in each kernel (and
+    memset) it runs, from one torch.profiler run of `calls` calls, by the
+    names of K2_PASSES."""
+    import torch
+
+    from dbgtpu_torch.kernels.measure import device_busy
+
+    launch()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            launch()
+        torch.cuda.synchronize()
+    _, _, by_name = device_busy(prof, time.monotonic() - t0)
+    out = {}
+    for name, (ms, _) in by_name.items():
+        key = next((k for k in K2_PASSES if k in name), name[:32])
+        out[key] = out.get(key, 0.0) + ms / calls
+    return out
+
+
+def member_sparse_shape(ix, sk, lens, devices, where, *, L, k1) -> dict:
+    """K2 at scale1M's table shapes: seeded int32 tables of [SPARSE_ROWS,
+    SPARSE_W] (probe) and [SPARSE_ST_ROWS, 320] (junction) in place of
+    the survey index's, cut into one range per device of `devices`, read
+    on the first by the survey batch `sk`: the probe path (the probe
+    table's keys repeat about once a batch) and, without the probe
+    table, the per-position path (each junction row looked up ~20
+    times).  Each against the plain version, exact; timed alone by the
+    plan's path (in turns with a baseline's K2, which reads in place)
+    and by each path forced (`staged_member`: the stage poisoned).
+    Random rows hold almost none of the batch's keys, so a probe reads
+    its row's key words and rarely more."""
+    import torch
+
+    from dbgtpu_torch.engine.member import (
+        member, member_launch, member_ref, plan_for,
+    )
+
+    device = devices[0]
+    g = torch.Generator(device=device).manual_seed(SPARSE_SEED + 1)
+    D = len(devices)
+
+    def cut(rows, cols):
+        whole = torch.randint(0, 2**31 - 1, (rows, cols), generator=g,
+                              device=device, dtype=torch.int32)
+        return tuple(c.to(d).contiguous() for c, d in zip(whole.chunk(D),
+                                                          devices))
+
+    pt, st = cut(SPARSE_ROWS, SPARSE_W), cut(SPARSE_ST_ROWS, 320)
+    full = dataclasses.replace(ix, pt_rows=pt[0], pt_shards=pt,
+                               st_fused=st[0], st_shards=st)
+    tag = (f"sparse [{SPARSE_ROWS}, {SPARSE_W}] / [{SPARSE_ST_ROWS}, 320] "
+           f"tables, {D} shards on {where}")
+    out = {}
+    for path, sx in (("probe", full), ("per-position", dataclasses.replace(
+            full, pt_rows=full.pt_rows[:0], pt_shards=()))):
+        want = member_ref(sx, sk, lens, L=L, k1=k1)
+        got = member(sx, sk, lens, L=L, k1=k1)
+        staged, _, _ = staged_member(sx, sk, lens, L=L, k1=k1)
+        torch.cuda.synchronize()
+        err = max(_max_abs_err(a, b) for a, b in zip(got + staged,
+                                                     want + want))
+        if err:
+            raise AssertionError(f"[shard] member ({path} path) on {tag} != "
+                                 f"plain version (max abs err {err})")
+        plan = plan_for(sx, sk)
+        r = dict(plan_probe="direct" if plan.probe.direct else "staged",
+                 plan_scan="direct" if plan.scan.direct else "staged")
+        r.update(time_alone(f"member {path} {tag}", [(on_any(
+            lambda: member_launch(sx, sk, lens, L=L, k1=k1,
+                                  exhaustive=False)),
+            lambda o: list(zip(o, want)))]))
+        for label in ("direct", "staged"):
+            if label == "staged":
+                _, launch, _ = staged_member(sx, sk, lens, L=L, k1=k1)
+            else:
+                launch, _ = member_launch(sx, sk, lens, L=L, k1=k1,
+                                          exhaustive=False,
+                                          plan=plan_for(sx, sk,
+                                                        staged=False))
+            r[f"{label}_alone_ms"] = cuda_ms(launch, ALONE_REPS,
+                                             launches=ALONE_LAUNCHES)
+        log(f"[shard] member ({path} path) on {tag}: == plain version "
+            f"(tolerance 0; staged, forced, with its stage poisoned); plan: "
+            f"probe table {r['plan_probe']}, junction table "
+            f"{r['plan_scan']}; by the plan alone {r['alone_ms']:.4f} ms"
+            + (f" (baseline K2 {r['baseline_alone_ms']:.4f} ms; turns "
+               "baseline, this, this, baseline: " + ", ".join(
+                   f"{t:.4f}" for t in r["alone_turns_ms"]) + ")"
+               if "baseline_alone_ms" in r else "")
+            + f"; forced direct {r['direct_alone_ms']:.4f} ms, staged "
+            f"{r['staged_alone_ms']:.4f} ms")
+        out[path] = r
+    return out
 
 
 def compare_sparse_shape(devices, device, where) -> dict:
@@ -2409,6 +2649,7 @@ def main(argv=None) -> int:
     import numpy as np
 
     from dbgtpu_torch import cli, native
+    from dbgtpu_torch.engine import member as member_mod
     from dbgtpu_torch.engine.index import index_tensors
     from dbgtpu_torch.engine.runner import (
         _bucket_len, _pmax_cap, _pmax_for, get_device_index,
@@ -2992,6 +3233,8 @@ def main(argv=None) -> int:
         # each table at upload, one launch per card and table
         n_cards = torch.cuda.device_count()
         mesh_flag = "-1" if n_cards > 1 else "1"
+        k2_paths = member_mod.calls
+        k2_paths.update(direct=0, staged=0)
         paths_b, na_b, summ, shard_launches = cli_run(
             "scan", "greedy", ["--mesh", mesh_flag, "--shard-index"],
             also=("sharded_rows",))
@@ -3003,13 +3246,21 @@ def main(argv=None) -> int:
             raise AssertionError(f"[shard-index] sharded_rows launched "
                                  f"{shard_launches['sharded_rows']} times for "
                                  f"{len(held)} cards and 2 tables")
+        # K2 by its plan's path: staged with ranges on other cards (a
+        # share of the survey batch on each), direct on a mesh of one
+        if (sum(k2_paths.values()) != shard_launches["member"]
+                or bool(k2_paths["staged"]) != (len(held) > 1)
+                or (len(held) > 1 and k2_paths["direct"])):
+            raise AssertionError(f"[shard-index] K2's calls by path "
+                                 f"{k2_paths} on {len(held)} cards")
         log(f"[shard-index] ran --mesh {mesh_flag} --shard-index ("
             + ("every local card" if n_cards > 1 else "one card: a mesh of "
                "one device, the tables as one range")
             + f"): bytes == the run without a mesh; index bytes each card "
             f"holds {held} (replicated: {summ['index_hbm_bytes']['total']} "
             f"B, hbm_report {summ['index_hbm_bytes']}); launches "
-            f"{shard_launches}; align_seconds {summ['align_seconds']}")
+            f"{shard_launches}, K2's by path {dict(k2_paths)}; "
+            f"align_seconds {summ['align_seconds']}")
         for flags in (["-G"], ["-b"], ["--index-layout", "mphf"]):
             argv = ["-r", str(td / "r4096.fa"), "-k", str(k), "-g", str(uf),
                     "-f", str(td / "refused_paths"), "-a",
@@ -3092,6 +3343,16 @@ def main(argv=None) -> int:
                 extra.setdefault("batch", {})[label] = {k: b[k] for k in (
                     "q", "w", "d", "path", "alone_ms", "ms", "plain_ms",
                     "bound_ms", "library_ms")}
+        elif base == "member":
+            # K2 by its plan's path and by each path forced, on 8 ranges
+            # on one card and over the cards
+            for key, res in shard_results["all"].items():
+                if len(key) == 2 and "member paths" in res:
+                    extra.setdefault("paths", {})[
+                        f"{key[0]} shards on {key[1]}"] = dict(
+                            res["member paths"], by_plan_alone_ms=res[
+                                "member"]["alone_ms"],
+                            bound_ms=res["member"]["bound_ms"])
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=shard_launches[base],

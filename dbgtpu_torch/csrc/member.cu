@@ -47,36 +47,44 @@
 //
 // Under --shard-index the probe table and the scan table are cut over
 // the cards of a mesh: paths (a) and (b) find a key's row through
-// common.cuh pt_row / st_row, which read another card's range through
-// its peer pointer (dbgtpu's _closure_member and _st_member read them
-// through _sharded_rows, core.py:498-503, :420-424).  The __ldg vector
-// loads read peer memory as they read local memory; the chip run holds
-// both paths on an index cut over real cards equal to the plain version.
+// common.cuh pt_row / st_row, which read shard s's range through
+// pt_shards[s] / st_shards[s] (dbgtpu's _closure_member and _st_member
+// read them through _sharded_rows, core.py:498-503, :420-424).  Two ways
+// to fill those pointers, chosen on the host before the launch
+// (engine/member.py member_plan):
+//   direct: the Index as uploaded, another card's range through its peer
+//     pointer.  A peer read is not cached in this card's L2, so a remote
+//     row crosses NVLink once per probe of it (about 28 times a survey
+//     batch on 4 cards).  Taken with every range on this card, and where
+//     the keys repeat too little for a stage to pay.
+//   staged (dbg_member_staged, shard.cu): a stage pass first copies each
+//     remote row that the batch's keys hit, once, into a stage on this
+//     card, and K2 then runs on its own copy of the Index whose remote
+//     pt_shards / st_shards point into the stage.  The kernels below do
+//     not change: scan_row's arithmetic finds the stage row where it
+//     found the remote one.  What they share with the stage pass is in
+//     member.cuh (the batch's path, each window's probe position, each
+//     position's keys), so that the pass marks exactly the rows they
+//     read: a key it missed would read a stale stage row, not fail.
+// The __ldg vector loads read peer memory and the stage as they read the
+// local range; the chip run holds both paths on an index cut over real
+// cards (and the staged one with ranges of one card staged as if remote,
+// the stage's unmarked rows poisoned) equal to the plain version.
+#include "member.cuh"
 #include "mphf.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
-struct Args {
-  const int64_t* rep1;
-  const uint8_t* le1;
-  const int64_t* rep2;
-  const int64_t* bug;
-  int exhaustive;
-  const uint32_t* rwf;
-  int RWr;
-  const int32_t* lens;
-  int B, L, k1, Lk;
-  uint8_t* member1;
-  uint8_t* member2;
-};
+using Args = dbg::MemberArgs;
+using dbg::PosKeys;
+using dbg::pos_keys;
 
-// the path of the batch, read on the device: (a) closure probes unless
-// the batch holds an N or there is no probe table
+// the path of the batch (member.cuh member_probes)
 __device__ __forceinline__ bool probes(const dbg::Index& ix,
                                        const int32_t* has_n) {
-  return ix.pt_nb > 0 && *has_n == 0;
+  return dbg::member_probes(ix.pt_nb, has_n);
 }
 
 // Items t = 0 .. n-1 in whole warps: each warp takes 32 consecutive
@@ -97,15 +105,14 @@ __global__ void __launch_bounds__(kThreads)
                         const int32_t* __restrict__ has_n) {
   if (!probes(ix, has_n)) return;
   const int S = ix.pt_slots;
-  const int W = ix.pt_cols == 4 * S ? 4 : 3;
+  const int W = dbg::probe_window(ix.pt_cols, S);
   const uint32_t nW = (a.Lk + W - 1) / W;
   for_items(a.B * nW, [&](uint32_t t, bool in_grid) {
-    const int b = in_grid ? static_cast<int>(t / nW) : 0;
-    const int i0 = in_grid ? W * static_cast<int>(t - b * nW) : 0;
-    const int last_valid = a.lens[b] - a.k1;   // positions i <= last_valid
-    const bool live = in_grid && i0 <= last_valid;
-    const int p = min(i0 + 1, a.Lk - 1);
-    const size_t row0 = static_cast<size_t>(b) * a.Lk;
+    const dbg::Window win = dbg::probe_window_at(a, t, nW, W, in_grid);
+    const int b = win.b, i0 = win.i0, p = win.p;
+    const int last_valid = win.last_valid;
+    const bool live = win.live;
+    const size_t row0 = win.row0;
     uint32_t qhi = 0, qlo = 0;
     const uint32_t* row = ix.pt;
     if (live) {
@@ -169,34 +176,6 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   });
-}
-
-// (b) the keys of position t: rep1 / rep2, or in exhaustive mode
-// canonical(bug, rcb(bug)); valid = i <= len - k1
-struct PosKeys {
-  bool valid, need2;
-  uint64_t key1, key2;
-};
-
-__device__ __forceinline__ PosKeys pos_keys(const Args& a, uint32_t t,
-                                            bool in_grid) {
-  PosKeys pk{false, false, 0, 0};
-  if (!in_grid) return pk;
-  const int b = static_cast<int>(t / a.Lk);
-  const int i = static_cast<int>(t - b * static_cast<uint32_t>(a.Lk));
-  pk.valid = i <= a.lens[b] - a.k1;
-  if (!pk.valid) return pk;
-  if (a.exhaustive) {
-    const uint64_t v = static_cast<uint64_t>(a.bug[t]);
-    const uint64_t rv = dbg::rcb(v, a.k1);
-    pk.key1 = v <= rv ? v : rv;
-  } else {
-    pk.key1 = static_cast<uint64_t>(a.rep1[t]);
-    pk.key2 = static_cast<uint64_t>(a.rep2[t]);
-    // rep2 differs from rep1 only where the bug scan rolled an N in
-    pk.need2 = pk.key2 != pk.key1;
-  }
-  return pk;
 }
 
 __device__ __forceinline__ void put_members(const Args& a, uint32_t t,
@@ -286,17 +265,8 @@ extern "C" int dbg_member(const void* rep1, const void* le1, const void* rep2,
   const int Lk = L - k1 + 1;
   if (static_cast<long long>(B) * Lk >= (1ll << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{static_cast<const int64_t*>(rep1),
-               static_cast<const uint8_t*>(le1),
-               static_cast<const int64_t*>(rep2),
-               static_cast<const int64_t*>(bug),
-               exhaustive,
-               static_cast<const uint32_t*>(rwf),
-               RWr,
-               static_cast<const int32_t*>(lens),
-               B, L, k1, Lk,
-               static_cast<uint8_t*>(member1),
-               static_cast<uint8_t*>(member2)};
+  const Args a = dbg::member_args(rep1, le1, rep2, bug, exhaustive, rwf,
+                                  RWr, lens, B, L, k1, member1, member2);
   const dbg::Index& ix = *static_cast<const dbg::Index*>(index);
   const int32_t* hn = static_cast<const int32_t*>(has_n);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -304,7 +274,7 @@ extern "C" int dbg_member(const void* rep1, const void* le1, const void* rep2,
   // path (a) when the batch turns out N-free, then path (b), which
   // leaves at once when (a) ran: the batch's N flag lies on the device
   if (ix.pt_nb > 0) {
-    const int W = ix.pt_cols == 4 * ix.pt_slots ? 4 : 3;
+    const int W = dbg::probe_window(ix.pt_cols, ix.pt_slots);
     member_probe_kernel<<<grid_for(B * ((Lk + W - 1) / W)), kThreads, 0,
                           st>>>(a, ix, hn);
   }

@@ -63,9 +63,28 @@
 // Shard rows are read with __ldg (the non-coherent path), as K2 and K3
 // read them: the tables are read-only while a kernel runs.  Flags and
 // stage, written in the same call, are read through L2 (__ldcg).
+//
+// K2's staged path (dbg_member_staged; engine/member.py member_plan).
+// K2 reads the probe table 28 times a row on the survey batch, so its
+// peer reads move each remote row over NVLink about as often (member.cu
+// says how).  The same two passes serve it: a memset of the flags, then
+// one cooperative launch (member_stage_kernel) of
+//   (a) mark: the buckets of the keys K2 will look up, computed on the
+//       card from K2's own inputs with K2's own helpers (member.cuh):
+//       on the probe path rep1 at each live window's probe position,
+//       on the per-position path rep1 at each valid position and rep2
+//       where it differs (canonical(bug) in exhaustive mode).  The
+//       batch's N flag, read here as K2 reads it, says which path runs;
+//       that path's table is marked, the other left alone;
+//   (b) pull: pull_rows, as for K13, from that table's remote ranges;
+// and then K2 itself (dbg_member) on a copy of the Index whose remote
+// pt_shards / st_shards point into the stage, shard s at stage row
+// stage_base[s] of its table's plan.  No id array, no write pass: K2
+// reads the stage where it read the peer.  One stage serves both
+// tables, since one batch runs one path.
 #include <cooperative_groups.h>
 
-#include "common.cuh"
+#include "member.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -140,20 +159,27 @@ __device__ __forceinline__ V load_row(unsigned long long row, int v) {
   return (row & 1) ? __ldcg(src) : __ldg(src);
 }
 
+// (a) global bucket b's stage row gets its flag, where the plan stages
+// b's shard (read first, so the ~224 ids of a row do not all store to
+// one address)
+__device__ __forceinline__ void mark_row(const ShardTable& t,
+                                         const ShardPlan& p, int32_t b,
+                                         uint32_t* flags) {
+  if (b < 0 || b >= t.nb_local * t.n_shards) return;
+  const int s = b / t.nb_local;
+  const int base = p.stage_base[s];
+  if (base < 0) return;
+  uint32_t* f = flags + base + (b - s * t.nb_local);
+  if (__ldcg(f) == 0) *f = 1;
+}
+
 // (a) a thread per id, grid-stride from `first` by `stride`
 __device__ void mark_ids(const ShardTable& t, const ShardPlan& p,
                          const int32_t* __restrict__ ids, long long Q,
                          uint32_t* flags, long long first,
                          long long stride) {
-  for (long long q = first; q < Q; q += stride) {
-    const int32_t b = __ldg(ids + q);
-    if (b < 0 || b >= t.nb_local * t.n_shards) continue;
-    const int s = b / t.nb_local;
-    const int base = p.stage_base[s];
-    if (base < 0) continue;
-    uint32_t* f = flags + base + (b - s * t.nb_local);
-    if (__ldcg(f) == 0) *f = 1;
-  }
+  for (long long q = first; q < Q; q += stride)
+    mark_row(t, p, __ldg(ids + q), flags);
 }
 
 // (b) a warp per flagged stage row, from warp `first` by `stride`
@@ -284,10 +310,74 @@ __global__ void __launch_bounds__(kThreads)
              threadIdx.x % 32);
 }
 
+// K2's probe table (path (a)) and junction scan table (path (b)) as
+// K13's passes see them, each with its plan (engine/member.py
+// MemberPlan), the tables' bucket seeds and the probe window
+struct MemberStage {
+  ShardTable table[2];
+  ShardPlan plan[2];
+  uint32_t seed[2];
+  int32_t W;
+};
+
+// scan_row's global bucket of `key` in a table cut into t.n_shards
+// ranges of t.nb_local rows (common.cuh: the mix32 of the key, masked to
+// the table's nb_local * n_shards rows)
+__device__ __forceinline__ int32_t bucket_of(const ShardTable& t,
+                                             uint32_t seed, uint64_t key) {
+  const uint32_t h = dbg::mix32(dbg::khi(key) ^ seed, dbg::klo(key));
+  return static_cast<int32_t>(
+      h & (static_cast<uint32_t>(t.nb_local) * t.n_shards - 1u));
+}
+
+// K2's stage pass, one cooperative launch (flags zeroed before it): mark
+// the rows of the keys the batch's path will look up, then pull them.
+// A batch whose path reads every row in place leaves at once, the whole
+// grid together (the path is one flag of the batch).
+template <class V>
+__global__ void __launch_bounds__(kThreads)
+    member_stage_kernel(const dbg::MemberArgs a,
+                        const __grid_constant__ MemberStage m,
+                        const int32_t* __restrict__ has_n, uint32_t* flags,
+                        V* stage, int passes) {
+  const int path = dbg::member_probes(m.table[0].nb_local, has_n) ? 0 : 1;
+  const ShardTable& t = m.table[path];
+  const ShardPlan& p = m.plan[path];
+  if (!p.staged) return;
+  const long long first =
+      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  if (path == 0) {
+    const uint32_t nW = (a.Lk + m.W - 1) / m.W;
+    const long long n = static_cast<long long>(a.B) * nW;
+    for (long long i = first; i < n; i += stride) {
+      const dbg::Window w = dbg::probe_window_at(
+          a, static_cast<uint32_t>(i), nW, m.W, true);
+      if (w.live)
+        mark_row(t, p,
+                 bucket_of(t, m.seed[0],
+                           static_cast<uint64_t>(a.rep1[w.row0 + w.p])),
+                 flags);
+    }
+  } else {
+    const long long n = static_cast<long long>(a.B) * a.Lk;
+    for (long long i = first; i < n; i += stride) {
+      const dbg::PosKeys k =
+          dbg::pos_keys(a, static_cast<uint32_t>(i), true);
+      if (k.valid) mark_row(t, p, bucket_of(t, m.seed[1], k.key1), flags);
+      if (k.need2) mark_row(t, p, bucket_of(t, m.seed[1], k.key2), flags);
+    }
+  }
+  if (!(passes & 2)) return;
+  cg::this_grid().sync();
+  pull_rows(t, p, flags, stage, global_warp(), grid_warps(),
+            threadIdx.x % 32);
+}
+
 // the card's SMs, and the blocks a SM holds of each kernel of kKernels
-// (write and staged_kernel, words and vectors), at most kMaxBlocksPerSm:
-// asked once per card
-constexpr int kKernels = 4;
+// (write_kernel, staged_kernel and member_stage_kernel, words and
+// vectors), at most kMaxBlocksPerSm: asked once per card
+constexpr int kKernels = 6;
 struct Card {
   int sms = 0;
   int resident[kKernels] = {};
@@ -415,6 +505,125 @@ extern "C" int dbg_sharded_rows(const void* args) {
   return launch<uint32_t>(t, p, a.ids, a.Q, f,
                           static_cast<uint32_t*>(a.stage),
                           static_cast<uint32_t*>(a.out), s);
+}
+
+// one staged K2 call's arguments (engine/member.py member_launch;
+// kernels/build.py MemberStageArgsC): dbg_member's, then the plans of
+// its two tables and the scratch
+struct MemberStageArgs {
+  const void* rep1;
+  const void* le1;
+  const void* rep2;
+  const void* bug;
+  const void* rwf;
+  const void* lens;
+  const void* index;   // the Index as uploaded (dbg::Index): not changed
+  const void* has_n;
+  void* member1;
+  void* member2;
+  void* stream;
+  void* flags;   // uint32 [the larger plan's remote_rows]
+  void* stage;   // uint32 [the larger plan's remote_rows * its cols]
+  int32_t exhaustive, RWr, B, L, k1;
+  // the passes run: mark 1, pull 2, K2 4 (7: all; a measurement of the
+  // parts runs 1 and 3 too, as K11 / K12's `passes` do)
+  int32_t passes;
+  ShardPlan plan[2];   // (a) the probe table's, (b) the junction table's
+};
+
+extern "C" int dbg_member(const void* rep1, const void* le1,
+                          const void* rep2, const void* bug, int exhaustive,
+                          const void* rwf, int RWr, const void* lens, int B,
+                          int L, int k1, const void* index,
+                          const void* has_n, void* member1, void* member2,
+                          void* stream);
+
+// K2 (dbg_member) on a sharded index by its staged path: the stage pass
+// (flags memset, one cooperative launch), then K2 on a copy of the Index
+// whose staged shards point into the stage, all on one stream.  At least
+// one table's plan stages; each plan must fit its table (a table of no
+// rows stages nothing).  B * Lk > 0.
+extern "C" int dbg_member_staged(const void* args) {
+  const MemberStageArgs& a = *static_cast<const MemberStageArgs*>(args);
+  const dbg::Index& ix = *static_cast<const dbg::Index*>(a.index);
+  const int Lk = a.L - a.k1 + 1;
+  if (ix.n_shards < 2 || ix.n_shards > dbg::MAX_SHARDS || a.B < 1 ||
+      Lk < 1 || static_cast<long long>(a.B) * Lk >= (1ll << 31) ||
+      ix.jl_mphf || a.flags == nullptr || a.stage == nullptr ||
+      a.passes < 1 || a.passes > 7)
+    return static_cast<int>(cudaErrorInvalidValue);
+  MemberStage m{};
+  const uint32_t* const* shards[2] = {ix.pt_shards, ix.st_shards};
+  const int nb[2] = {ix.pt_nb, ix.st_nb};
+  const int cols[2] = {ix.pt_cols, ix.st_cols};
+  long long flag_words = 0;
+  bool vec = reinterpret_cast<uintptr_t>(a.stage) % 16 == 0;
+  for (int k = 0; k < 2; ++k) {
+    ShardTable& t = m.table[k];
+    for (int s = 0; s < ix.n_shards; ++s) t.shards[s] = shards[k][s];
+    t.n_shards = ix.n_shards;
+    t.nb_local = nb[k];
+    t.cols = cols[k];
+    m.plan[k] = a.plan[k];
+    const ShardPlan& p = m.plan[k];
+    if (p.staged && (t.nb_local < 1 || t.cols < 1 || !plan_fits(t, p)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (!p.staged && (p.remote_rows != 0 || p.n_remote != 0))
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (!p.staged) continue;
+    flag_words = flag_words > p.remote_rows ? flag_words : p.remote_rows;
+    vec = vec && t.cols % 4 == 0;
+    for (int o = 0; o < p.n_remote; ++o)
+      vec = vec && reinterpret_cast<uintptr_t>(t.shards[p.remote[o]]) % 16 ==
+                       0;
+  }
+  if (flag_words == 0) return static_cast<int>(cudaErrorInvalidValue);
+  m.seed[0] = ix.pt_seed;
+  m.seed[1] = ix.st_seed;
+  m.W = ix.pt_nb > 0 ? dbg::probe_window(ix.pt_cols, ix.pt_slots) : 3;
+  const dbg::MemberArgs ma = dbg::member_args(
+      a.rep1, a.le1, a.rep2, a.bug, a.exhaustive, a.rwf, a.RWr, a.lens, a.B,
+      a.L, a.k1, a.member1, a.member2);
+  auto st = static_cast<cudaStream_t>(a.stream);
+  Card* card = nullptr;
+  int err = card_of(&card);
+  if (err) return err;
+  const void* kernel =
+      vec ? reinterpret_cast<const void*>(&member_stage_kernel<uint4>)
+          : reinterpret_cast<const void*>(&member_stage_kernel<uint32_t>);
+  const int grid = resident(card, kernel, 4 + vec);
+  if (grid < 0) return -grid;
+  err = static_cast<int>(cudaMemsetAsync(
+      a.flags, 0, static_cast<size_t>(flag_words) * sizeof(uint32_t), st));
+  if (err) return err;
+  const int32_t* has_n = static_cast<const int32_t*>(a.has_n);
+  void* flags = a.flags;
+  void* stage = a.stage;
+  int passes = a.passes;
+  void* kargs[] = {const_cast<dbg::MemberArgs*>(&ma), &m, &has_n, &flags,
+                   &stage, &passes};
+  err = static_cast<int>(cudaLaunchCooperativeKernel(
+      kernel, dim3(grid), dim3(kThreads), kargs, 0, st));
+  if (err) return err;
+  err = static_cast<int>(cudaGetLastError());
+  if (err || !(passes & 4)) return err;
+  // K2's own copy of the Index: the staged ranges read from the stage
+  dbg::Index staged = ix;
+  const uint32_t** out[2] = {staged.pt_shards, staged.st_shards};
+  for (int k = 0; k < 2; ++k) {
+    if (!m.plan[k].staged) continue;
+    for (int s = 0; s < ix.n_shards; ++s)
+      if (m.plan[k].stage_base[s] >= 0)
+        out[k][s] = static_cast<const uint32_t*>(a.stage) +
+                    static_cast<size_t>(m.plan[k].stage_base[s]) * cols[k];
+  }
+  return dbg_member(a.rep1, a.le1, a.rep2, a.bug, a.exhaustive, a.rwf, a.RWr,
+                    a.lens, a.B, a.L, a.k1, &staged, a.has_n, a.member1,
+                    a.member2, a.stream);
+}
+
+extern "C" int dbg_sizeof_member_stage_args() {
+  return static_cast<int>(sizeof(MemberStageArgs));
 }
 
 // let card `dev` read card `peer`'s memory.  An access that is already

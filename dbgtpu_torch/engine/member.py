@@ -9,7 +9,13 @@ per-position lookups of rep1 and rep2 in the junction table otherwise
 verify in `mph_jrows`; core.py:434-435, 454-456).  The kernel is
 csrc/member.cu; `member_ref` is its plain torch version.  A sharded
 index (`--shard-index`) is read through engine/shard.py scan_rows_ref
-here and through csrc/common.cuh scan_row in the kernel.
+here and through csrc/common.cuh scan_row in the kernel, by one of two
+paths that the host plan (`member_plan`) picks before the launch: direct
+(each remote row read over NVLink where it lies, once per probe of it)
+or staged (csrc/shard.cu dbg_member_staged: a stage pass copies each
+remote row the batch's keys hit, once, into scratch on the reading card,
+and K2 reads it there).  On the CPU `member_ref` is the plain version of
+both.
 
 The kernel's second mode serves exhaustive mode (-b): the one mask
 `inter` of dbgtpu/engine/exhaustive.py:118-148.  Without N it is the
@@ -21,15 +27,25 @@ and position 0 is always set: every read tries its first anchor.
 
 from __future__ import annotations
 
+import ctypes
+import math
+from collections.abc import Sequence
+from dataclasses import dataclass
+
 import torch
 
 from ..index.device import PT_SLOTS
 from ..kernels import build
+from ..kernels.measure import HBM_BYTES_PER_S, NVLINK_BYTES_PER_S
 from .index import LOOKUP_CHUNK, IndexTensors, c_index_arg
 from .kmer import M32, as_i32, rcb_ref, split_ref
 from .mphf import _signed32, mphf_rows_ref
 from .read_scan import Scan, unpack_fields
-from .shard import scan_rows_ref
+from .shard import ShardPlan, _plan_c, scan_rows_ref, shard_plan
+
+# wrapper calls on CUDA by K2's path ("direct": dbg_member as uploaded,
+# "staged": dbg_member_staged); a run's check that it took the plan's path
+calls = {"direct": 0, "staged": 0}
 
 
 def junction_vals_ref(ix: IndexTensors, keys: torch.Tensor):
@@ -135,6 +151,95 @@ def inter_ref(ix: IndexTensors, scan: Scan, lens, *, L: int,
     return ((m & valid) | (col == 0)).to(torch.uint8)
 
 
+@dataclass(frozen=True)
+class MemberPlan:
+    """K2's path on a sharded index: csrc/shard.cu MemberStage's two
+    plans, one for each table K2 may read: `probe`, the probe table of
+    path (a), and `scan`, the junction scan table of path (b).  The
+    batch's N flag picks the table on the card."""
+    probe: ShardPlan
+    scan: ShardPlan
+
+    @property
+    def direct(self) -> bool:
+        return self.probe.direct and self.scan.direct
+
+    def scratch_words(self, pt_cols: int, st_cols: int) -> tuple[int, int]:
+        """(flag words, stage words) of int32 a staged call allocates: a
+        flag per stage row and the stage, one for both tables, since a
+        batch reads one of them."""
+        return (max(self.probe.remote_rows, self.scan.remote_rows),
+                max(self.probe.remote_rows * pt_cols,
+                    self.scan.remote_rows * st_cols))
+
+
+def stage_pays(Q: int, nb: int, cols: int, remote_share: float,
+               probe_bytes: int) -> bool:
+    """Whether Q lookups into a table of nb rows of `cols` words, a
+    `remote_share` of its rows on other cards, take less time staged
+    than read where they lie.  Staged: the expected distinct remote rows
+    of Q uniform buckets, remote_share * nb * (1 - e^(-Q/nb)), cross
+    NVLink once (cols * 4 bytes each) and are written to the stage and
+    read from it at the memory rate, after the mark pass reads the Q
+    keys (8 bytes each).  Direct: each remote lookup moves `probe_bytes`
+    over NVLink."""
+    if remote_share <= 0 or Q < 1 or nb < 1:
+        return False
+    pulled = remote_share * nb * -math.expm1(-Q / nb) * cols * 4
+    t_staged = (pulled / NVLINK_BYTES_PER_S
+                + (2 * pulled + 8 * Q) / HBM_BYTES_PER_S)
+    t_direct = remote_share * Q * probe_bytes / NVLINK_BYTES_PER_S
+    return t_staged < t_direct
+
+
+def member_plan(B: int, Lk: int, pt_shape: Sequence[int],
+                st_shape: Sequence[int], local: Sequence[bool],
+                staged: bool | None = None) -> MemberPlan:
+    """K2's plan for a batch of B reads of Lk scan positions on an index
+    cut into D = len(local) ranges, `local[s]` saying whether range s lies
+    on the reading card; `pt_shape` and `st_shape` are (rows, cols) of
+    one range of the probe table (0 rows: none) and of the junction
+    table.
+
+    Path (a) probes Q = B * ceil(Lk / W) windows, each reading its row's
+    S key-hi and S key-lo words and, on a hit, W - 2 neighbour words;
+    path (b) looks up Q = B * Lk positions, each reading the 2S key
+    words of its row (found only; rep2's lookups on reads with N are
+    not counted).  Each table is staged where `stage_pays`, every range
+    not on the card (engine/shard.py shard_plan's layout: range s at
+    stage row stage_base[s]).  `staged` True or False takes that path
+    for both tables whatever the rule says (a measurement); with every
+    range on the card nothing is staged."""
+    D = len(local)
+    share = sum(not x for x in local) / D
+
+    def one(shape, Q, probe_bytes):
+        nb_local, cols = shape
+        stage = (staged if staged is not None else
+                 stage_pays(Q, nb_local * D, cols, share, probe_bytes))
+        return shard_plan(Q, nb_local, cols, local,
+                          staged=bool(stage) and nb_local > 0 and share > 0)
+
+    W = 4 if pt_shape[1] == 4 * PT_SLOTS else 3
+    return MemberPlan(
+        probe=one(pt_shape, B * -(-Lk // W), 4 * (2 * PT_SLOTS + W - 2)),
+        scan=one(st_shape, B * Lk, 4 * 2 * (st_shape[1] // 10)))
+
+
+def plan_for(ix: IndexTensors, scan: Scan, staged: bool | None = None,
+             local: Sequence[bool] | None = None) -> MemberPlan:
+    """`member_plan` for K2 on `scan`'s batch, read on scan's device (or,
+    `local` given, as if the ranges it names False lay on other cards);
+    an index that is not sharded is read directly."""
+    if not ix.st_shards:
+        local = [True]
+    elif local is None:
+        local = [s.device == scan.rep1.device for s in ix.st_shards]
+    B, Lk = scan.rep1.shape
+    return member_plan(B, Lk, ix.pt_rows.shape, ix.st_fused.shape, local,
+                       staged)
+
+
 def member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int):
     """K2 on the scan's device: the kernel on CUDA, the plain version on
     the CPU, an error anywhere else."""
@@ -160,13 +265,24 @@ def _member(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
     if scan.rep1.shape[0]:
         launch()
         build.count("member")
+        calls["staged" if launch.entry == "dbg_member_staged"
+              else "direct"] += 1
     return out
 
 
 def member_launch(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
-                  exhaustive: bool):
+                  exhaustive: bool, plan: MemberPlan | None = None,
+                  passes: int = 7):
     """K2's checks and allocation on CUDA tensors: (build.Launch into the
-    outputs, inter or (member1, member2))."""
+    outputs, inter or (member1, member2)).  `plan` (default
+    `plan_for(ix, scan)`) picks the path on a sharded index.  A staged
+    plan launches dbg_member_staged with its card current (`passes`:
+    mark 1, pull 2, K2 4; a measurement of the parts runs 1 and 3, which
+    leave the outputs unwritten), and allocates its scratch here through
+    PyTorch's caching allocator on the card's current stream, the one
+    both launches go to: a later batch's stage reuses the memory only
+    behind this batch's K2 (the launch's tensors end with the flags and
+    the stage)."""
     dev = scan.rep1.device
     if lens.device != dev:
         raise ValueError("index, scan and lens must share a device")
@@ -177,11 +293,43 @@ def member_launch(ix: IndexTensors, scan: Scan, lens, *, L: int, k1: int,
     scan = Scan(*(t.contiguous() for t in scan))
     m1 = torch.empty((B, Lk), dtype=torch.uint8, device=dev)
     m2 = None if exhaustive else torch.empty_like(m1)
-    launch = build.Launch("member", "dbg_member", (
-        scan.rep1.data_ptr(), scan.le1.data_ptr(), scan.rep2.data_ptr(),
-        scan.bug.data_ptr(), int(exhaustive),
-        scan.rows[0].data_ptr(), scan.rows.shape[2], lens.data_ptr(), B,
-        L, k1, c_index_arg(ix, dev), scan.has_n.data_ptr(), m1.data_ptr(),
-        None if m2 is None else m2.data_ptr(), build.stream_ptr(dev),
-    ), (ix, scan, lens, m1, m2))
-    return launch, (m1 if exhaustive else (m1, m2))
+    out = m1 if exhaustive else (m1, m2)
+    plan = plan_for(ix, scan) if plan is None else plan
+    if plan.direct:
+        launch = build.Launch("member", "dbg_member", (
+            scan.rep1.data_ptr(), scan.le1.data_ptr(), scan.rep2.data_ptr(),
+            scan.bug.data_ptr(), int(exhaustive),
+            scan.rows[0].data_ptr(), scan.rows.shape[2], lens.data_ptr(), B,
+            L, k1, c_index_arg(ix, dev), scan.has_n.data_ptr(),
+            m1.data_ptr(), None if m2 is None else m2.data_ptr(),
+            build.stream_ptr(dev),
+        ), (ix, scan, lens, m1, m2))
+        return launch, out
+    if torch.cuda.current_device() != dev.index:
+        # the stage pass is sized by, and launches on, the current card
+        raise ValueError(f"a staged member on {dev} must launch with {dev} "
+                         "current")
+    D = len(ix.st_shards)
+    if ix.mph_meta is not None or any(
+            len(p.stage_base) != D for p in (plan.probe, plan.scan)):
+        raise ValueError(f"a staged member needs the scan layout cut into "
+                         f"ranges and a plan for its {D} ranges")
+    n_flags, n_stage = plan.scratch_words(ix.pt_rows.shape[1],
+                                          ix.st_fused.shape[1])
+    flags = torch.empty(n_flags, dtype=torch.int32, device=dev)
+    stage = torch.empty(n_stage, dtype=torch.int32, device=dev)
+    args = build.MemberStageArgsC(
+        rep1=scan.rep1.data_ptr(), le1=scan.le1.data_ptr(),
+        rep2=scan.rep2.data_ptr(), bug=scan.bug.data_ptr(),
+        rwf=scan.rows[0].data_ptr(), lens=lens.data_ptr(),
+        index=c_index_arg(ix, dev), has_n=scan.has_n.data_ptr(),
+        member1=m1.data_ptr(), member2=None if m2 is None else m2.data_ptr(),
+        stream=build.stream_ptr(dev), flags=flags.data_ptr(),
+        stage=stage.data_ptr(), exhaustive=int(exhaustive),
+        RWr=scan.rows.shape[2], B=B, L=L, k1=k1, passes=passes)
+    args.plan[0] = _plan_c(plan.probe)
+    args.plan[1] = _plan_c(plan.scan)
+    launch = build.Launch("member", "dbg_member_staged",
+                          (ctypes.addressof(args),),
+                          (ix, scan, lens, m1, m2, args, flags, stage))
+    return launch, out

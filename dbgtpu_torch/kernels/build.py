@@ -22,7 +22,9 @@ layout and count as themselves.  Likewise `sharded_rows` (K13) counts
 its own kernel only, once per call whichever path its plan takes (the
 check of each sharded table at upload, engine/shard.py); K2 and K3 read
 a sharded index through the same address arithmetic (csrc/common.cuh
-scan_row) inline.  The gather
+scan_row) inline, and K2's staged path (its stage pass, then K2: one C
+entry point, engine/member.py member_plan) counts as `member`, once per
+call, as its direct path does.  The gather
 kernels K9-K12 (csrc/gather.cu, engine/gather.py) are launched by
 tools/exp_gather.py and by no mapping run.
 The device index goes to the kernels as one struct (`IndexC`, csrc/common.cuh
@@ -100,6 +102,7 @@ _ARGTYPES = {
                             _P, _P],
     "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "dbg_sharded_rows": [_P],
+    "dbg_member_staged": [_P],
     "dbg_enable_peer_access": [_I, _I],
 }
 
@@ -173,6 +176,20 @@ class ShardArgsC(ctypes.Structure):
         ("table", ShardTableC), ("plan", ShardPlanC), ("ids", _P),
         ("Q", ctypes.c_longlong), ("flags", _P), ("stage", _P), ("out", _P),
         ("stream", _P),
+    ]
+
+
+class MemberStageArgsC(ctypes.Structure):
+    """csrc/shard.cu MemberStageArgs: one staged K2 call's arguments
+    (dbg_member's, the plans of its probe and junction tables, the
+    scratch)."""
+    _fields_ = [
+        *((f, _P) for f in ("rep1", "le1", "rep2", "bug", "rwf", "lens",
+                            "index", "has_n", "member1", "member2",
+                            "stream", "flags", "stage")),
+        *((f, ctypes.c_int32) for f in ("exhaustive", "RWr", "B", "L",
+                                        "k1", "passes")),
+        ("plan", ShardPlanC * 2),
     ]
 
 
@@ -345,6 +362,8 @@ def _open(path: Path, older: bool = False) -> ctypes.CDLL:
         sizes.append((lib.dbg_sizeof_shard_table, ShardTableC))
     if hasattr(lib, "dbg_sizeof_shard_args"):
         sizes.append((lib.dbg_sizeof_shard_args, ShardArgsC))
+    if hasattr(lib, "dbg_sizeof_member_stage_args"):
+        sizes.append((lib.dbg_sizeof_member_stage_args, MemberStageArgsC))
     for fn, ours in sizes:
         fn.argtypes, fn.restype = [], ctypes.c_int
         if fn() != ctypes.sizeof(ours):

@@ -201,11 +201,22 @@ def _older_k13(launch):
     return (ctypes.addressof(a.table), a.ids, a.Q, a.out, a.stream), ()
 
 
+def _older_k2(launch):
+    """K2 before its staged path: dbg_member's arguments from this tree's
+    MemberStageArgs (the sixth object its launch keeps), the Index as
+    uploaded, so that the older K2 reads the remote ranges in place."""
+    a = launch.tensors[5]
+    return (a.rep1, a.le1, a.rep2, a.bug, a.exhaustive, a.rwf, a.RWr,
+            a.lens, a.B, a.L, a.k1, a.index, a.has_n, a.member1, a.member2,
+            a.stream), ()
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # this tree's C entry points whose arguments differ in older trees:
 # entry -> (an entry point that only the newer trees have, the older
 # argument types, older(launch) -> (the older arguments from this
-# tree's build.Launch, tensors they point into))
+# tree's build.Launch, tensors they point into)[, the older entry point
+# where its name differs])
 OLDER_ENTRIES = {
     # K7 before its plan: one key a thread, blocks of 256
     "dbg_mphf_slots": ("dbg_mphf_check", [_P, _P, _P, _P, _LL, _P, _P],
@@ -223,6 +234,10 @@ OLDER_ENTRIES = {
     # K13 before its plan: (table, ids, Q, out, stream), the direct path
     "dbg_sharded_rows": ("dbg_sizeof_shard_args", [_P, _P, _LL, _P, _P],
                          _older_k13),
+    # K2's staged path: the older tree's K2, reading in place
+    "dbg_member_staged": ("dbg_member_staged",
+                          [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
+                           _P, _P, _P, _P, _P], _older_k2, "dbg_member"),
 }
 
 
@@ -235,13 +250,14 @@ def on(lib, launch):
     charges both libraries the same host work."""
     from . import build
 
-    newer, argtypes, older = OLDER_ENTRIES.get(launch.entry,
-                                               (None, None, None))
+    newer, argtypes, older, *entry = OLDER_ENTRIES.get(
+        launch.entry, (None, None, None))
     if lib is None or newer is None or hasattr(lib, newer):
         fn = getattr(build.load() if lib is None else lib, launch.entry)
         args, keep = launch.args, launch.tensors
     else:
-        fn = lib[launch.entry]       # a fresh binding: its own argtypes
+        # a fresh binding: its own argtypes
+        fn = lib[entry[0] if entry else launch.entry]
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         args, keep = older(launch)
 
