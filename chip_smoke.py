@@ -83,7 +83,13 @@ its own kernel), then:
      sparse shape, a seeded [1,048,576, 96] table in 4 ranges on the
      card and one per card, at 917,504 uniform ids; K2 (both branches) and K3
      greedy_walk against their plain versions on the survey batch, timed
-     on 8 ranges on one card and on the real cards.  Then
+     on 8 ranges on one card and on the real cards; there K3 by each
+     path forced on the survey batch and its quarter (staged with its
+     stage poisoned before the range pull), K3 from the stage, K3 in
+     place and the pull timed alone and by graph, and the chain K1 ->
+     K2 -> K3 with the pull overlapped, serial and direct (with
+     `--baseline-csrc` each beside DIR's chain, in turns); K3 at
+     scale1M's junction table shape by its plan's path.  Then
      `tools.exp_gather.main()`, the entry
      point of the gather kernels (counts set to 0 just before, each of the four
      launched > 0 times): K9 gather_rows (G=1 and G=8), K10
@@ -139,9 +145,11 @@ its own kernel), then:
      scan (with one card `--mesh 1 --shard-index`, a mesh of one device
      holding the tables as one range; the line says which ran): bytes
      equal to the run without a mesh, sharded_rows launched twice per
-     card (the upload's check of each table), the index bytes each card
-     holds; `-G`, `-b` and `--index-layout mphf` with `--shard-index
-     --mesh 1` each raise dbgtpu's ValueError text and write nothing.
+     card (the upload's check of each table) and once per staged K3
+     call (its stage's pull), K2's and K3's calls by path, the index
+     bytes each card holds; `-G`, `-b` and `--index-layout mphf` with
+     `--shard-index --mesh 1` each raise dbgtpu's ValueError text and
+     write nothing.
      `[coordinator]`: two processes on the card joined by
      `--coordinator 127.0.0.1:<free port> --num-processes 2` (each with
      jax and dbgtpu blocked): process 0's stats block holds the whole
@@ -189,7 +197,10 @@ add per table word summed for K10-K12.  K13's bound counts the ids,
 its rows written and the distinct table rows the ids ask for, read
 once; those in shards on other cards cross NVLink at 450 GB/s into the
 card, and the byte time is the larger of that and the memory's
-(kernels/measure.py).  `library_ms` is the time of one PyTorch
+(kernels/measure.py).  So do, for K2 and K3 on a sharded index, the
+remote share of the rows they read of the two tables cut into ranges
+(the junction and probe tables); K3's umeta and pool sectors are
+replicated and never count as remote (engine/walk.py probe_bytes).  `library_ms` is the time of one PyTorch
 call that computes the same function: for K9-K12 a gather, for K13
 `whole[ids]` on the unsharded table, for the mapping kernels none
 (null).
@@ -592,9 +603,10 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     "member (per-position)" / "member (inter, per-position)".  `more`
     holds the run's other batches, (words, nmbits, lens) each: the alone
     timer rotates over them and this one.  On an index sharded over cards
-    `remote_share` of the table rows read lie on other cards (the bounds
-    count their bytes over NVLink too); the table bytes are the whole
-    table's."""
+    `remote_share` of the rows read of the tables cut into ranges (the
+    junction and probe tables; never umeta or the pool, which are
+    replicated) lie on other cards: the bounds count those bytes over
+    NVLink too.  The table bytes are the whole table's."""
     import types
 
     import torch
@@ -619,8 +631,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         _scan, read_scan, read_scan_launch, read_scan_ref, unpack_fields,
     )
     from dbgtpu_torch.engine.walk import (
-        greedy_walk, greedy_walk_launch, walk_inits, walk_inits_launch,
-        walk_inits_ref, walk_ref,
+        MPHF_LOOKUP_BYTES, greedy_walk, greedy_walk_launch, probe_bytes,
+        walk_inits, walk_inits_launch, walk_inits_ref, walk_ref,
     )
 
     k1 = k - 1
@@ -628,7 +640,7 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     out = {}
     jl_mphf = ix.mph_meta is not None
     # bytes of one junction lookup and of the junction table
-    j_row = 20 + 40 if jl_mphf else ix.st_fused.shape[1] * 4
+    j_row = MPHF_LOOKUP_BYTES if jl_mphf else ix.st_fused.shape[1] * 4
     j_table = (nbytes(ix.mph_rows, ix.mph_jrows, ix.mph_f) if jl_mphf
                else nbytes(*ix.st_shards or [ix.st_fused]))
 
@@ -666,19 +678,21 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     sk, wk, pk = c0.sk, c0.wk, c0.pk
 
     def record(name, pairs, fk, fr, *, stream, touched=0, table=0, ops,
-               alone, reps_k=20, reps_r=3, min_stream=None, graph=False):
+               alone, reps_k=20, reps_r=3, min_stream=None, graph=False,
+               remote=0):
         """`alone(c)` = (prep, pairs_of) on the batch of chain c: prep()
         allocates the kernel's outputs once and gives (its build.Launch,
         those outputs); pairs_of(outputs) pairs them with the wrapper's
         result on that batch.  `graph`: the alone time by the graph
-        timer too."""
+        timer too.  `remote`: the bytes of `touched` that are rows of the
+        tables cut into ranges, remote_share of them on other cards."""
         torch.cuda.synchronize()
         err = max(_max_abs_err(g, w) for g, w in pairs)
         if err:
             raise AssertionError(f"{name}: kernel != plain version "
                                  f"(max abs err {err})")
         bound_ms, bound_by = bound_of(stream, touched, table, ops,
-                                      remote_share)
+                                      remote_share * remote)
         ms = cuda_ms(fk, reps_k) if timed else None
         pms = cuda_ms(fr, reps_r) if timed else None
         # no one PyTorch call computes any of these kernels' functions
@@ -686,7 +700,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                          bound_ms=bound_ms, bound_by=bound_by,
                          library_ms=None,
                          bound_bytes=stream + min(touched, table),
-                         bound_ops=ops, alone_ms=None)
+                         bound_ops=ops, alone_ms=None,
+                         bound_remote_bytes=remote_share * remote)
         if min_stream is not None:
             out[name]["bound_min_bytes_ms"] = bound_of(
                 min_stream, 0, 0, 0)[0]
@@ -698,19 +713,19 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         return 5 * B * 4 + 4 * int(w.llen.sum() + w.rlen.sum())
 
     def probe_cost(counts):
-        """(touched, ops) of the junction evaluations the plain version
-        counted (engine/walk.py count_probe): per evaluation the table
-        row's 32 key-hi words, and where the key was found a key-lo
-        sector and a values sector (MPHF: the level row and the jrows
-        row), its lookup and the walk's update; per valid candidate the
-        sectors of its umeta header and window words, OPS_CANDIDATE and
-        OPS_WINDOW_WORD per window word."""
-        n = counts["evals"]
-        touched = (n * j_row if jl_mphf else
-                   n * ix.st_slots * 4 + counts["found"] * 2 * SECTOR_BYTES)
-        ops = (n * ops_junction_eval(j_ops(4)) + counts["cands"] * OPS_CANDIDATE
+        """(junction bytes, other bytes, ops) of the junction evaluations
+        the plain version counted (engine/walk.py count_probe; the bytes
+        by probe_bytes: per evaluation the table row's 32 key-hi words,
+        and where the key was found a key-lo sector and a values sector
+        (MPHF: the level row and the jrows row); per valid candidate the
+        sectors of its umeta header and window words): per evaluation
+        its lookup and the walk's update, per valid candidate
+        OPS_CANDIDATE and OPS_WINDOW_WORD per window word."""
+        junction, other = probe_bytes(ix, counts)
+        ops = (counts["evals"] * ops_junction_eval(j_ops(4))
+               + counts["cands"] * OPS_CANDIDATE
                + counts["words"] * OPS_WINDOW_WORD)
-        return touched + counts["sectors"] * SECTOR_BYTES, ops
+        return junction, other, ops
 
     sr = read_scan_ref(words, nmbits, lens, L=L, k1=k1)
     Lk = sk.bug.shape[1]
@@ -752,11 +767,13 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
             p = (torch.arange(0, Lk, W, device=lens.device) + 1).clamp(
                 max=Lk - 1)
             found = int((masks[0][:, p] != 0).sum())
+            touched = windows * S * 4 + found * SECTOR_BYTES * (W - 1)
+            table = nbytes(*ix_.pt_shards or [ix_.pt_rows])
+            # every byte touched is a probe row: a table cut into ranges
             return dict(
                 stream=nbytes(sk.rep1, sk.le1, sk.rows[0], lens)
                 + n_masks * B * Lk,
-                touched=windows * S * 4 + found * SECTOR_BYTES * (W - 1),
-                table=nbytes(*ix_.pt_shards or [ix_.pt_rows]),
+                touched=touched, table=table, remote=min(touched, table),
                 ops=ops_member_probe(windows, positions, S, W))
         found = int((masks[0][:, 1:].bool() & valid[:, 1:]).sum())
         lookups = positions
@@ -764,12 +781,13 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
             differ = (sk.rep2 != sk.rep1) & valid
             lookups += int(differ.sum())
             found += int((masks[1].bool() & differ).sum())
+        touched = (lookups * j_row if jl_mphf else
+                   lookups * ix_.st_slots * 4 + found * SECTOR_BYTES)
+        # every byte touched is a junction row: a table cut into ranges
         return dict(
             stream=n_masks * nbytes(sk.rep1) + nbytes(lens)
             + n_masks * B * Lk,
-            touched=(lookups * j_row if jl_mphf else
-                     lookups * ix_.st_slots * 4 + found * SECTOR_BYTES),
-            table=j_table,
+            touched=touched, table=j_table, remote=min(touched, j_table),
             ops=lookups * j_ops(0) + positions * (
                 3 + (OPS_RCB + 2 if n_masks == 1 else 0)))
 
@@ -809,17 +827,23 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                    alone=member_alone(px, False), **member_cost(px, mp))
         counts = {}
         wr = walk_ref(ix, sk, *mk, lens, counts=counts, **kw)
-        touched, ops = probe_cost(counts)
+        junction, other, ops = probe_cost(counts)
+        # on a sharded index by its plan's path, launched through
+        # measure.on (a baseline's K3 reads the ranges in place)
+        wrap = on_any if ix.st_shards else (lambda prep: prep)
         record("greedy_walk", walks_pairs(wk, wr),
                lambda: greedy_walk(ix, sk, *mk, lens, **kw),
                lambda: walk_ref(ix, sk, *mk, lens, **kw), reps_r=2,
                alone=lambda c: (
-                   lambda: greedy_walk_launch(ix, c.sk, *c.mk, c.lens, **kw),
+                   wrap(lambda: greedy_walk_launch(ix, c.sk, *c.mk, c.lens,
+                                                   **kw)),
                    lambda w: walks_pairs(w, c.wk)),
                # bug and rcs: the sectors read at the anchors
                stream=nbytes(*mk, lens, sk.rows) + walk_out_bytes(wk)
                + counts["anchor_sectors"] * SECTOR_BYTES,
-               touched=touched, table=j_table + nbytes(ix.umeta),
+               touched=junction + other, table=j_table + nbytes(ix.umeta),
+               # only the junction rows lie in a table cut into ranges
+               remote=min(junction, j_table),
                # the anchors: a test per member byte
                ops=2 * B * Lk + ops)
         out["greedy_walk"]["evaluations"] = counts
@@ -876,7 +900,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                ops=looked * (OPS_DOG_KMER + a_ops) + anchors * OPS_DOG_PLACE)
         counts = {}
         wr = walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L, counts=counts)
-        touched, ops = probe_cost(counts)
+        junction, other, ops = probe_cost(counts)
+        touched = junction + other
         record("walk_inits", walks_pairs(wk, wr),
                lambda: walk_inits(ix, sk.rows, lens, ik, k=k, L=L),
                lambda: walk_inits_ref(ix, sk.rows, lens, ik, k=k, L=L),
@@ -905,7 +930,8 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
                    alone=member_alone(px, True), **member_cost(px, (xp,)))
         counts = {}
         wr = exhaustive_ref(ix, sk, xk, lens, counts=counts, **xw)
-        touched, ops = probe_cost(counts)
+        junction, other, ops = probe_cost(counts)
+        touched = junction + other
         record("exhaustive_dfs", walks_pairs(wk, wr),
                lambda: exhaustive_dfs(ix, sk, xk, lens, **xw),
                lambda: exhaustive_ref(ix, sk, xk, lens, **xw), reps_r=2,
@@ -989,6 +1015,7 @@ def compare_edge_batch(device):
     from dbgtpu_torch.engine.walk import (
         greedy_walk, walk_inits, walk_inits_ref, walk_ref,
     )
+    from dbgtpu_torch.engine.walk import plan_for as walk_plan_for
     from dbgtpu_torch.index import device as dev_index
     from dbgtpu_torch.index.build import build_graph_from_seqs
     from dbgtpu_torch.kernels.edge_batch import edge_cases
@@ -1117,6 +1144,13 @@ def compare_edge_batch(device):
                 pairs.append((staged_member(px, sk, lens, L=L, k1=k - 1,
                                             exhaustive=True)[0],
                               inter_ref(px, sk, lens, L=L, k1=k - 1)))
+                # K3's staged path, forced (ranges 1.. staged as if
+                # remote), its stage poisoned before the pull
+                plan = walk_plan_for(px, B, device, staged=True,
+                                     local=staged_ones(px.st_shards, device))
+                pairs += walks_pairs(
+                    staged_walk(px, sk, (m1, m2), lens, plan, **kw)[0],
+                    walk_ref(px, sk, m1, m2, lens, **kw))
             torch.cuda.synchronize()
             err = max(_max_abs_err(g, w) for g, w in pairs)
             if err:
@@ -1124,15 +1158,15 @@ def compare_edge_batch(device):
                     f"edge {case.name}: K2 / K3 on the index cut into {D} "
                     f"ranges, {'probe' if probe else 'probe-less'} != plain "
                     f"(max abs err {err})")
-            compared += 2 + 2 * (D > 1)
+            compared += 2 + 3 * (D > 1)
         log(f"[edge] {case.name} (k={k}, L={L}, Lk={case.Lk}, {B} reads, "
             f"{len(case.unitigs)} unitigs, lens {int(lens_np.min())}-"
             f"{int(lens_np.max())}, N {bool(sk.has_n.item())}): K2 member "
             f"and inter ({', '.join(sorted(branches))}; scan, window 4, "
             f"mphf; member also on the scan index cut into {D} ranges, "
-            f"with K3 greedy_walk there, and by its staged path, ranges "
-            f"1.. staged, the stage poisoned), K5 (scan, mphf, MPHF anchors "
-            f"beside scan; E = 1, 2, "
+            f"with K3 greedy_walk there, and both by their staged paths, "
+            f"ranges 1.. staged, the stages poisoned), K5 (scan, mphf, "
+            f"MPHF anchors beside scan; E = 1, 2, "
             f"5), K3 greedy_walk and walk_inits and K6 exhaustive_dfs "
             f"(with and without -i; scan, mphf, pool chunks; deepest K6 "
             f"path {deepest} of D = {depth_for(L, k)}) == plain versions "
@@ -1731,8 +1765,7 @@ def sharded_rows_case(name, shards, ids, whole, paths: bool = False) -> dict:
                  for s, sh in enumerate(shards) if sh.device != ids.device)
     rows = nbytes(got)
     bound, by = bound_of(nbytes(ids) + rows, distinct.numel() * W * 4,
-                         nbytes(*shards), 0,
-                         remote / max(1, distinct.numel()))
+                         nbytes(*shards), 0, remote * W * 4)
     res = dict(max_abs_err=err, ms=cuda_ms(lambda: sharded_rows(shards, ids),
                                            20),
                plain_ms=cuda_ms(lambda: sharded_rows_ref(shards, ids), 3),
@@ -1833,9 +1866,12 @@ def compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
     (`compare_sparse_shape`); K2 (both branches) and K3 greedy_walk
     against theirs on the survey batch (compare_kernels, timed on 8
     shards on one card and on the real cards; K2 by its plan's path),
-    and there K2 by each path forced (`member_paths`).  With
+    and there K2 by each path forced (`member_paths`) and K3 by each
+    path forced, with the range pull and the chain K1 -> K2 -> K3
+    (`walk_paths`); K2 and K3 at scale1M's table shapes.  With
     `--baseline-csrc` K13, K2 and K3 are timed in turns with the older
-    tree's (whose K2 reads the ranges in place: measure.OLDER_ENTRIES).
+    tree's (whose K2 and K3 read the ranges in place:
+    measure.OLDER_ENTRIES).
     Returns the JSON line's sharded_rows, member@shard and
     greedy_walk@shard results."""
     import torch
@@ -1915,12 +1951,16 @@ def compare_shards(di, ix, batches, device, *, k, m, effort, L, pmax):
         if timed:
             res["member paths"] = member_paths(tag, sx, perpos, words,
                                                nmbits, lens, L=L, k1=k1)
+            res["walk paths"] = walk_paths(tag, sx, batches, k=k, m=m,
+                                           effort=effort, L=L)
         out[D, where] = res
     for where, devices in ([("one card", [device] * 4)]
                            + layouts[len(SHARD_COUNTS):]):
         out["sparse", where] = compare_sparse_shape(devices, device, where)
         out["member sparse", where] = member_sparse_shape(
             ix, sk, lens, devices, where, L=L, k1=k1)
+        out["walk sparse", where] = walk_sparse_shape(
+            ix, sk, lens, devices, where, k=k, m=m, effort=effort, L=L)
     D = max(SHARD_COUNTS)
     return {"sharded_rows": out["junction", D, "one card", "upload check"],
             "member": out[D, "one card"]["member"],
@@ -2020,6 +2060,241 @@ def member_paths(tag, sx, perpos, words, nmbits, lens, *, L, k1) -> dict:
                                        for s in ix.st_shards) else "")
             + ")")
         out[path] = res
+    return out
+
+
+def staged_walk(ix, sk, mk, lens, plan, *, k, m, effort, L):
+    """K3 on the sharded index `ix` by the staged `plan` (forced), its
+    stage filled with 0x5A bytes before the range pull: K3 reading a row
+    the pull left out reads the poison, and differs from the plain
+    version.  Not counted.  -> (Walks, K3's build.Launch, the pull's)"""
+    from dbgtpu_torch.engine.shard import stage_ranges_launch
+    from dbgtpu_torch.engine.walk import (
+        WalkStage, greedy_walk_launch, staged_index,
+    )
+
+    pull, rows = stage_ranges_launch(ix.st_shards, plan, lens.device)
+    rows.fill_(0x5A5A5A5A)
+    pull()
+    stage = WalkStage(plan, rows, staged_index(ix, plan, rows))
+    launch, walks = greedy_walk_launch(ix, sk, *mk, lens, k=k, m=m,
+                                       effort=effort, L=L, stage=stage)
+    launch()
+    return walks, launch, pull
+
+
+WALK_CHAINS = ("overlapped", "serial", "direct")
+
+
+def walk_chain(ix, batch, variant, lib, *, plan, k, m, effort, L):
+    """bind() for one batch's K1 -> K2 -> K3 on kernel library `lib`
+    (None: this tree's; an older tree's K2 and K3 through measure.on):
+    `variant` "overlapped", the range pull by the staged `plan` on the
+    card's pull stream beside K1 and K2, and K3 from its stage after it
+    (the main path's schedule, engine/walk.py walk_stage); "serial", the
+    pull on the current stream before K1; "direct", no pull, K3 reading
+    the ranges in place (an older tree's K3 always does).  Launches bound
+    in this call (inside a graph capture, to the capture's stream) into
+    outputs allocated once: -> (chain(), [the Walks' tensors, and the
+    stage of a staged variant])."""
+    import torch
+
+    from dbgtpu_torch.engine.member import member_launch
+    from dbgtpu_torch.engine.read_scan import read_scan_launch
+    from dbgtpu_torch.engine.shard import stage_ranges_launch
+    from dbgtpu_torch.engine.walk import (
+        WalkStage, greedy_walk_launch, plan_for, pull_stream, staged_index,
+    )
+
+    words, nmbits, lens = batch
+    dev = lens.device
+    cur = torch.cuda.current_stream(dev)
+    side = pull_stream(dev)
+    k1l, sk = read_scan_launch(words, nmbits, lens, L=L, k1=k - 1)
+    k2l, mk = member_launch(ix, sk, lens, L=L, k1=k - 1, exhaustive=False)
+    if variant == "direct":
+        pull, stage = None, None
+        k3l, wk = greedy_walk_launch(
+            ix, sk, *mk, lens, k=k, m=m, effort=effort, L=L,
+            plan=plan_for(ix, lens.shape[0], dev, staged=False))
+    else:
+        pull, rows = stage_ranges_launch(
+            ix.st_shards, plan, dev,
+            side if variant == "overlapped" else None)
+        stage = WalkStage(plan, rows, staged_index(ix, plan, rows))
+        k3l, wk = greedy_walk_launch(ix, sk, *mk, lens, k=k, m=m,
+                                     effort=effort, L=L, stage=stage)
+    go = [on(lib, x) for x in (k1l, k2l, k3l)]
+    go_pull = on(None, pull) if pull is not None else None
+
+    def chain():
+        if variant == "overlapped":
+            side.wait_stream(cur)
+            go_pull()
+        elif variant == "serial":
+            go_pull()
+        go[0]()
+        go[1]()
+        if variant == "overlapped":
+            cur.wait_stream(side)
+        go[2]()
+
+    return chain, list(wk) + ([stage.rows] if stage else [])
+
+
+def walk_paths(tag, sx, batches, *, k, m, effort, L) -> dict:
+    """K3 greedy_walk on a sharded index by each path, on the survey
+    batch and on its first quarter (one card's share under --mesh 4):
+    the path the plan takes; direct and staged (forced: the ranges on
+    other cards, or with every range on this card ranges 1.. as if
+    remote), each equal to the plain version, the staged one with its
+    stage poisoned before the pull (`staged_walk`); timed alone
+    (ALONE_LAUNCHES back to back, the median of ALONE_REPS runs) and by
+    the graph timer: K3 from the stage, K3 in place, and the range pull
+    (its plain version and the library's peer copies, one Tensor.copy_ a
+    range, beside it); and the chain K1 -> K2 -> K3 (`walk_chain`: the
+    pull overlapped, serial, and direct) by both timers, each in turns
+    with `--baseline-csrc`'s chain (its K3 reading in place).  Each
+    chain's outputs, after its stage is poisoned again, equal the plain
+    version."""
+    import torch
+
+    from dbgtpu_torch.engine.member import member
+    from dbgtpu_torch.engine.read_scan import read_scan
+    from dbgtpu_torch.engine.shard import stage_ranges_launch, stage_ranges_ref
+    from dbgtpu_torch.engine.walk import (
+        WalkStage, Walks, greedy_walk_launch, plan_for, staged_index,
+        walk_ref,
+    )
+
+    base = BASELINE["lib"]
+    kw = dict(k=k, m=m, effort=effort, L=L)
+    words, nmbits, lens = batches[0]
+    dev = lens.device
+    nbl, cols = sx.st_fused.shape
+    out = {}
+
+    def same(outs, want):
+        torch.cuda.synchronize()
+        return not max(_max_abs_err(g, w) for g, w in walks_pairs(
+            Walks(*outs[:7]), want))
+
+    for label, n in (("batch", lens.shape[0]),
+                     ("quarter", lens.shape[0] // 4)):
+        batch = (words[:n], nmbits[:n], lens[:n])
+        where = f"greedy_walk on {tag}, {label} ({n} reads)"
+        sk = read_scan(*batch, L=L, k1=k - 1)
+        mk = member(sx, sk, batch[2], L=L, k1=k - 1)
+        want = walk_ref(sx, sk, *mk, batch[2], **kw)
+        plan = plan_for(sx, n, dev, staged=True,
+                        local=staged_ones(sx.st_shards, dev))
+        direct = plan_for(sx, n, dev, staged=False)
+        res = {"reads": n,
+               "plan": "direct" if plan_for(sx, n, dev).direct else "staged",
+               "stage_bytes": plan.remote_rows * cols * 4,
+               "staged_ranges": list(plan.remote)}
+        got, k3, pull = staged_walk(sx, sk, mk, batch[2], plan, **kw)
+        if not same(list(got), want):
+            raise AssertionError(f"[shard] {where}, staged (forced, stage "
+                                 "poisoned) != plain version")
+        rows = pull.tensors[-1]
+        k3d, got_d = greedy_walk_launch(sx, sk, *mk, batch[2], plan=direct,
+                                        **kw)
+        k3d()
+        if not same(list(got_d), want):
+            raise AssertionError(f"[shard] {where}, direct (forced) != "
+                                 "plain version")
+
+        def bind_k3(staged):
+            if not staged:
+                launch, w = greedy_walk_launch(sx, sk, *mk, batch[2],
+                                               plan=direct, **kw)
+                return launch, list(w)
+            st = WalkStage(plan, rows, staged_index(sx, plan, rows))
+            launch, w = greedy_walk_launch(sx, sk, *mk, batch[2], stage=st,
+                                           **kw)
+            return launch, list(w)
+
+        def bind_pull():
+            launch, rw = stage_ranges_launch(sx.st_shards, plan, dev)
+            return launch, [rw]
+
+        for what, launch, bind in (
+                ("K3 staged", k3, lambda: bind_k3(True)),
+                ("K3 direct", k3d, lambda: bind_k3(False)),
+                ("pull", pull, bind_pull)):
+            r = res[what] = dict(alone_ms=cuda_ms(launch, ALONE_REPS,
+                                                  launches=ALONE_LAUNCHES))
+            r["graph_ms"], outs = graph_ms(bind, ALONE_REPS, ALONE_LAUNCHES)
+            ok = (torch.equal(outs[0], stage_ranges_ref(sx.st_shards, plan,
+                                                        dev))
+                  if what == "pull" else same(outs, want))
+            if not ok:
+                raise AssertionError(f"[shard] {where}: {what} from a graph "
+                                     "!= plain version")
+        p = res["pull"]
+        p["plain_ms"] = cuda_ms(lambda: stage_ranges_ref(sx.st_shards, plan,
+                                                         dev), 3)
+        p["library_ms"] = cuda_ms(lambda: [
+            rows[o * nbl:(o + 1) * nbl].copy_(sx.st_shards[s])
+            for o, s in enumerate(plan.remote)], 20)
+        if not torch.equal(rows, stage_ranges_ref(sx.st_shards, plan, dev)):
+            raise AssertionError(f"[shard] {where}: the peer copies != the "
+                                 "range pull's plain version")
+        # the stage written once and read once on the card; the ranges on
+        # other cards cross NVLink once
+        remote = sum(sx.st_shards[s].device != dev for s in plan.remote)
+        p["bound_ms"], p["bound_by"] = bound_of(
+            2 * rows.numel() * 4, 0, 0, 0, remote * nbl * cols * 4)
+        chains = {}
+        for variant in WALK_CHAINS:
+            def timer(lib, variant=variant, graph=False):
+                v = variant if lib is None else "direct"
+                if graph:
+                    ms, outs = graph_ms(lambda: walk_chain(
+                        sx, batch, v, lib, plan=plan, **kw), ALONE_REPS,
+                        ALONE_LAUNCHES)
+                    if not same(outs, want):
+                        raise AssertionError(f"[shard] {where}: the chain "
+                                             f"({v}) from a graph != plain "
+                                             "version")
+                    return ms
+                chain, outs = walk_chain(sx, batch, v, lib, plan=plan, **kw)
+                ms = cuda_ms(chain, ALONE_REPS, launches=ALONE_LAUNCHES)
+                if len(outs) > 7:
+                    outs[7].fill_(0x5A5A5A5A)
+                chain()
+                if not same(outs, want):
+                    raise AssertionError(f"[shard] {where}: the chain ({v}) "
+                                         "!= plain version")
+                return ms
+
+            r = in_turns(timer, base, "alone_")
+            r.update(in_turns(lambda lib, t=timer: t(lib, graph=True), base,
+                              "graph_"))
+            chains[variant] = r
+        res["chains"] = chains
+        log(f"[shard] {where}: the plan takes {res['plan']}; forced, == "
+            f"plain version (tolerance 0; staged with its stage poisoned "
+            f"before the pull: ranges {res['staged_ranges']}"
+            + (", on this card" if all(x.device == dev for x in sx.st_shards)
+               else "") + f", {res['stage_bytes']} B); alone / graph ms: "
+            + ", ".join(f"{w} {res[w]['alone_ms']:.4f} / "
+                        f"{res[w]['graph_ms']:.4f}"
+                        for w in ("K3 staged", "K3 direct", "pull"))
+            + f"; the pull's plain version {p['plain_ms']:.4f} ms, peer "
+            f"copies {p['library_ms']:.4f} ms, bound {p['bound_ms']:.4f} ms "
+            f"({p['bound_by']}); chain K1 -> K2 -> K3, alone / graph ms: "
+            + "; ".join(
+                f"{v} {c['alone_ms']:.4f} / {c['graph_ms']:.4f}"
+                + (f" (baseline's chain {c['baseline_alone_ms']:.4f} / "
+                   f"{c['baseline_graph_ms']:.4f}; turns "
+                   + ", ".join(f"{t:.4f}" for t in c["alone_turns_ms"])
+                   + " / " + ", ".join(f"{t:.4f}" for t in
+                                       c["graph_turns_ms"]) + ")"
+                   if "baseline_alone_ms" in c else "")
+                for v, c in chains.items()))
+        out[label] = res
     return out
 
 
@@ -2129,6 +2404,57 @@ def member_sparse_shape(ix, sk, lens, devices, where, *, L, k1) -> dict:
             f"{r['staged_alone_ms']:.4f} ms")
         out[path] = r
     return out
+
+
+def walk_sparse_shape(ix, sk, lens, devices, where, *, k, m, effort,
+                      L) -> dict:
+    """K3 at scale1M's junction table shape: a seeded int32 table of
+    [SPARSE_ST_ROWS, 320] in place of the survey index's, cut into one
+    range per device of `devices`, walked on the first from the survey
+    batch `sk` and its member masks on the survey index (random rows
+    hold none of the anchors' keys, so each anchor's first evaluation
+    fails, a remote row read for 3/4 of them over 4 cards).  Against the
+    plain version, exact; the plan's path (the pull would move the
+    remote ranges, 126 MB over 4 cards, for a few evaluations a read);
+    timed alone by the plan's path, in turns with a baseline's K3."""
+    import torch
+
+    from dbgtpu_torch.engine.member import member
+    from dbgtpu_torch.engine.walk import (
+        greedy_walk, greedy_walk_launch, plan_for, walk_ref,
+    )
+
+    device = devices[0]
+    g = torch.Generator(device=device).manual_seed(SPARSE_SEED + 2)
+    D = len(devices)
+    whole = torch.randint(0, 2**31 - 1, (SPARSE_ST_ROWS, 320), generator=g,
+                          device=device, dtype=torch.int32)
+    st = tuple(c.to(d).contiguous() for c, d in zip(whole.chunk(D),
+                                                    devices))
+    sx = dataclasses.replace(ix, st_fused=st[0], st_shards=st)
+    kw = dict(k=k, m=m, effort=effort, L=L)
+    mk = member(ix, sk, lens, L=L, k1=k - 1)
+    want = walk_ref(sx, sk, *mk, lens, **kw)
+    got = greedy_walk(sx, sk, *mk, lens, **kw)
+    torch.cuda.synchronize()
+    err = max(_max_abs_err(a, b) for a, b in walks_pairs(got, want))
+    tag = (f"sparse [{SPARSE_ST_ROWS}, 320] junction table, {D} shards on "
+           f"{where}")
+    if err:
+        raise AssertionError(f"[shard] greedy_walk on {tag} != plain version "
+                             f"(max abs err {err})")
+    r = dict(plan="direct" if plan_for(sx, lens.shape[0], device).direct
+             else "staged")
+    r.update(time_alone(f"greedy_walk {tag}", [(on_any(
+        lambda: greedy_walk_launch(sx, sk, *mk, lens, **kw)),
+        lambda w: walks_pairs(w, want))]))
+    log(f"[shard] greedy_walk on {tag}: == plain version (tolerance 0); "
+        f"plan: {r['plan']}; alone {r['alone_ms']:.4f} ms"
+        + (f" (baseline K3 {r['baseline_alone_ms']:.4f} ms; turns "
+           "baseline, this, this, baseline: " + ", ".join(
+               f"{t:.4f}" for t in r["alone_turns_ms"]) + ")"
+           if "baseline_alone_ms" in r else ""))
+    return r
 
 
 def compare_sparse_shape(devices, device, where) -> dict:
@@ -2650,9 +2976,10 @@ def main(argv=None) -> int:
 
     from dbgtpu_torch import cli, native
     from dbgtpu_torch.engine import member as member_mod
+    from dbgtpu_torch.engine import walk as walk_mod
     from dbgtpu_torch.engine.index import index_tensors
     from dbgtpu_torch.engine.runner import (
-        _bucket_len, _pmax_cap, _pmax_for, get_device_index,
+        IN_FLIGHT, _bucket_len, _pmax_cap, _pmax_for, get_device_index,
     )
     from dbgtpu_torch.index import device as dev_index
     from dbgtpu_torch.index.build import build_graph, build_graph_from_seqs
@@ -3235,6 +3562,8 @@ def main(argv=None) -> int:
         mesh_flag = "-1" if n_cards > 1 else "1"
         k2_paths = member_mod.calls
         k2_paths.update(direct=0, staged=0)
+        k3_paths = walk_mod.calls
+        k3_paths.update(direct=0, staged=0)
         paths_b, na_b, summ, shard_launches = cli_run(
             "scan", "greedy", ["--mesh", mesh_flag, "--shard-index"],
             also=("sharded_rows",))
@@ -3242,10 +3571,26 @@ def main(argv=None) -> int:
         if (paths_b, na_b) != outputs["scan", "greedy"]:
             raise AssertionError("[shard-index] bytes differ from the run "
                                  "without a mesh")
-        if shard_launches["sharded_rows"] != 2 * len(held):
+        # K13: the upload's check of each table on each card, and the
+        # pull of each staged K3 call's stage
+        if (shard_launches["sharded_rows"]
+                != 2 * len(held) + k3_paths["staged"]):
             raise AssertionError(f"[shard-index] sharded_rows launched "
                                  f"{shard_launches['sharded_rows']} times for "
-                                 f"{len(held)} cards and 2 tables")
+                                 f"{len(held)} cards, 2 tables and "
+                                 f"{k3_paths['staged']} staged K3 calls")
+        # K3 by its plan's path at a card's share of each batch: direct
+        # on a mesh of one
+        nb, st_cols = ixs["scan", False].st_fused.shape
+        k3_plan = walk_mod.walk_plan(
+            B // len(held), nb // len(held), st_cols,
+            [i == 0 for i in range(len(held))])
+        if (sum(k3_paths.values()) != shard_launches["greedy_walk"]
+                or k3_paths["direct" if k3_plan.staged else "staged"]):
+            raise AssertionError(
+                f"[shard-index] K3's calls by path {k3_paths} on "
+                f"{len(held)} cards, not all "
+                f"{'staged' if k3_plan.staged else 'direct'}")
         # K2 by its plan's path: staged with ranges on other cards (a
         # share of the survey batch on each), direct on a mesh of one
         if (sum(k2_paths.values()) != shard_launches["member"]
@@ -3259,7 +3604,10 @@ def main(argv=None) -> int:
             + f"): bytes == the run without a mesh; index bytes each card "
             f"holds {held} (replicated: {summ['index_hbm_bytes']['total']} "
             f"B, hbm_report {summ['index_hbm_bytes']}); launches "
-            f"{shard_launches}, K2's by path {dict(k2_paths)}; "
+            f"{shard_launches}, K2's by path {dict(k2_paths)}, K3's by "
+            f"path {dict(k3_paths)} (each staged call a stage of "
+            f"{k3_plan.remote_rows * st_cols * 4} B, at most "
+            f"{IN_FLIGHT} a card at once); "
             f"align_seconds {summ['align_seconds']}")
         for flags in (["-G"], ["-b"], ["--index-layout", "mphf"]):
             argv = ["-r", str(td / "r4096.fa"), "-k", str(k), "-g", str(uf),
@@ -3343,6 +3691,14 @@ def main(argv=None) -> int:
                 extra.setdefault("batch", {})[label] = {k: b[k] for k in (
                     "q", "w", "d", "path", "alone_ms", "ms", "plain_ms",
                     "bound_ms", "library_ms")}
+            # its pull over whole ranges, K3's stage (the batch and a
+            # quarter of it), on 8 ranges on one card and over the cards
+            for key, res in shard_results["all"].items():
+                if len(key) == 2 and "walk paths" in res:
+                    extra.setdefault("walk stage", {})[
+                        f"{key[0]} shards on {key[1]}"] = {
+                            label: w["pull"] for label, w in
+                            res["walk paths"].items()}
         elif base == "member":
             # K2 by its plan's path and by each path forced, on 8 ranges
             # on one card and over the cards
@@ -3353,6 +3709,19 @@ def main(argv=None) -> int:
                             res["member paths"], by_plan_alone_ms=res[
                                 "member"]["alone_ms"],
                             bound_ms=res["member"]["bound_ms"])
+        elif base == "greedy_walk":
+            # K3 by each path forced, the pull and the chain K1 -> K2 ->
+            # K3, on 8 ranges on one card and over the cards; at scale1M's
+            # junction table shape by its plan's path
+            for key, res in shard_results["all"].items():
+                if len(key) == 2 and "walk paths" in res:
+                    extra.setdefault("paths", {})[
+                        f"{key[0]} shards on {key[1]}"] = dict(
+                            res["walk paths"], by_plan_alone_ms=res[
+                                "greedy_walk"]["alone_ms"],
+                            bound_ms=res["greedy_walk"]["bound_ms"])
+                elif key[0] == "walk sparse":
+                    extra.setdefault("sparse", {})[key[1]] = res
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
                             launches=shard_launches[base],

@@ -82,6 +82,17 @@
 // stage_base[s] of its table's plan.  No id array, no write pass: K2
 // reads the stage where it read the peer.  One stage serves both
 // tables, since one batch runs one path.
+//
+// K3's staged path (dbg_walk_stage; engine/walk.py walk_plan).  K3's
+// next key is known only after its last row is read, so nothing can be
+// marked ahead; but a survey batch's walk reads 99% of the junction
+// table's rows, each remote one some 14 times over NVLink.  So the pull
+// pass alone, with no flags, copies every row of the ranges the plan
+// stages (pull_rows with flags null), in one plain launch a warp per row
+// on a side stream of the reading card as the batch starts: it depends on
+// the index only, and K1 and K2 run beside it.  K3 then waits for it and
+// walks on its own copy of the Index whose remote st_shards point into
+// the stage, as K2 does above: walk.cu and junction.cuh are unchanged.
 #include <cooperative_groups.h>
 
 #include "member.cuh"
@@ -182,14 +193,15 @@ __device__ void mark_ids(const ShardTable& t, const ShardPlan& p,
     mark_row(t, p, __ldg(ids + q), flags);
 }
 
-// (b) a warp per flagged stage row, from warp `first` by `stride`
+// (b) a warp per flagged stage row (every stage row where flags is
+// null), from warp `first` by `stride`
 template <class V>
 __device__ void pull_rows(const ShardTable& t, const ShardPlan& p,
                           const uint32_t* flags, V* stage, long long first,
                           long long stride, int lane) {
   const int per_row = vectors_per_row<V>(t);
   for (long long r = first; r < p.remote_rows; r += stride) {
-    if (__ldcg(flags + r) == 0) continue;
+    if (flags != nullptr && __ldcg(flags + r) == 0) continue;
     const int o = static_cast<int>(r / t.nb_local);
     const V* src = reinterpret_cast<const V*>(
         t.shards[p.remote[o]] +
@@ -374,10 +386,20 @@ __global__ void __launch_bounds__(kThreads)
             threadIdx.x % 32);
 }
 
+// K3's stage: every row of the ranges the plan stages, a warp per row
+template <class V>
+__global__ void __launch_bounds__(kThreads)
+    range_pull_kernel(const __grid_constant__ ShardTable t,
+                      const __grid_constant__ ShardPlan p, V* stage) {
+  pull_rows(t, p, static_cast<const uint32_t*>(nullptr), stage,
+            global_warp(), grid_warps(), threadIdx.x % 32);
+}
+
 // the card's SMs, and the blocks a SM holds of each kernel of kKernels
-// (write_kernel, staged_kernel and member_stage_kernel, words and
-// vectors), at most kMaxBlocksPerSm: asked once per card
-constexpr int kKernels = 6;
+// (write_kernel, staged_kernel, member_stage_kernel and
+// range_pull_kernel, words and vectors), at most kMaxBlocksPerSm: asked
+// once per card
+constexpr int kKernels = 8;
 struct Card {
   int sms = 0;
   int resident[kKernels] = {};
@@ -624,6 +646,57 @@ extern "C" int dbg_member_staged(const void* args) {
 
 extern "C" int dbg_sizeof_member_stage_args() {
   return static_cast<int>(sizeof(MemberStageArgs));
+}
+
+// one pull of K3's stage (engine/walk.py walk_stage; kernels/build.py
+// WalkStageArgsC): the junction table's ranges and the plan that stages
+// those on other cards
+struct WalkStageArgs {
+  ShardTable table;
+  ShardPlan plan;
+  void* stage;    // uint32 [remote_rows, cols]
+  void* stream;   // the stream the pull runs on
+};
+
+// stage = every row of the ranges `plan` stages, in stage order (range
+// plan.remote[o] at stage row o * nb_local): one launch, a warp per row,
+// at most one wave.  The plan must stage at least one range and fit the
+// table.  16-byte vectors where cols is a multiple of 4 and the staged
+// ranges and the stage are 16-byte aligned, else words.
+extern "C" int dbg_walk_stage(const void* args) {
+  const WalkStageArgs& a = *static_cast<const WalkStageArgs*>(args);
+  const ShardTable& t = a.table;
+  const ShardPlan& p = a.plan;
+  if (t.n_shards < 2 || t.n_shards > dbg::MAX_SHARDS || t.nb_local < 1 ||
+      t.cols < 1 || !p.staged || p.remote_rows < 1 || !plan_fits(t, p) ||
+      a.stage == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  bool vec = t.cols % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(a.stage) % 16 == 0;
+  for (int o = 0; o < p.n_remote; ++o)
+    vec = vec && reinterpret_cast<uintptr_t>(t.shards[p.remote[o]]) % 16 == 0;
+  Card* card = nullptr;
+  int err = card_of(&card);
+  if (err) return err;
+  const void* kernel =
+      vec ? reinterpret_cast<const void*>(&range_pull_kernel<uint4>)
+          : reinterpret_cast<const void*>(&range_pull_kernel<uint32_t>);
+  const int most = resident(card, kernel, 6 + vec);
+  if (most < 0) return -most;
+  const unsigned grid =
+      blocks_for(static_cast<long long>(p.remote_rows) * 32, most);
+  auto s = static_cast<cudaStream_t>(a.stream);
+  if (vec)
+    range_pull_kernel<uint4><<<grid, kThreads, 0, s>>>(
+        t, p, static_cast<uint4*>(a.stage));
+  else
+    range_pull_kernel<uint32_t><<<grid, kThreads, 0, s>>>(
+        t, p, static_cast<uint32_t*>(a.stage));
+  DBG_RETURN_LAUNCH_STATUS();
+}
+
+extern "C" int dbg_sizeof_walk_stage_args() {
+  return static_cast<int>(sizeof(WalkStageArgs));
 }
 
 // let card `dev` read card `peer`'s memory.  An access that is already

@@ -9,6 +9,9 @@ plain torch versions on the CPU:
   K1 read_scan      packed words -> read images + anchor-scan (k-1)-mers
   K2 member         junction membership at every scan position
   K3 greedy_walk    greedy junction walk from per-anchor inits, per read
+                    (on a sharded index, from a stage of the junction
+                    table's remote ranges where its plan stages: K13's
+                    pull, on a side stream from the batch's start)
   K4 pack_paths     fused [B, 2 + pmax] result rows
   K5 dog_anchors    k-mer anchor lookup + placement inits (dog mode)
   K6 exhaustive_dfs branch-and-bound DFS per read (exhaustive mode)
@@ -37,7 +40,7 @@ from .index import IndexTensors
 from .member import inter, member
 from .pack import out_dtype_for, pack_paths
 from .read_scan import read_scan
-from .walk import Walks, greedy_walk, walk_inits
+from .walk import Walks, greedy_walk, walk_inits, walk_stage
 
 MODES = ("greedy", "anchors", "exhaustive")
 
@@ -53,6 +56,10 @@ def align_batch(ix: IndexTensors, words, nmbits, lens, *, mode: str = "greedy",
         raise ValueError(f"unknown mode {mode!r}")
     lens = lens.to(torch.int32)
     k1 = k - 1
+    # greedy on a sharded index: K3's stage (where its plan stages) is
+    # pulled on a side stream from here on, beside K1 and K2
+    stage = (walk_stage(ix, words.shape[0], words.device)
+             if mode == "greedy" else None)
     scan = read_scan(words, nmbits, lens, L=L, k1=k1)
     if mode == "anchors":
         inits = dog_anchors(ix, scan.rows, lens, k=k, m=m, effort=effort,
@@ -64,7 +71,7 @@ def align_batch(ix: IndexTensors, words, nmbits, lens, *, mode: str = "greedy",
                               partial=partial, L=L)
     member1, member2 = member(ix, scan, lens, L=L, k1=k1)
     return greedy_walk(ix, scan, member1, member2, lens, k=k, m=m,
-                       effort=effort, L=L)
+                       effort=effort, L=L, stage=stage)
 
 
 def align_batch_packed(ix: IndexTensors, words, nmbits, lens, *,

@@ -22,7 +22,10 @@ every shard is on the reading card or the ids cannot repeat much, else
 the staged path (each remote row that an id asks for crosses NVLink
 once into scratch on the reading card, and out is written from there).
 Its bound is out's local write for a set of ids larger than the table.
-It is the check of each sharded table at upload (`check_sharded_table`,
+Its pull pass alone, over whole ranges with no ids
+(`stage_ranges_launch`, csrc/shard.cu dbg_walk_stage), stages the
+junction table's remote ranges for K3 (engine/walk.py walk_stage).  It
+is the check of each sharded table at upload (`check_sharded_table`,
 one launch per card and table, direct) and the yardstick of the sharded
 gather in chip_smoke.py.  `sharded_rows_ref` is its plain torch
 version: it restates dbgtpu's function as written, each shard answering
@@ -204,6 +207,56 @@ def sharded_rows(shards: Sequence[torch.Tensor],
         launch()
         build.count("sharded_rows")
     return out
+
+
+def stage_ranges_ref(shards: Sequence[torch.Tensor], plan: ShardPlan,
+                     dev: torch.device) -> torch.Tensor:
+    """Plain version of the range pull: int32 [plan.remote_rows, W] on
+    `dev`, the rows of the shards the plan stages, in stage order."""
+    nbl, W = shards[0].shape
+    if not plan.remote:
+        return torch.empty((0, W), dtype=torch.int32, device=dev)
+    return torch.cat([shards[s].to(dev) for s in plan.remote])
+
+
+def stage_ranges_launch(shards: Sequence[torch.Tensor], plan: ShardPlan,
+                        dev: torch.device, stream=None):
+    """The range pull's checks and allocation, with `dev` current:
+    (build.Launch of dbg_walk_stage on `stream`, default dev's current
+    stream; the stage int32 [plan.remote_rows, W] it fills, allocated on
+    the current stream through PyTorch's caching allocator).  `plan`
+    must stage at least one of the shards, which are contiguous int32
+    [nb_local, W] CUDA tensors that `dev` can read
+    (enable_peer_access)."""
+    if dev.type != "cuda" or torch.cuda.current_device() != dev.index:
+        raise ValueError(f"a range pull on {dev} must launch with {dev} "
+                         "current")
+    if not 2 <= len(shards) <= build.MAX_SHARDS or len(
+            plan.stage_base) != len(shards):
+        raise ValueError(f"a plan for {len(plan.stage_base)} ranges, "
+                         f"{len(shards)} shards (2 to {build.MAX_SHARDS})")
+    if not plan.staged or plan.remote_rows < 1:
+        raise ValueError("the plan stages no range")
+    shape = shards[0].shape
+    for x in shards:
+        if (x.dtype != torch.int32 or x.shape != shape
+                or not x.is_contiguous() or x.device.type != "cuda"):
+            raise ValueError("shards must be contiguous int32 CUDA tensors "
+                             "of one shape [nb_local, W]")
+    stage = torch.empty((plan.remote_rows, shape[1]), dtype=torch.int32,
+                        device=dev)
+    args = build.WalkStageArgsC(
+        table=build.ShardTableC(n_shards=len(shards), nb_local=shape[0],
+                                cols=shape[1]),
+        plan=_plan_c(plan), stage=stage.data_ptr(),
+        stream=(build.stream_ptr(dev) if stream is None
+                else stream.cuda_stream))
+    for i, x in enumerate(shards):
+        args.table.shards[i] = x.data_ptr()
+    launch = build.Launch("sharded_rows", "dbg_walk_stage",
+                          (ctypes.addressof(args),),
+                          (args, tuple(shards), stage))
+    return launch, stage
 
 
 def enable_peer_access(devices: Sequence[torch.device]) -> None:

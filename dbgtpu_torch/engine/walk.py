@@ -11,10 +11,22 @@ in K5 (engine/dog.py).  The kernel is csrc/walk.cu (one thread per read,
 walking to completion) with two entry points, one per way the inits
 arrive; `walk_inits_ref` is its plain torch version, a vectorized
 lockstep loop over the batch without the JAX engine's tail compaction.
+
+On an index cut over cards (`--shard-index`) the greedy entry reads the
+junction table by one of two paths that a host plan (`walk_plan`) picks
+for the batch: direct (each remote row read over NVLink where it lies,
+once per evaluation of it) or staged (`walk_stage`: as the batch starts,
+every row of the table's remote ranges crosses NVLink once into a stage
+on the reading card, on a side stream beside K1 and K2, and K3 walks from
+there on its own copy of the index struct).  On the CPU `walk_ref` is the
+plain version of both.
 """
 
 from __future__ import annotations
 
+import ctypes
+from collections.abc import Sequence
+from dataclasses import dataclass
 from typing import NamedTuple
 
 import torch
@@ -27,6 +39,7 @@ from ..constants import (
     STATUS_RC_NO_OVERLAP,
 )
 from ..kernels import build
+from ..kernels.measure import HBM_BYTES_PER_S, NVLINK_BYTES_PER_S
 from .index import (
     C_BEG_HI, C_BEG_LO, C_END_HI, C_END_LO, C_RCB_HI, C_RCB_LO, C_RCE_HI,
     C_RCE_LO, C_ULEN, C_UOFF, META_COLS, IndexTensors, c_index_arg,
@@ -34,6 +47,12 @@ from .index import (
 from .kmer import M32, rcb_ref
 from .member import junction_vals_ref
 from .read_scan import Scan, unpack_fields
+from .shard import ShardPlan, shard_plan, stage_ranges_launch
+
+# K3's greedy wrapper calls on CUDA by its path ("direct": the junction
+# table read where it lies, "staged": from the batch's stage); a run's
+# check that it took the plan's path
+calls = {"direct": 0, "staged": 0}
 
 # walk phases (core.py _FETCH .. _DONE)
 FETCH, LEFT, RFIRST, RCONT, DONE = 0, 1, 2, 3, 4
@@ -214,6 +233,7 @@ def junction_probe_ref(ix: IndexTensors, mL, mRF, cur, pos, lens, rcodes,
 
 SECTOR = 32       # bytes of one device memory sector
 HEADER_WORDS = 10  # umeta words a candidate reads: C_UOFF .. C_RCE_LO
+MPHF_LOOKUP_BYTES = 20 + 40   # an MPHF lookup: its level row, its jrows row
 
 
 def _sectors(byte_lo, byte_hi):
@@ -260,6 +280,24 @@ def count_probe(ix: IndexTensors, p: dict, evaluated, counts: dict) -> None:
                    ("cands", ok), ("words", torch.where(ok, nw, 0)),
                    ("sectors", torch.where(ok, head + wsec, 0))):
         counts[key] = counts.get(key, 0) + int(v.sum())
+
+
+def probe_bytes(ix: IndexTensors, counts: dict) -> tuple[int, int]:
+    """(junction, other): the bytes that the junction evaluations counted
+    in `counts` (count_probe's keys) must read, of the junction table and
+    of the rest.  Per evaluation the junction row's S key-hi words and,
+    where the key was found, a key-lo sector and a values sector (MPHF
+    layout: the level row and the jrows row); per valid candidate the
+    sectors of its umeta header and window words (umeta or the pool).
+    Only the junction table is cut over cards under `--shard-index`
+    (engine/index.py sharded_index_tensors): umeta and the pool are
+    replicated, so `other` never crosses NVLink."""
+    n = counts.get("evals", 0)
+    if ix.mph_meta is not None:
+        junction = n * MPHF_LOOKUP_BYTES
+    else:
+        junction = n * ix.st_slots * 4 + counts.get("found", 0) * 2 * SECTOR
+    return junction, counts.get("sectors", 0) * SECTOR
 
 
 def count_read_sectors(plane, read, counts: dict) -> None:
@@ -427,11 +465,152 @@ def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
                           counts=counts)
 
 
+def pull_pays(Q: int, B: int, nb: int, cols: int,
+              remote_share: float) -> bool:
+    """Whether Q junction evaluations of a batch of B reads in a table of
+    nb rows of `cols` words (S = cols / 10 slots), a `remote_share` of
+    its rows on other cards, take less time with the remote ranges
+    staged than read where they lie.  Direct: each remote evaluation
+    reads its row's 2S key words (K3 compares key-hi and key-lo
+    together) and a 32-byte values sector over NVLink, remote_share * Q
+    * (2S * 4 + 32) bytes.  Staged: the remote rows, remote_share * nb *
+    cols * 4 bytes, cross NVLink once, on a side stream beside K1 and K2,
+    which hide it up to their own time (HIDDEN_S_PER_READ a read); the
+    rows are written to the stage and read from it at the memory rate.
+    Both at the card's published rates."""
+    if remote_share <= 0 or Q < 1 or nb < 1:
+        return False
+    pulled = remote_share * nb * cols * 4
+    t_staged = (max(0.0, pulled / NVLINK_BYTES_PER_S - B * HIDDEN_S_PER_READ)
+                + 2 * pulled / HBM_BYTES_PER_S)
+    t_direct = (remote_share * Q * (2 * (cols // 10) * 4 + SECTOR)
+                / NVLINK_BYTES_PER_S)
+    return t_staged < t_direct
+
+
+# junction evaluations per read the plan counts: a lower bound, one per
+# read (a read without an anchor makes none; the survey batch makes 1.7)
+EVALS_PER_READ = 1
+# the time per read of K1 and K2, which the pull runs beside: the least
+# of the survey batch's, 0.11 + 0.055 ms for 32,768 reads on one card
+# with the index replicated (PERF.md §6)
+HIDDEN_S_PER_READ = 5e-9
+
+
+def walk_plan(B: int, nb_local: int, cols: int, local: Sequence[bool],
+              staged: bool | None = None) -> ShardPlan:
+    """K3's plan for a batch of B reads on a junction table cut into
+    D = len(local) ranges of nb_local rows of `cols` words, `local[s]`
+    saying whether range s lies on the reading card: staged, every range
+    not on the card in engine/shard.py shard_plan's layout (range s at
+    stage row stage_base[s]), where `pull_pays` for B * EVALS_PER_READ
+    evaluations (the survey's full batch and a card's quarter of it over
+    2-4 cards; not scale1M's table); else direct.  Whole ranges, with no
+    mark pass: K3's keys are known only as it walks.  `staged` True or
+    False takes that path whatever the rule says (a measurement); with
+    every range on the card nothing is staged."""
+    D = len(local)
+    share = sum(not x for x in local) / D
+    if staged is None:
+        staged = pull_pays(B * EVALS_PER_READ, B, nb_local * D, cols, share)
+    return shard_plan(B, nb_local, cols, local,
+                      staged=bool(staged) and nb_local > 0 and share > 0)
+
+
+def plan_for(ix: IndexTensors, B: int, dev: torch.device,
+             staged: bool | None = None,
+             local: Sequence[bool] | None = None) -> ShardPlan:
+    """`walk_plan` for K3 on a batch of B reads on `dev` (or, `local`
+    given, as if the ranges it names False lay on other cards); an index
+    that is not cut into ranges is read directly."""
+    if not ix.st_shards or ix.mph_meta is not None:
+        local = [True]
+    elif local is None:
+        local = [x.device == dev for x in ix.st_shards]
+    return walk_plan(B, *ix.st_fused.shape, local, staged)
+
+
+@dataclass
+class WalkStage:
+    """One batch's stage of the junction table for K3: `rows`, the rows
+    of the ranges `plan` stages, in stage order; `index`, K3's copy of
+    the index struct whose staged st_shards point into rows; `ready`, an
+    event after the pull where it ran on another stream (None: on the
+    stream K3 runs on)."""
+    plan: ShardPlan
+    rows: torch.Tensor
+    index: build.IndexC
+    ready: torch.cuda.Event | None = None
+
+
+def staged_index(ix: IndexTensors, plan: ShardPlan,
+                 rows: torch.Tensor) -> build.IndexC:
+    """A copy of ix's index struct whose ranges that `plan` stages read
+    from `rows` (int32 [plan.remote_rows, cols], stage order)."""
+    c = build.IndexC.from_buffer_copy(ix.c_index)
+    row_bytes = ix.st_fused.shape[1] * 4
+    for s, base in enumerate(plan.stage_base):
+        if base >= 0:
+            c.st_shards[s] = rows.data_ptr() + base * row_bytes
+    return c
+
+
+_pull_streams: dict[int, torch.cuda.Stream] = {}
+
+
+def pull_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The side stream that card `dev`'s stage pulls run on (one a card,
+    made at first use)."""
+    if dev.index not in _pull_streams:
+        _pull_streams[dev.index] = torch.cuda.Stream(dev)
+    return _pull_streams[dev.index]
+
+
+def walk_stage(ix: IndexTensors, B: int, dev: torch.device, *,
+               plan: ShardPlan | None = None,
+               side: bool = True) -> WalkStage | None:
+    """Start K3's stage for a batch of B reads on card `dev`, with `dev`
+    current, by `plan` (default `plan_for(ix, B, dev)`): None where the
+    plan reads in place (every range on the card, the rule's choice, an
+    unsharded index, the CPU).  Else the range pull (csrc/shard.cu
+    dbg_walk_stage; counted as `sharded_rows`) launches on the card's
+    side stream (`pull_stream`) behind the work already queued on the
+    current one, so that the batch's K1 and K2 run beside it, and K3
+    waits for its event (`greedy_walk_launch`); `side` False pulls on the
+    current stream.  The stage comes from PyTorch's caching allocator on
+    the current stream, K3's, so that a later batch reuses its memory
+    only behind this batch's K3; it is recorded on the side stream too,
+    whose pull writes it.  It is scratch of this batch (at most
+    IN_FLIGHT stages a card at once), not held across batches, so a card
+    keeps holding only its own ranges between them."""
+    if dev.type != "cuda":
+        return None
+    plan = plan_for(ix, B, dev) if plan is None else plan
+    if plan.direct:
+        return None
+    stream = ready = None
+    if side:
+        stream = pull_stream(dev)
+        stream.wait_stream(torch.cuda.current_stream(dev))
+    launch, rows = stage_ranges_launch(ix.st_shards, plan, dev, stream)
+    launch()
+    build.count("sharded_rows")
+    if side:
+        rows.record_stream(stream)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    return WalkStage(plan, rows, staged_index(ix, plan, rows), ready)
+
+
 def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
-                k: int, m: int, effort: int, L: int) -> Walks:
+                k: int, m: int, effort: int, L: int,
+                stage: WalkStage | None = None) -> Walks:
     """K3's greedy entry on the scan's device: the kernel on CUDA, the
     plain version on the CPU, an error anywhere else.  The kernel picks
-    the anchors from the member masks itself."""
+    the anchors from the member masks itself.  On a sharded index it
+    reads the batch's `stage` (`walk_stage`, started as the batch began)
+    or, without one, takes its plan's path, pulling the stage now where
+    the plan stages."""
     dev = scan.bug.device
     if dev.type == "cpu":
         return walk_ref(ix, scan, member1, member2, lens, k=k, m=m,
@@ -446,19 +625,35 @@ def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
     if member1.shape != (B, Lk) or member2.shape != (B, Lk):
         raise ValueError("member shapes differ from the scan's")
     launch, walks = greedy_walk_launch(ix, scan, member1, member2, lens,
-                                       k=k, m=m, effort=effort, L=L)
+                                       k=k, m=m, effort=effort, L=L,
+                                       stage=stage)
     if B:
         launch()
         build.count("greedy_walk")
+        calls["direct" if launch.tensors[-1] is None else "staged"] += 1
     return walks
 
 
 def greedy_walk_launch(ix: IndexTensors, scan: Scan, member1, member2, lens,
-                       *, k: int, m: int, effort: int, L: int):
+                       *, k: int, m: int, effort: int, L: int,
+                       plan: ShardPlan | None = None,
+                       stage: WalkStage | None = None):
     """K3's greedy entry, allocation on checked CUDA tensors:
-    (build.Launch into the outputs, the Walks it fills)."""
+    (build.Launch into the outputs, the Walks it fills).  On a sharded
+    index it reads `stage` (whose pull the current stream waits for
+    here), or by `plan` (default `plan_for(ix, B, dev)`): in place where
+    it is direct, else from a stage pulled here on the current stream.
+    The launch keeps the stage."""
     dev = scan.bug.device
     B, Lk = scan.bug.shape
+    if stage is None:
+        plan = plan_for(ix, B, dev) if plan is None else plan
+        stage = walk_stage(ix, B, dev, plan=plan, side=False)
+    index = c_index_arg(ix, dev)
+    if stage is not None:
+        if stage.ready is not None:
+            torch.cuda.current_stream(dev).wait_event(stage.ready)
+        index = ctypes.addressof(stage.index)
     P = 16 * ((L + 15) // 16)
     scan = Scan(*(t.contiguous() for t in scan))
     member1, member2, lens = (t.contiguous()
@@ -469,12 +664,12 @@ def greedy_walk_launch(ix: IndexTensors, scan: Scan, member1, member2, lens,
     launch = build.Launch("greedy_walk", "dbg_greedy_walk", (
         member1.data_ptr(), member2.data_ptr(), scan.bug.data_ptr(),
         scan.rcs.data_ptr(), lens.data_ptr(), scan.rows.data_ptr(), B,
-        Lk, scan.rows.shape[2], c_index_arg(ix, dev), k, m, effort,
+        Lk, scan.rows.shape[2], index, k, m, effort,
         max_iters_for(effort, L), P,
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr(),
         out[3].data_ptr(), out[4].data_ptr(), lbuf.data_ptr(),
         rbuf.data_ptr(), build.stream_ptr(dev),
-    ), (ix, scan, member1, member2, lens, out, lbuf, rbuf))
+    ), (ix, scan, member1, member2, lens, out, lbuf, rbuf, stage))
     return launch, Walks(out[0], out[1], out[2], out[3], out[4], lbuf, rbuf)
 
 

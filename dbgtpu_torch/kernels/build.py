@@ -19,12 +19,14 @@ check mode: the check of each MPHF table at upload, one launch per
 table, engine/mphf.py check_mphf_table); the mapping kernels
 run the same device function (csrc/mphf.cuh) inline under an MPHF
 layout and count as themselves.  Likewise `sharded_rows` (K13) counts
-its own kernel only, once per call whichever path its plan takes (the
-check of each sharded table at upload, engine/shard.py); K2 and K3 read
-a sharded index through the same address arithmetic (csrc/common.cuh
-scan_row) inline, and K2's staged path (its stage pass, then K2: one C
-entry point, engine/member.py member_plan) counts as `member`, once per
-call, as its direct path does.  The gather
+its own kernels only, once per call whichever path its plan takes (the
+check of each sharded table at upload, engine/shard.py), and once per
+pull of K3's stage (its pull pass over whole ranges, csrc/shard.cu
+dbg_walk_stage, engine/walk.py walk_stage); K2 and K3 read a sharded
+index through the same address arithmetic (csrc/common.cuh scan_row)
+inline, and K2's staged path (its stage pass, then K2: one C entry
+point, engine/member.py member_plan) counts as `member`, once per call,
+as its direct path does; K3 from its stage counts as `greedy_walk`.  The gather
 kernels K9-K12 (csrc/gather.cu, engine/gather.py) are launched by
 tools/exp_gather.py and by no mapping run.
 The device index goes to the kernels as one struct (`IndexC`, csrc/common.cuh
@@ -103,6 +105,7 @@ _ARGTYPES = {
     "dbg_gather_take_sum": [_P, _I, _P, _I, _I, _I, _P, _P, _P, _I, _P, _P],
     "dbg_sharded_rows": [_P],
     "dbg_member_staged": [_P],
+    "dbg_walk_stage": [_P],
     "dbg_enable_peer_access": [_I, _I],
 }
 
@@ -190,6 +193,16 @@ class MemberStageArgsC(ctypes.Structure):
         *((f, ctypes.c_int32) for f in ("exhaustive", "RWr", "B", "L",
                                         "k1", "passes")),
         ("plan", ShardPlanC * 2),
+    ]
+
+
+class WalkStageArgsC(ctypes.Structure):
+    """csrc/shard.cu WalkStageArgs: one pull of K3's stage (the junction
+    table's ranges, the plan that stages the remote ones, the stage and
+    the stream)."""
+    _fields_ = [
+        ("table", ShardTableC), ("plan", ShardPlanC), ("stage", _P),
+        ("stream", _P),
     ]
 
 
@@ -364,6 +377,8 @@ def _open(path: Path, older: bool = False) -> ctypes.CDLL:
         sizes.append((lib.dbg_sizeof_shard_args, ShardArgsC))
     if hasattr(lib, "dbg_sizeof_member_stage_args"):
         sizes.append((lib.dbg_sizeof_member_stage_args, MemberStageArgsC))
+    if hasattr(lib, "dbg_sizeof_walk_stage_args"):
+        sizes.append((lib.dbg_sizeof_walk_stage_args, WalkStageArgsC))
     for fn, ours in sizes:
         fn.argtypes, fn.restype = [], ctypes.c_int
         if fn() != ctypes.sizeof(ours):

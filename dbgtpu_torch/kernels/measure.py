@@ -33,18 +33,21 @@ NVLINK_BYTES_PER_S = 450e9
 
 
 def bound_ms(stream_bytes: int, touched: int, table: int,
-             ops: int, remote_share: float = 0.0) -> tuple[float, str]:
+             ops: int, remote_bytes: float = 0) -> tuple[float, str]:
     """(bound_ms, bound_by): the least time the card could take for a
     function that streams `stream_bytes` (each tensor once), touches
     `touched` bytes of rows in tables of `table` bytes (never more than
     the table) and needs `ops` integer operations: the larger of the
     bytes over the memory rate and the operations over the integer
-    rate.  `remote_share` of the touched bytes lie on other cards of a
-    sharded index: those bytes also cross NVLink, at NVLINK_BYTES_PER_S
-    into this card, and the byte time is the larger of the two."""
+    rate.  `remote_bytes` of the touched bytes are rows of a table cut
+    over cards (`--shard-index`: the junction and probe tables) that lie
+    on other cards: they also cross NVLink, at NVLINK_BYTES_PER_S into
+    this card, and the byte time is the larger of the two.  The caller
+    counts them apart from the rest: the replicated tables (umeta, the
+    pool) never cross."""
     rows = min(touched, table)
     t_bytes = max((stream_bytes + rows) / HBM_BYTES_PER_S,
-                  remote_share * rows / NVLINK_BYTES_PER_S)
+                  remote_bytes / NVLINK_BYTES_PER_S)
     t_ops = ops / INT_OPS_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
@@ -211,6 +214,16 @@ def _older_k2(launch):
             a.stream), ()
 
 
+def _older_k3(launch):
+    """K3 before its staged path: dbg_greedy_walk's arguments with the
+    index struct as uploaded (its launch keeps the IndexTensors first),
+    so that the older K3 reads the remote ranges in place where this
+    tree's reads its stage; a direct launch's arguments unchanged."""
+    args = list(launch.args)
+    args[9] = ctypes.addressof(launch.tensors[0].c_index)
+    return tuple(args), ()
+
+
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # this tree's C entry points whose arguments differ in older trees:
 # entry -> (an entry point that only the newer trees have, the older
@@ -238,6 +251,10 @@ OLDER_ENTRIES = {
     "dbg_member_staged": ("dbg_member_staged",
                           [_P, _P, _P, _P, _I, _P, _I, _P, _I, _I, _I,
                            _P, _P, _P, _P, _P], _older_k2, "dbg_member"),
+    # K3 from its stage: the older tree's K3, reading in place
+    "dbg_greedy_walk": ("dbg_walk_stage",
+                        [_P] * 6 + [_I] * 3 + [_P] + [_I] * 5 + [_P] * 8,
+                        _older_k3),
 }
 
 
