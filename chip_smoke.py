@@ -143,11 +143,13 @@ its own kernel), then:
      mphf, bytes equal to the run without a mesh, launches checked as in
      phase 3.  `[shard-index]`: `--mesh -1 --shard-index` in greedy /
      scan (with one card `--mesh 1 --shard-index`, a mesh of one device
-     holding the tables as one range; the line says which ran): bytes
-     equal to the run without a mesh, sharded_rows launched twice per
-     card (the upload's check of each table) and once per staged K3
-     call (its stage's pull), K2's and K3's calls by path, the index
-     bytes each card holds; `-G`, `-b` and `--index-layout mphf` with
+     holding the tables as one range; the line says which ran), and over
+     several cards again with a batch of 32,768 reads a card, where K3's
+     plan stages: bytes equal to the run without a mesh, sharded_rows
+     launched twice per card (the upload's check of each table),
+     walk_stage once per staged K3 call (its stage's pull), K2's and
+     K3's calls by path, the index bytes each card holds; `-G`, `-b` and
+     `--index-layout mphf` with
      `--shard-index --mesh 1` each raise dbgtpu's ValueError text and
      write nothing.
      `[coordinator]`: two processes on the card joined by
@@ -166,7 +168,9 @@ its own kernel), then:
      "scripts" timings; sharded_rows, member@shard and greedy_walk@shard
      carry the launches of the `[shard-index]` run, K13 its timing at the
      upload check's shape (the batch's probe keys under `batch`), K2 and
-     K3 their timings on 8 ranges on one card.
+     K3 their timings on 8 ranges on one card; greedy_walk@shard also
+     the pull's (walk_stage) launches in each `[shard-index]` run and
+     its timings under `paths`.
 Any failure raises, and the script exits non-zero without a result.
 
 Bounds.  `bound_ms` is the larger of bytes / 3.35e12 B/s (the H100's
@@ -632,7 +636,7 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
     )
     from dbgtpu_torch.engine.walk import (
         MPHF_LOOKUP_BYTES, greedy_walk, greedy_walk_launch, probe_bytes,
-        walk_inits, walk_inits_launch, walk_inits_ref, walk_ref,
+        walk_inits, walk_inits_launch, walk_inits_ref, walk_ref, walk_stage,
     )
 
     k1 = k - 1
@@ -657,10 +661,14 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         """The mode's path through the wrappers on one batch: every
         kernel's inputs and outputs there."""
         c = types.SimpleNamespace(lens=lens)
+        # K3's stage where its plan stages, started before K1 as
+        # engine/core.py align_batch starts it (else None)
+        c.stage = (walk_stage(ix, lens.shape[0], lens.device)
+                   if mode == "greedy" else None)
         c.sk = read_scan(words, nmbits, lens, L=L, k1=k1)
         if mode == "greedy":
             c.mk = member(ix, c.sk, lens, L=L, k1=k1)
-            c.wk = greedy_walk(ix, c.sk, *c.mk, lens, **kw)
+            c.wk = greedy_walk(ix, c.sk, *c.mk, lens, stage=c.stage, **kw)
         elif mode == "anchors":
             c.ik = dog_anchors(ix, c.sk.rows, lens, **kw)
             c.wk = walk_inits(ix, c.sk.rows, lens, c.ik, k=k, L=L)
@@ -829,21 +837,26 @@ def compare_kernels(ix, words, nmbits, lens, *, mode, k, m, effort, L, pmax,
         wr = walk_ref(ix, sk, *mk, lens, counts=counts, **kw)
         junction, other, ops = probe_cost(counts)
         # on a sharded index by its plan's path, launched through
-        # measure.on (a baseline's K3 reads the ranges in place)
+        # measure.on (a baseline's K3 reads the ranges in place): alone,
+        # K3 from each batch's stage where the plan stages (the pull is
+        # timed apart, walk_paths), the wrapper with the pull
         wrap = on_any if ix.st_shards else (lambda prep: prep)
         record("greedy_walk", walks_pairs(wk, wr),
-               lambda: greedy_walk(ix, sk, *mk, lens, **kw),
+               lambda: greedy_walk(ix, sk, *mk, lens,
+                                   stage=walk_stage(ix, B, lens.device),
+                                   **kw),
                lambda: walk_ref(ix, sk, *mk, lens, **kw), reps_r=2,
                alone=lambda c: (
                    wrap(lambda: greedy_walk_launch(ix, c.sk, *c.mk, c.lens,
-                                                   **kw)),
+                                                   stage=c.stage, **kw)),
                    lambda w: walks_pairs(w, c.wk)),
                # bug and rcs: the sectors read at the anchors
                stream=nbytes(*mk, lens, sk.rows) + walk_out_bytes(wk)
                + counts["anchor_sectors"] * SECTOR_BYTES,
                touched=junction + other, table=j_table + nbytes(ix.umeta),
-               # only the junction rows lie in a table cut into ranges
-               remote=min(junction, j_table),
+               # only the junction rows lie in a table cut into ranges; K3
+               # reading its stage reads none of them over NVLink
+               remote=min(junction, j_table) if c0.stage is None else 0,
                # the anchors: a test per member byte
                ops=2 * B * Lk + ops)
         out["greedy_walk"]["evaluations"] = counts
@@ -2103,7 +2116,7 @@ def walk_chain(ix, batch, variant, lib, *, plan, k, m, effort, L):
     from dbgtpu_torch.engine.read_scan import read_scan_launch
     from dbgtpu_torch.engine.shard import stage_ranges_launch
     from dbgtpu_torch.engine.walk import (
-        WalkStage, greedy_walk_launch, plan_for, pull_stream, staged_index,
+        WalkStage, greedy_walk_launch, pull_stream, staged_index,
     )
 
     words, nmbits, lens = batch
@@ -2114,9 +2127,8 @@ def walk_chain(ix, batch, variant, lib, *, plan, k, m, effort, L):
     k2l, mk = member_launch(ix, sk, lens, L=L, k1=k - 1, exhaustive=False)
     if variant == "direct":
         pull, stage = None, None
-        k3l, wk = greedy_walk_launch(
-            ix, sk, *mk, lens, k=k, m=m, effort=effort, L=L,
-            plan=plan_for(ix, lens.shape[0], dev, staged=False))
+        k3l, wk = greedy_walk_launch(ix, sk, *mk, lens, k=k, m=m,
+                                     effort=effort, L=L)
     else:
         pull, rows = stage_ranges_launch(
             ix.st_shards, plan, dev,
@@ -2188,7 +2200,6 @@ def walk_paths(tag, sx, batches, *, k, m, effort, L) -> dict:
         want = walk_ref(sx, sk, *mk, batch[2], **kw)
         plan = plan_for(sx, n, dev, staged=True,
                         local=staged_ones(sx.st_shards, dev))
-        direct = plan_for(sx, n, dev, staged=False)
         res = {"reads": n,
                "plan": "direct" if plan_for(sx, n, dev).direct else "staged",
                "stage_bytes": plan.remote_rows * cols * 4,
@@ -2198,8 +2209,7 @@ def walk_paths(tag, sx, batches, *, k, m, effort, L) -> dict:
             raise AssertionError(f"[shard] {where}, staged (forced, stage "
                                  "poisoned) != plain version")
         rows = pull.tensors[-1]
-        k3d, got_d = greedy_walk_launch(sx, sk, *mk, batch[2], plan=direct,
-                                        **kw)
+        k3d, got_d = greedy_walk_launch(sx, sk, *mk, batch[2], **kw)
         k3d()
         if not same(list(got_d), want):
             raise AssertionError(f"[shard] {where}, direct (forced) != "
@@ -2207,8 +2217,7 @@ def walk_paths(tag, sx, batches, *, k, m, effort, L) -> dict:
 
         def bind_k3(staged):
             if not staged:
-                launch, w = greedy_walk_launch(sx, sk, *mk, batch[2],
-                                               plan=direct, **kw)
+                launch, w = greedy_walk_launch(sx, sk, *mk, batch[2], **kw)
                 return launch, list(w)
             st = WalkStage(plan, rows, staged_index(sx, plan, rows))
             launch, w = greedy_walk_launch(sx, sk, *mk, batch[2], stage=st,
@@ -2421,7 +2430,7 @@ def walk_sparse_shape(ix, sk, lens, devices, where, *, k, m, effort,
 
     from dbgtpu_torch.engine.member import member
     from dbgtpu_torch.engine.walk import (
-        greedy_walk, greedy_walk_launch, plan_for, walk_ref,
+        greedy_walk, greedy_walk_launch, walk_ref, walk_stage,
     )
 
     device = devices[0]
@@ -2435,7 +2444,8 @@ def walk_sparse_shape(ix, sk, lens, devices, where, *, k, m, effort,
     kw = dict(k=k, m=m, effort=effort, L=L)
     mk = member(ix, sk, lens, L=L, k1=k - 1)
     want = walk_ref(sx, sk, *mk, lens, **kw)
-    got = greedy_walk(sx, sk, *mk, lens, **kw)
+    stage = walk_stage(sx, lens.shape[0], device)
+    got = greedy_walk(sx, sk, *mk, lens, stage=stage, **kw)
     torch.cuda.synchronize()
     err = max(_max_abs_err(a, b) for a, b in walks_pairs(got, want))
     tag = (f"sparse [{SPARSE_ST_ROWS}, 320] junction table, {D} shards on "
@@ -2443,10 +2453,9 @@ def walk_sparse_shape(ix, sk, lens, devices, where, *, k, m, effort,
     if err:
         raise AssertionError(f"[shard] greedy_walk on {tag} != plain version "
                              f"(max abs err {err})")
-    r = dict(plan="direct" if plan_for(sx, lens.shape[0], device).direct
-             else "staged")
+    r = dict(plan="direct" if stage is None else "staged")
     r.update(time_alone(f"greedy_walk {tag}", [(on_any(
-        lambda: greedy_walk_launch(sx, sk, *mk, lens, **kw)),
+        lambda: greedy_walk_launch(sx, sk, *mk, lens, stage=stage, **kw)),
         lambda w: walks_pairs(w, want))]))
     log(f"[shard] greedy_walk on {tag}: == plain version (tolerance 0); "
         f"plan: {r['plan']}; alone {r['alone_ms']:.4f} ms"
@@ -3561,54 +3570,72 @@ def main(argv=None) -> int:
         n_cards = torch.cuda.device_count()
         mesh_flag = "-1" if n_cards > 1 else "1"
         k2_paths = member_mod.calls
-        k2_paths.update(direct=0, staged=0)
         k3_paths = walk_mod.calls
-        k3_paths.update(direct=0, staged=0)
-        paths_b, na_b, summ, shard_launches = cli_run(
-            "scan", "greedy", ["--mesh", mesh_flag, "--shard-index"],
-            also=("sharded_rows",))
-        held = summ["index_card_bytes"]
-        if (paths_b, na_b) != outputs["scan", "greedy"]:
-            raise AssertionError("[shard-index] bytes differ from the run "
-                                 "without a mesh")
-        # K13: the upload's check of each table on each card, and the
-        # pull of each staged K3 call's stage
-        if (shard_launches["sharded_rows"]
-                != 2 * len(held) + k3_paths["staged"]):
-            raise AssertionError(f"[shard-index] sharded_rows launched "
-                                 f"{shard_launches['sharded_rows']} times for "
-                                 f"{len(held)} cards, 2 tables and "
-                                 f"{k3_paths['staged']} staged K3 calls")
-        # K3 by its plan's path at a card's share of each batch: direct
-        # on a mesh of one
         nb, st_cols = ixs["scan", False].st_fused.shape
-        k3_plan = walk_mod.walk_plan(
-            B // len(held), nb // len(held), st_cols,
-            [i == 0 for i in range(len(held))])
-        if (sum(k3_paths.values()) != shard_launches["greedy_walk"]
-                or k3_paths["direct" if k3_plan.staged else "staged"]):
-            raise AssertionError(
-                f"[shard-index] K3's calls by path {k3_paths} on "
-                f"{len(held)} cards, not all "
-                f"{'staged' if k3_plan.staged else 'direct'}")
-        # K2 by its plan's path: staged with ranges on other cards (a
-        # share of the survey batch on each), direct on a mesh of one
-        if (sum(k2_paths.values()) != shard_launches["member"]
-                or bool(k2_paths["staged"]) != (len(held) > 1)
-                or (len(held) > 1 and k2_paths["direct"])):
-            raise AssertionError(f"[shard-index] K2's calls by path "
-                                 f"{k2_paths} on {len(held)} cards")
-        log(f"[shard-index] ran --mesh {mesh_flag} --shard-index ("
-            + ("every local card" if n_cards > 1 else "one card: a mesh of "
-               "one device, the tables as one range")
-            + f"): bytes == the run without a mesh; index bytes each card "
-            f"holds {held} (replicated: {summ['index_hbm_bytes']['total']} "
-            f"B, hbm_report {summ['index_hbm_bytes']}); launches "
-            f"{shard_launches}, K2's by path {dict(k2_paths)}, K3's by "
-            f"path {dict(k3_paths)} (each staged call a stage of "
-            f"{k3_plan.remote_rows * st_cols * 4} B, at most "
-            f"{IN_FLIGHT} a card at once); "
-            f"align_seconds {summ['align_seconds']}")
+        # the survey's batches, a card's share of each; over several cards
+        # also batches of B a card, where K3's plan stages
+        batches = [B] + ([B * n_cards] if n_cards > 1 else [])
+        index_runs = {}     # batch size -> (launches, K3's calls by path)
+        for batch in batches:
+            k2_paths.update(direct=0, staged=0)
+            k3_paths.update(direct=0, staged=0)
+            # K3 by its plan's path at a card's share of each batch:
+            # direct on a mesh of one
+            held_n = n_cards if n_cards > 1 else 1
+            k3_plan = walk_mod.walk_plan(
+                batch // held_n, nb // held_n, st_cols,
+                [i == 0 for i in range(held_n)])
+            paths_b, na_b, summ, shard_launches = cli_run(
+                "scan", "greedy", ["--mesh", mesh_flag, "--shard-index"],
+                batch=batch, also=("sharded_rows",)
+                + ("walk_stage",) * k3_plan.staged)
+            held = summ["index_card_bytes"]
+            if len(held) != held_n:
+                raise AssertionError(f"[shard-index] {len(held)} cards held "
+                                     f"the index, not {held_n}")
+            if (paths_b, na_b) != outputs["scan", "greedy"]:
+                raise AssertionError("[shard-index] bytes differ from the "
+                                     "run without a mesh")
+            # K13: the upload's check of each table on each card; K3's
+            # range pull: once per staged call
+            if (shard_launches["sharded_rows"] != 2 * len(held)
+                    or shard_launches["walk_stage"] != k3_paths["staged"]):
+                raise AssertionError(
+                    f"[shard-index] sharded_rows launched "
+                    f"{shard_launches['sharded_rows']} times for "
+                    f"{len(held)} cards and 2 tables, walk_stage "
+                    f"{shard_launches['walk_stage']} times for "
+                    f"{k3_paths['staged']} staged K3 calls")
+            if (sum(k3_paths.values()) != shard_launches["greedy_walk"]
+                    or k3_paths["direct" if k3_plan.staged else "staged"]):
+                raise AssertionError(
+                    f"[shard-index] K3's calls by path {k3_paths} on "
+                    f"{len(held)} cards, not all "
+                    f"{'staged' if k3_plan.staged else 'direct'}")
+            # K2 by its plan's path: staged with ranges on other cards (a
+            # share of the survey batch on each), direct on a mesh of one
+            if (sum(k2_paths.values()) != shard_launches["member"]
+                    or bool(k2_paths["staged"]) != (len(held) > 1)
+                    or (len(held) > 1 and k2_paths["direct"])):
+                raise AssertionError(f"[shard-index] K2's calls by path "
+                                     f"{k2_paths} on {len(held)} cards")
+            log(f"[shard-index] ran --mesh {mesh_flag} --shard-index "
+                f"--batch-size {batch} ("
+                + ("every local card" if n_cards > 1 else "one card: a mesh "
+                   "of one device, the tables as one range")
+                + f"): bytes == the run without a mesh; index bytes each "
+                f"card holds {held} (replicated: "
+                f"{summ['index_hbm_bytes']['total']} B, hbm_report "
+                f"{summ['index_hbm_bytes']}); launches {shard_launches}, "
+                f"K2's by path {dict(k2_paths)}, K3's by path "
+                f"{dict(k3_paths)} (the plan at {batch // held_n} reads a "
+                f"card: "
+                + (f"staged, each call a stage of "
+                   f"{k3_plan.remote_rows * st_cols * 4} B, at most "
+                   f"{IN_FLIGHT} a card at once" if k3_plan.staged
+                   else "direct")
+                + f"); align_seconds {summ['align_seconds']}")
+            index_runs[batch] = (shard_launches, dict(k3_paths))
         for flags in (["-G"], ["-b"], ["--index-layout", "mphf"]):
             argv = ["-r", str(td / "r4096.fa"), "-k", str(k), "-g", str(uf),
                     "-f", str(td / "refused_paths"), "-a",
@@ -3691,14 +3718,6 @@ def main(argv=None) -> int:
                 extra.setdefault("batch", {})[label] = {k: b[k] for k in (
                     "q", "w", "d", "path", "alone_ms", "ms", "plain_ms",
                     "bound_ms", "library_ms")}
-            # its pull over whole ranges, K3's stage (the batch and a
-            # quarter of it), on 8 ranges on one card and over the cards
-            for key, res in shard_results["all"].items():
-                if len(key) == 2 and "walk paths" in res:
-                    extra.setdefault("walk stage", {})[
-                        f"{key[0]} shards on {key[1]}"] = {
-                            label: w["pull"] for label, w in
-                            res["walk paths"].items()}
         elif base == "member":
             # K2 by its plan's path and by each path forced, on 8 ranges
             # on one card and over the cards
@@ -3710,9 +3729,16 @@ def main(argv=None) -> int:
                                 "member"]["alone_ms"],
                             bound_ms=res["member"]["bound_ms"])
         elif base == "greedy_walk":
-            # K3 by each path forced, the pull and the chain K1 -> K2 ->
-            # K3, on 8 ranges on one card and over the cards; at scale1M's
-            # junction table shape by its plan's path
+            # K3 by each path forced, the pull (K3's stage, walk_stage)
+            # and the chain K1 -> K2 -> K3, on 8 ranges on one card and
+            # over the cards (the by-plan time is K3 alone, from its stage
+            # where the plan stages; its bound then counts no NVLink
+            # bytes); at scale1M's junction table shape by its plan's
+            # path; the [shard-index] runs' pulls and K3 calls by path
+            extra["index_runs"] = {
+                f"--batch-size {b}": dict(walk_stage=x["walk_stage"],
+                                          paths=paths)
+                for b, (x, paths) in index_runs.items()}
             for key, res in shard_results["all"].items():
                 if len(key) == 2 and "walk paths" in res:
                     extra.setdefault("paths", {})[
@@ -3724,7 +3750,7 @@ def main(argv=None) -> int:
                     extra.setdefault("sparse", {})[key[1]] = res
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces,
-                            launches=shard_launches[base],
+                            launches=index_runs[B][0][base],
                             **{key: r[key] for key in KERNEL_KEYS}, **extra))
     log(card_line())        # the card's name and power limit, as printed
     print(json.dumps({"kernels": kernels}))

@@ -253,7 +253,7 @@ def stage_ranges_launch(shards: Sequence[torch.Tensor], plan: ShardPlan,
                 else stream.cuda_stream))
     for i, x in enumerate(shards):
         args.table.shards[i] = x.data_ptr()
-    launch = build.Launch("sharded_rows", "dbg_walk_stage",
+    launch = build.Launch("walk_stage", "dbg_walk_stage",
                           (ctypes.addressof(args),),
                           (args, tuple(shards), stage))
     return launch, stage

@@ -465,24 +465,23 @@ def walk_ref(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
                           counts=counts)
 
 
-def pull_pays(Q: int, B: int, nb: int, cols: int,
-              remote_share: float) -> bool:
-    """Whether Q junction evaluations of a batch of B reads in a table of
-    nb rows of `cols` words (S = cols / 10 slots), a `remote_share` of
-    its rows on other cards, take less time with the remote ranges
-    staged than read where they lie.  Direct: each remote evaluation
-    reads its row's 2S key words (K3 compares key-hi and key-lo
-    together) and a 32-byte values sector over NVLink, remote_share * Q
-    * (2S * 4 + 32) bytes.  Staged: the remote rows, remote_share * nb *
-    cols * 4 bytes, cross NVLink once, on a side stream beside K1 and K2,
-    which hide it up to their own time (HIDDEN_S_PER_READ a read); the
-    rows are written to the stage and read from it at the memory rate.
-    Both at the card's published rates."""
+def pull_pays(Q: int, nb: int, cols: int, remote_share: float) -> bool:
+    """Whether Q junction evaluations in a table of nb rows of `cols`
+    words (S = cols / 10 slots), a `remote_share` of its rows on other
+    cards, take less time with the remote ranges staged than read where
+    they lie.  Direct: each remote evaluation reads its row's 2S key
+    words (K3 compares key-hi and key-lo together) and a 32-byte values
+    sector over NVLink, remote_share * Q * (2S * 4 + 32) bytes.  Staged:
+    the remote rows, remote_share * nb * cols * 4 bytes, cross NVLink
+    once and are written to the stage and read from it at the memory
+    rate.  Both at the card's published rates.  The pull runs on a side
+    stream beside K1 and K2, but the rule charges it in full: launched
+    from Python, as the runner launches, the overlap shortened no chain
+    (PERF.md, B15)."""
     if remote_share <= 0 or Q < 1 or nb < 1:
         return False
     pulled = remote_share * nb * cols * 4
-    t_staged = (max(0.0, pulled / NVLINK_BYTES_PER_S - B * HIDDEN_S_PER_READ)
-                + 2 * pulled / HBM_BYTES_PER_S)
+    t_staged = pulled / NVLINK_BYTES_PER_S + 2 * pulled / HBM_BYTES_PER_S
     t_direct = (remote_share * Q * (2 * (cols // 10) * 4 + SECTOR)
                 / NVLINK_BYTES_PER_S)
     return t_staged < t_direct
@@ -491,10 +490,6 @@ def pull_pays(Q: int, B: int, nb: int, cols: int,
 # junction evaluations per read the plan counts: a lower bound, one per
 # read (a read without an anchor makes none; the survey batch makes 1.7)
 EVALS_PER_READ = 1
-# the time per read of K1 and K2, which the pull runs beside: the least
-# of the survey batch's, 0.11 + 0.055 ms for 32,768 reads on one card
-# with the index replicated (PERF.md §6)
-HIDDEN_S_PER_READ = 5e-9
 
 
 def walk_plan(B: int, nb_local: int, cols: int, local: Sequence[bool],
@@ -504,15 +499,15 @@ def walk_plan(B: int, nb_local: int, cols: int, local: Sequence[bool],
     saying whether range s lies on the reading card: staged, every range
     not on the card in engine/shard.py shard_plan's layout (range s at
     stage row stage_base[s]), where `pull_pays` for B * EVALS_PER_READ
-    evaluations (the survey's full batch and a card's quarter of it over
-    2-4 cards; not scale1M's table); else direct.  Whole ranges, with no
+    evaluations (the survey's full batch over 2-4 cards; not a card's
+    quarter of it, nor scale1M's table); else direct.  Whole ranges, with no
     mark pass: K3's keys are known only as it walks.  `staged` True or
     False takes that path whatever the rule says (a measurement); with
     every range on the card nothing is staged."""
     D = len(local)
     share = sum(not x for x in local) / D
     if staged is None:
-        staged = pull_pays(B * EVALS_PER_READ, B, nb_local * D, cols, share)
+        staged = pull_pays(B * EVALS_PER_READ, nb_local * D, cols, share)
     return shard_plan(B, nb_local, cols, local,
                       staged=bool(staged) and nb_local > 0 and share > 0)
 
@@ -567,38 +562,33 @@ def pull_stream(dev: torch.device) -> torch.cuda.Stream:
 
 
 def walk_stage(ix: IndexTensors, B: int, dev: torch.device, *,
-               plan: ShardPlan | None = None,
-               side: bool = True) -> WalkStage | None:
+               plan: ShardPlan | None = None) -> WalkStage | None:
     """Start K3's stage for a batch of B reads on card `dev`, with `dev`
     current, by `plan` (default `plan_for(ix, B, dev)`): None where the
     plan reads in place (every range on the card, the rule's choice, an
     unsharded index, the CPU).  Else the range pull (csrc/shard.cu
-    dbg_walk_stage; counted as `sharded_rows`) launches on the card's
-    side stream (`pull_stream`) behind the work already queued on the
-    current one, so that the batch's K1 and K2 run beside it, and K3
-    waits for its event (`greedy_walk_launch`); `side` False pulls on the
-    current stream.  The stage comes from PyTorch's caching allocator on
-    the current stream, K3's, so that a later batch reuses its memory
-    only behind this batch's K3; it is recorded on the side stream too,
-    whose pull writes it.  It is scratch of this batch (at most
-    IN_FLIGHT stages a card at once), not held across batches, so a card
-    keeps holding only its own ranges between them."""
+    dbg_walk_stage, counted as `walk_stage`) launches on the card's side
+    stream (`pull_stream`) behind the work already queued on the current
+    one, so that the batch's K1 and K2 run beside it, and K3 waits for
+    its event (`greedy_walk_launch`).  The stage comes from PyTorch's
+    caching allocator on the current stream, K3's, so that a later batch
+    reuses its memory only behind this batch's K3; it is recorded on the
+    side stream too, whose pull writes it.  It is scratch of this batch
+    (at most IN_FLIGHT stages a card at once), not held across batches,
+    so a card keeps holding only its own ranges between them."""
     if dev.type != "cuda":
         return None
     plan = plan_for(ix, B, dev) if plan is None else plan
     if plan.direct:
         return None
-    stream = ready = None
-    if side:
-        stream = pull_stream(dev)
-        stream.wait_stream(torch.cuda.current_stream(dev))
+    stream = pull_stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
     launch, rows = stage_ranges_launch(ix.st_shards, plan, dev, stream)
     launch()
-    build.count("sharded_rows")
-    if side:
-        rows.record_stream(stream)
-        ready = torch.cuda.Event()
-        ready.record(stream)
+    build.count("walk_stage")
+    rows.record_stream(stream)
+    ready = torch.cuda.Event()
+    ready.record(stream)
     return WalkStage(plan, rows, staged_index(ix, plan, rows), ready)
 
 
@@ -608,9 +598,9 @@ def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
     """K3's greedy entry on the scan's device: the kernel on CUDA, the
     plain version on the CPU, an error anywhere else.  The kernel picks
     the anchors from the member masks itself.  On a sharded index it
-    reads the batch's `stage` (`walk_stage`, started as the batch began)
-    or, without one, takes its plan's path, pulling the stage now where
-    the plan stages."""
+    reads the junction table from the batch's `stage` (`walk_stage`,
+    started as the batch began) where one is given, else where it
+    lies."""
     dev = scan.bug.device
     if dev.type == "cpu":
         return walk_ref(ix, scan, member1, member2, lens, k=k, m=m,
@@ -630,25 +620,20 @@ def greedy_walk(ix: IndexTensors, scan: Scan, member1, member2, lens, *,
     if B:
         launch()
         build.count("greedy_walk")
-        calls["direct" if launch.tensors[-1] is None else "staged"] += 1
+        calls["direct" if stage is None else "staged"] += 1
     return walks
 
 
 def greedy_walk_launch(ix: IndexTensors, scan: Scan, member1, member2, lens,
                        *, k: int, m: int, effort: int, L: int,
-                       plan: ShardPlan | None = None,
                        stage: WalkStage | None = None):
     """K3's greedy entry, allocation on checked CUDA tensors:
-    (build.Launch into the outputs, the Walks it fills).  On a sharded
-    index it reads `stage` (whose pull the current stream waits for
-    here), or by `plan` (default `plan_for(ix, B, dev)`): in place where
-    it is direct, else from a stage pulled here on the current stream.
-    The launch keeps the stage."""
+    (build.Launch into the outputs, the Walks it fills).  It reads the
+    junction table from `stage` (whose pull the current stream waits for
+    here) where one is given, else where it lies.  The launch keeps the
+    stage."""
     dev = scan.bug.device
     B, Lk = scan.bug.shape
-    if stage is None:
-        plan = plan_for(ix, B, dev) if plan is None else plan
-        stage = walk_stage(ix, B, dev, plan=plan, side=False)
     index = c_index_arg(ix, dev)
     if stage is not None:
         if stage.ready is not None:

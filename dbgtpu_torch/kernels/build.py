@@ -20,9 +20,10 @@ table, engine/mphf.py check_mphf_table); the mapping kernels
 run the same device function (csrc/mphf.cuh) inline under an MPHF
 layout and count as themselves.  Likewise `sharded_rows` (K13) counts
 its own kernels only, once per call whichever path its plan takes (the
-check of each sharded table at upload, engine/shard.py), and once per
-pull of K3's stage (its pull pass over whole ranges, csrc/shard.cu
-dbg_walk_stage, engine/walk.py walk_stage); K2 and K3 read a sharded
+check of each sharded table at upload, engine/shard.py); the pull of
+K3's stage (K13's pull pass over whole ranges, csrc/shard.cu
+dbg_walk_stage, engine/walk.py walk_stage) counts as `walk_stage`, once
+per pull; K2 and K3 read a sharded
 index through the same address arithmetic (csrc/common.cuh scan_row)
 inline, and K2's staged path (its stage pass, then K2: one C entry
 point, engine/member.py member_plan) counts as `member`, once per call,
@@ -72,7 +73,7 @@ NVCC_FLAGS = [
 KERNELS = ("read_scan", "member", "greedy_walk", "walk_inits", "pack_paths",
            "dog_anchors", "exhaustive_dfs", "mphf_slots", "compact_result",
            "gather_rows", "gather_rowsum", "gather_rows_sum",
-           "gather_take_sum", "sharded_rows")
+           "gather_take_sum", "sharded_rows", "walk_stage")
 launches = dict.fromkeys(KERNELS, 0)
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint

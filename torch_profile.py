@@ -48,14 +48,18 @@ Workloads:
            work of minutes.
 Cells are `workload:layout` with layout scan or mphf.
 
-`--shard survey1M,scale1M [--meshes 1,2,4] [--turns N]` measures
+`--shard survey1M,scale1M [--meshes 1,2,4] [--turns N]
+[--batch-sizes 32768,...] [--k3-paths plan,direct,staged]` measures
 `--shard-index` instead (shard_runs): greedy / scan runs through
 `cli.main` from a loaded index with `--mesh D`, replicated and sharded,
 in turns (1,048,576 survey reads; scale1M's 131,072 reads at the largest
-D; a D beyond the local cards is skipped), bytes equal across all, with
-align seconds, end-to-end reads/s and the index bytes each card holds;
-then K2 and K3 alone on the index replicated, cut into D ranges on one
-card, and cut over D cards where there are D.
+D; a D beyond the local cards is skipped), at each `--batch-size` of
+`--batch-sizes`, the sharded runs once for each of `--k3-paths` (K3's
+junction reads by its plan's rule, or forced direct or staged:
+engine/walk.py plan_for), bytes equal across all, with align seconds,
+end-to-end reads/s, the index bytes each card holds and K3's calls by
+path; then K2 and K3 alone on the index replicated, cut into D ranges
+on one card, and cut over D cards where there are D.
 
 Prints one line per measurement and, last, one JSON object per cell.
 Needs a CUDA device; imports neither JAX nor dbgtpu.
@@ -64,7 +68,9 @@ Needs a CUDA device; imports neither JAX nor dbgtpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -425,28 +431,51 @@ def shard_kernels(tag, di, batches, meshes, L, pmax, device) -> dict:
             cs.log(f"{tag} {name} alone on the index cut into {D} ranges "
                    f"on {where}: {r['alone_ms']:.4f} ms (== plain version, "
                    f"err {r['max_abs_err']}; bound {r['bound_ms']:.4f} ms "
-                   f"with {share:.3f} of the rows over NVLink), replicated "
+                   f"with {r['bound_remote_bytes']:.0f} B over NVLink: "
+                   f"{share:.3f} of the cut tables' rows read in place), "
+                   f"replicated "
                    f"{w['alone_ms']:.4f} ms (bound {w['bound_ms']:.4f} ms), "
                    f"plain {r['plain_ms']:.4f} ms")
     return out
 
 
-def shard_runs(name, meshes, turns, device, card) -> dict:
+@contextlib.contextmanager
+def k3_path(path: str):
+    """K3's plan forced to `path` ("direct" or "staged"; "plan": its
+    rule) in the runs inside: engine/walk.py plan_for, which walk_stage
+    reads as each batch starts."""
+    from dbgtpu_torch.engine import walk
+
+    rule = walk.plan_for
+    if path != "plan":
+        walk.plan_for = functools.partial(rule, staged=path == "staged")
+    try:
+        yield
+    finally:
+        walk.plan_for = rule
+
+
+def shard_runs(name, meshes, turns, device, card, batch_sizes=(BATCH,),
+               k3_paths=("plan",)) -> dict:
     """`--shard-index` against the replicated mesh, greedy / scan, warm
     through `cli.main` from a loaded index: survey1M maps 1,048,576
     survey reads (chip_smoke's [runner] reads) with `--mesh D` and
     `--mesh D --shard-index` for each D in `meshes`, in turns (the order,
     then reversed, `turns` times); scale1M its 131,072 reads with
-    `--mesh D` and `--mesh D --shard-index` for the largest D.  Bytes must
-    be equal across every run; each run's align seconds, end-to-end
-    reads/s and the index bytes each card holds are logged.  Then K2 and
-    K3 alone on the index replicated and cut into D ranges
-    (shard_kernels).  Mesh sizes beyond the local cards run no CLI."""
+    `--mesh D` and `--mesh D --shard-index` for the largest D.  Each at
+    every `--batch-size` of `batch_sizes`, the sharded runs once for each
+    of `k3_paths` (`k3_path`).  Bytes must be equal across every run; each
+    run's align seconds, end-to-end reads/s, the index bytes each card
+    holds and K3's calls by path (each as its plan, or the forced path,
+    says) are logged.  Then K2 and K3 alone on the index replicated and
+    cut into D ranges (shard_kernels).  Mesh sizes beyond the local cards
+    run no CLI."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
-    from dbgtpu_torch.engine import runner
+    from dbgtpu_torch.engine import runner, walk
+    from dbgtpu_torch.engine.index import index_tensors
     from dbgtpu_torch.index.build import build_graph
     from dbgtpu_torch.index.persist import load_index, save_index
 
@@ -476,21 +505,37 @@ def shard_runs(name, meshes, turns, device, card) -> dict:
            f"{time.monotonic() - t0:.1f} s; index file "
            f"{npz.stat().st_size} B")
     argv = ["-r", str(rf), "--load-index", str(npz), "-m", str(M), "-e",
-            str(EFFORT), "--batch-size", str(BATCH), "-f", str(td / "paths"),
+            str(EFFORT), "-f", str(td / "paths"),
             "-a", str(td / "notAligned.fa"), "--json-summary",
             str(td / "summary.json")]
+    g = load_index(str(npz))
+    di = runner.get_device_index(g, "scan")
+    nb, cols = index_tensors(di, device).st_fused.shape
     cards = torch.cuda.device_count()
     if max(meshes) > cards:
         cs.log(f"{tag} {cards} cards: runs with --mesh "
                f"{[D for D in meshes if D > cards]} not taken")
-    configs = [(D, sharded) for D in meshes if D <= cards
-               for sharded in (False, True)]
+    configs = [(D, bs, path) for D in meshes if D <= cards
+               for bs in batch_sizes for path in (None,) + tuple(k3_paths)]
     order = (configs + configs[::-1]) * turns
     runs, first = {}, None
-    for D, sharded in order:
-        flags = ["--mesh", str(D)] + ["--shard-index"] * sharded
-        want = cs.PATH_KERNELS["greedy"] + ("sharded_rows",) * sharded
-        r = cs.cli_timed(argv + flags, want)
+    for D, bs, path in order:
+        sharded = path is not None
+        flags = (["--mesh", str(D), "--batch-size", str(bs)]
+                 + ["--shard-index"] * sharded)
+        # K3's path on each card's share of a batch
+        staged = sharded and D > 1 and walk.walk_plan(
+            bs // D, nb // D, cols, [i == 0 for i in range(D)],
+            None if path == "plan" else path == "staged").staged
+        want = (cs.PATH_KERNELS["greedy"] + ("sharded_rows",) * sharded
+                + ("walk_stage",) * staged)
+        walk.calls.update(direct=0, staged=0)
+        with k3_path(path or "plan"):
+            r = cs.cli_timed(argv + flags, want)
+        k3 = dict(walk.calls)
+        if sharded and k3["direct" if staged else "staged"]:
+            raise AssertionError(f"{tag} {' '.join(flags)} (K3 {path}): "
+                                 f"K3's calls by path {k3}")
         got = ((td / "paths").read_bytes(),
                (td / "notAligned.fa").read_bytes())
         first = first or got
@@ -502,21 +547,22 @@ def shard_runs(name, meshes, turns, device, card) -> dict:
                    map_rps=n_reads / summ["align_seconds"],
                    upload_s=summ["upload_seconds"],
                    card_bytes=summ["index_card_bytes"],
-                   sharded_rows=r["launches"]["sharded_rows"])
-        runs.setdefault(" ".join(flags), []).append(row)
-        cs.log(f"{tag} {' '.join(flags)}: align_seconds {row['align_s']}, "
+                   sharded_rows=r["launches"]["sharded_rows"],
+                   walk_stage=r["launches"]["walk_stage"], k3_calls=k3)
+        key = " ".join(flags) + (f" (K3 {path})" if sharded else "")
+        runs.setdefault(key, []).append(row)
+        cs.log(f"{tag} {key}: align_seconds {row['align_s']}, "
                f"wall {row['wall_s']:.3f} s (end-to-end {row['e2e_rps']:.1f}"
                f" reads/s, mapping {row['map_rps']:.1f} reads/s), upload "
                f"{row['upload_s']} s; index bytes each card holds "
                f"{row['card_bytes']}; sharded_rows launches "
-               f"{row['sharded_rows']}; bytes == the first run's")
+               f"{row['sharded_rows']}, walk_stage {row['walk_stage']}; "
+               f"K3's calls by path {k3}; bytes == the first run's")
     for flags, rows in runs.items():
         cs.log(f"{tag} {flags}: median of {len(rows)}: align_seconds "
-               f"{statistics.median(x['align_s'] for x in rows):.4f}, "
-               f"end-to-end "
+               f"{statistics.median(x['align_s'] for x in rows):.4f} "
+               f"(runs {[x['align_s'] for x in rows]}), end-to-end "
                f"{statistics.median(x['e2e_rps'] for x in rows):.1f} reads/s")
-    g = load_index(str(npz))
-    di = runner.get_device_index(g, "scan")
     L = runner._bucket_len(codes_all.shape[1], K)
     pmax = min(runner._pmax_for(di, L), runner._pmax_cap(L))
     kern = shard_kernels(tag, di, cs.survey_batches(codes_all, L, device),
@@ -541,6 +587,11 @@ def main(argv=None) -> int:
                          "largest)")
     ap.add_argument("--turns", type=int, default=1,
                     help="with --shard: passes of the runs in turns")
+    ap.add_argument("--batch-sizes", default=str(BATCH),
+                    help="with --shard: the runs' --batch-size values")
+    ap.add_argument("--k3-paths", default="plan",
+                    help="with --shard: K3's path in the sharded runs, "
+                         "each of plan, direct, staged (k3_path)")
     ap.add_argument("--baseline-csrc", metavar="DIR",
                     help="also build the kernels of DIR (another tree's "
                          "dbgtpu_torch/csrc) and time each kernel alone "
@@ -589,8 +640,12 @@ def main(argv=None) -> int:
         for name in args.shard.split(","):
             if name not in SHARD_WORKLOADS:
                 ap.error(f"unknown --shard workload {name!r}")
-            results.append(shard_runs(name, meshes, args.turns, device,
-                                      card))
+            paths = tuple(args.k3_paths.split(","))
+            if not set(paths) <= {"plan", "direct", "staged"}:
+                ap.error(f"unknown --k3-paths {args.k3_paths!r}")
+            results.append(shard_runs(
+                name, meshes, args.turns, device, card,
+                tuple(int(x) for x in args.batch_sizes.split(",")), paths))
         cells = {}
     for name, layouts in cells.items():
         results += run_workload(name, layouts, modes, args.reps, device, card,
