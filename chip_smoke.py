@@ -2699,14 +2699,20 @@ class runner_variant:
         if self.variant == "baseline":
             older = self.baseline.align_bulk
 
-            def align_bulk(*a, mesh=None, xfer=None, **kw):
+            def align_bulk(*a, mesh=None, xfer=None, spans=None, **kw):
                 if mesh is not None:
                     raise AssertionError("the baseline runner has no mesh")
                 xfer = {} if xfer is None else xfer
                 out = older(*a, xfer=xfer, **kw)
-                for key in ("launch_s", "drain_s", "format_s", "wait_s",
-                            "stall_s"):
-                    xfer.setdefault(key, 0)
+                # an older runner times its legs into xfer; they join
+                # the run's span sums under the names the summary reads
+                for leg, name in (("launch_s", "launch"),
+                                  ("drain_s", "drain"),
+                                  ("format_s", "format"),
+                                  ("wait_s", "fetch"),
+                                  ("stall_s", "stall")):
+                    if spans is not None:
+                        spans.add(name, xfer.get(leg, 0.0))
                 return out
 
             pipeline.align_bulk = align_bulk

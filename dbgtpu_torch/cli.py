@@ -17,8 +17,9 @@ Takes dbgtpu's flags:
   N, --mesh N (each batch split over the first N local devices, -1 all;
   on the CPU, N shards), --shard-index (with --mesh: the junction and
   probe tables cut over the mesh's devices), --profile-dir DIR (a
-  torch.profiler Chrome trace of the mapping call, CPU activity and,
-  on a card, CUDA activity, written into DIR), and --device (where the
+  torch.profiler Chrome trace of the whole run, CPU activity and, on a
+  card, CUDA activity, with the program's spans (spans.py) of both host
+  threads on its clock, written into DIR), and --device (where the
   kernels run; default cuda).
 As in dbgtpu, -p wins over -b, -b over -G, and -i affects only -b and -p.
 `--impl python` runs every mode on the host spec; `auto` and `jax` run
@@ -41,9 +42,9 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import sys
-import time
 
 
 def make_parser() -> argparse.ArgumentParser:
@@ -159,8 +160,6 @@ def _finish(args, reads_files, stats, print_summary=True) -> int:
             print(rf)
         sys.stdout.write(stats.summary())
     if args.json_summary:
-        import json
-
         with open(args.json_summary, "w") as f:
             json.dump(stats.as_dict(), f, indent=2)
             f.write("\n")
@@ -168,14 +167,17 @@ def _finish(args, reads_files, stats, print_summary=True) -> int:
 
 
 @contextlib.contextmanager
-def _profiled(profile_dir: str | None, device):
-    """torch.profiler over the span dbgtpu traces (the run_pipeline or
-    run_pipeline_resumable call): CPU activity, and CUDA activity on a
-    card; its Chrome trace goes into `profile_dir` as
-    dbgtpu_torch.<pid>.pt.trace.json."""
+def _profiled(profile_dir: str | None, device, spans):
+    """The run's root span, `job`; with `profile_dir`, torch.profiler
+    over it (CPU activity, and CUDA activity on a card) inside a
+    `dbgtpu.job` range, its Chrome trace written into `profile_dir` as
+    dbgtpu_torch.<pid>.pt.trace.json with the run's spans added
+    (`_add_spans`)."""
     if not profile_dir:
-        yield
+        with spans.span("job"):
+            yield
         return
+    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -183,9 +185,43 @@ def _profiled(profile_dir: str | None, device):
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(profile_dir, exist_ok=True)
     with profile(activities=activities) as prof:
-        yield
-    prof.export_chrome_trace(os.path.join(
-        profile_dir, f"dbgtpu_torch.{os.getpid()}.pt.trace.json"))
+        with torch.profiler.record_function("dbgtpu.job"), \
+                spans.span("job") as job:
+            yield
+    path = os.path.join(profile_dir,
+                        f"dbgtpu_torch.{os.getpid()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    _add_spans(path, spans, job.start)
+
+
+def _add_spans(path: str, spans, job_start: float) -> None:
+    """Adds the closed spans of `spans` to the Chrome trace at `path` as
+    complete events (category `dbgtpu`, one thread row per host thread,
+    the batch, the card and the span's counters as arguments), shifted
+    onto the trace's clock by the one offset between the `dbgtpu.job`
+    range's start there and the `job` span's start, which open together
+    (a few microseconds apart)."""
+    with open(path) as f:
+        doc = json.load(f)
+    events = doc.setdefault("traceEvents", [])
+    job = next(e for e in events if e.get("name") == "dbgtpu.job"
+               and e.get("ph") == "X"
+               and not e.get("cat", "").startswith("gpu"))
+    offset_us = float(job["ts"]) - job_start * 1e6
+    tids = {"main": job["tid"], "drain": spans.tids.get("drain")}
+    if tids["drain"] is not None:
+        events.append({"ph": "M", "name": "thread_name", "pid": job["pid"],
+                       "tid": tids["drain"],
+                       "args": {"name": "dbgtpu drain"}})
+    for (name, thread, batch, card, start, end, _, _,
+         counters) in spans.trace()["spans"]:
+        events.append({
+            "ph": "X", "cat": "dbgtpu", "name": name,
+            "pid": job["pid"], "tid": tids[thread],
+            "ts": start * 1e6 + offset_us, "dur": (end - start) * 1e6,
+            "args": {"batch": batch, "card": card, **counters}})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -263,49 +299,13 @@ def main(argv: list[str] | None = None) -> int:
 
 
 def _run(args, mode, device, coordinated) -> int:
-    from .pipeline import run_pipeline, run_pipeline_resumable
+    """The run (index load, pipeline, output files) in its `job` span,
+    then its stats block and --json-summary."""
+    from .spans import Recorder
 
-    graph = None
-    t0 = time.monotonic()
-    if args.load_index:
-        from .index.persist import load_index
-
-        graph = load_index(args.load_index)
-        args.k = graph.k
-    load_seconds = time.monotonic() - t0
-
-    reads_files = args.reads.split(",")
-    common = dict(
-        k=args.k, m=args.mismatches, effort=args.effort, fastq=args.fastq,
-        correction=args.correction, batch_size=args.batch_size, graph=graph,
-        device=device, mode=mode, partial=args.partial,
-        index_layout=args.index_layout, progress_every=args.progress,
-        mesh_devices=args.mesh, shard_index=args.shard_index,
-    )
-    if args.resume:
-        with _profiled(args.profile_dir, device):
-            stats = run_pipeline_resumable(
-                reads_files, args.unitigs, paths_file=args.paths_file,
-                na_file=args.not_aligned_file, **common)
-        stats.index_seconds += load_seconds
-        return _finish(args, reads_files, stats)
-
-    with _profiled(args.profile_dir, device):
-        paths, na, stats = run_pipeline(
-            reads_files, args.unitigs, save_index=args.save_index,
-            process_id=args.process_id, num_processes=args.num_processes,
-            impl=args.impl, **common)
-    stats.index_seconds += load_seconds
-    paths_file, na_file = args.paths_file, args.not_aligned_file
-    if args.num_processes > 1:
-        from .dist.multihost import shard_path
-
-        paths_file = shard_path(paths_file, args.process_id)
-        na_file = shard_path(na_file, args.process_id)
-    with open(paths_file, "wb") as f:
-        f.write(paths)
-    with open(na_file, "wb") as f:
-        f.write(na)
+    spans = Recorder.for_run(args.profile_dir)
+    with _profiled(args.profile_dir, device, spans):
+        stats = _map(args, mode, device, spans)
     print_summary = True
     if coordinated:
         # the counters summed over the processes (the reference's shared
@@ -322,7 +322,51 @@ def _run(args, mode, device, coordinated) -> int:
              stats.no_overlap) = (int(v) for v in tot)
         else:
             print_summary = False
-    return _finish(args, reads_files, stats, print_summary)
+    return _finish(args, args.reads.split(","), stats, print_summary)
+
+
+def _map(args, mode, device, spans):
+    """The index load, the mapping and the output files: the run's
+    stats."""
+    from .pipeline import run_pipeline, run_pipeline_resumable
+
+    graph = None
+    if args.load_index:
+        from .index.persist import load_index
+
+        with spans.span("index.load"):
+            graph = load_index(args.load_index, spans)
+        args.k = graph.k
+
+    reads_files = args.reads.split(",")
+    common = dict(
+        k=args.k, m=args.mismatches, effort=args.effort, fastq=args.fastq,
+        correction=args.correction, batch_size=args.batch_size, graph=graph,
+        device=device, mode=mode, partial=args.partial,
+        index_layout=args.index_layout, progress_every=args.progress,
+        mesh_devices=args.mesh, shard_index=args.shard_index, spans=spans,
+    )
+    if args.resume:
+        return run_pipeline_resumable(
+            reads_files, args.unitigs, paths_file=args.paths_file,
+            na_file=args.not_aligned_file, **common)
+
+    paths, na, stats = run_pipeline(
+        reads_files, args.unitigs, save_index=args.save_index,
+        process_id=args.process_id, num_processes=args.num_processes,
+        impl=args.impl, **common)
+    paths_file, na_file = args.paths_file, args.not_aligned_file
+    if args.num_processes > 1:
+        from .dist.multihost import shard_path
+
+        paths_file = shard_path(paths_file, args.process_id)
+        na_file = shard_path(na_file, args.process_id)
+    with spans.span("write"):
+        with open(paths_file, "wb") as f:
+            f.write(paths)
+        with open(na_file, "wb") as f:
+            f.write(na)
+    return stats
 
 
 if __name__ == "__main__":

@@ -42,7 +42,6 @@ guess timed level with the drain's fetch and added 7% to D2H.
 
 from __future__ import annotations
 
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -54,6 +53,7 @@ from ..constants import STATUS_ALIGNED_FWD, STATUS_ALIGNED_RC
 from ..index.build import UnitigGraph
 from ..index.device import DeviceIndex, build_device_index
 from ..index.persist import device_index_memo
+from ..spans import Recorder
 from ..spec import spec_for
 from .compact import compact_counts, expand_compact
 from .core import align_batch_packed_compact
@@ -74,13 +74,14 @@ def _pmax_cap(L: int) -> int:
     return max(PMAX_CAP, L // 4)
 
 
-def get_device_index(graph: UnitigGraph, layout: str = "scan") -> DeviceIndex:
+def get_device_index(graph: UnitigGraph, layout: str = "scan",
+                     spans: Recorder | None = None) -> DeviceIndex:
     """The graph's DeviceIndex in `layout` ("scan" or "mphf"), built once
-    per layout and kept on the graph; a graph built in dog mode also
-    gets its anchor table."""
+    per layout and kept on the graph (its phases in `spans`); a graph
+    built in dog mode also gets its anchor table."""
     memo = device_index_memo(graph)
     if layout not in memo:
-        memo[layout] = build_device_index(graph, layout=layout)
+        memo[layout] = build_device_index(graph, layout=layout, spans=spans)
     return memo[layout]
 
 
@@ -233,7 +234,7 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
                batch_size: int, device, mode: str = "greedy",
                partial: bool = False, index_layout: str = "scan",
                mesh=None, shard_index: bool = False, on_batch=None,
-               xfer=None, progress=None):
+               xfer=None, progress=None, spans: Recorder | None = None):
     """Mapping of every parsed record in `mode`, input order preserved.
 
     Returns (status int32 [N], path_off int64 [N+1], paths_flat int32):
@@ -245,15 +246,21 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
     cuts the index's two large tables over the mesh's devices
     (`mesh_index`); without a mesh it changes nothing.
     `on_batch(slot, s0, nb, status, counts, flat)` is called after each
-    batch, in slot order, on the drain
-    thread (the caller formats output there); `xfer` collects the batch
-    payload bytes (h2d_bytes; d2h_bytes, meta and the populated prefix)
-    and the seconds of the pipeline's legs (launch_s: pack, upload, launches and queued copies
-    on this thread; drain_s: the drain's work, of which format_s is in
-    `on_batch`; wait_s: the drain waiting for the device and fetching;
-    stall_s: this thread waiting for the drain); `progress(done, total,
-    aligned)` is called after each batch with the records done and
-    aligned so far in this call.  A failure in the drain raises here."""
+    batch, in slot order, on the drain thread (the caller formats output
+    there, in spans that take the batch's id from its `format` span);
+    `xfer` collects the batch payload bytes (h2d_bytes; d2h_bytes, meta
+    and the populated prefix); `progress(done, total, aligned)` is
+    called after each batch with the records done and aligned so far in
+    this call.  A failure in the drain raises here.
+
+    `spans` (spans.py) gets the pipeline's legs, each batch's spans
+    carrying its id, unique within the run: on this thread `launch`
+    (children `launch.pack` and `launch.card` per card: upload, kernels
+    and queued copies) and `stall` (waiting for the drain of the batch);
+    on the drain thread one `fetch` per card (the wait for `meta`, the
+    prefix's copy, and `fetch.expand`, its rows rebuilt), then `drain`
+    (children `drain.rebuild`, `drain.recompute` over pmax with counter
+    `reads`, and `format` around `on_batch`)."""
     devices = list(mesh) if mesh else [torch.device(device)]
     if len(devices) > 1:
         batch_size = -(-batch_size // len(devices)) * len(devices)
@@ -273,21 +280,23 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
         xfer = {}
     for key in ("h2d_bytes", "d2h_bytes"):
         xfer.setdefault(key, 0)
-    for key in ("launch_s", "drain_s", "format_s", "wait_s", "stall_s"):
-        xfer.setdefault(key, 0.0)
+    if spans is None:
+        spans = Recorder()
+    batch0 = spans.batches(-(-N // batch_size))
     seen = {"aligned": 0}
 
     def launch(s0, nb, L, pmax) -> list:
         """Pack records [s0, s0+nb), launch each shard's kernels on its
         device and queue its copies: the batch's shards."""
-        words, nmbits, blens = pack_records(parsed, lens_all, s0, nb, L)
+        with spans.span("launch.pack"):
+            words, nmbits, blens = pack_records(parsed, lens_all, s0, nb, L)
         xfer["h2d_bytes"] += words.nbytes + nmbits.nbytes + blens.nbytes
         step = -(-nb // len(devices))
         shards = []
-        for dev, ix, fs, a in zip(devices, ixs, fetch_streams,
-                                  range(0, nb, step)):
+        for card, (dev, ix, fs, a) in enumerate(zip(
+                devices, ixs, fetch_streams, range(0, nb, step))):
             b = min(a + step, nb)
-            with on_device(dev):
+            with spans.span("launch.card", card=card), on_device(dev):
                 meta_d, flat_d = align_batch_packed_compact(
                     ix, upload(words[a:b], dev), upload(nmbits[a:b], dev),
                     upload(blens[a:b], dev), mode=mode, k=k, m=m,
@@ -296,88 +305,98 @@ def align_bulk(graph: UnitigGraph, parsed, m: int, effort: int, *,
                 shards.append(_Shard(meta_d, flat_d, fs))
         return shards
 
-    def drain(slot, s0, nb, pmax, shards):
-        t0 = time.perf_counter()
+    def drain(slot, batch, s0, nb, pmax, shards):
         metas, rows = [], []
-        for sh in shards:
-            meta, counts, prefix = sh.fetch(pmax)
-            xfer["d2h_bytes"] += meta.nbytes + prefix.nbytes
-            metas.append(meta)
-            rows.append(expand_compact(meta, prefix, pmax))
-        t1 = time.perf_counter()
-        meta = np.concatenate(metas)
-        paths = np.concatenate(rows).astype(np.int32)
-        counts = compact_counts(meta, pmax)
-        status = meta[:, 0].astype(np.int32)
-        plen = meta[:, 1].astype(np.int32)
-        aligned = (status == STATUS_ALIGNED_FWD) | (status == STATUS_ALIGNED_RC)
-        over = aligned & (plen > pmax)
-        if di.id_inv is not None:
-            # renumbered device ids -> file-order ids (slot 0 is the
-            # offset; overflow rows are recomputed with file-order ids)
+        for card, sh in enumerate(shards):
+            with spans.span("fetch", batch, card):
+                meta, counts, prefix = sh.fetch(pmax)
+                xfer["d2h_bytes"] += meta.nbytes + prefix.nbytes
+                metas.append(meta)
+                with spans.span("fetch.expand"):
+                    rows.append(expand_compact(meta, prefix, pmax))
+        with spans.span("drain", batch):
+            with spans.span("drain.rebuild"):
+                meta = np.concatenate(metas)
+                paths = np.concatenate(rows).astype(np.int32)
+                counts = compact_counts(meta, pmax)
+                status = meta[:, 0].astype(np.int32)
+                plen = meta[:, 1].astype(np.int32)
+                aligned = ((status == STATUS_ALIGNED_FWD)
+                           | (status == STATUS_ALIGNED_RC))
+                over = aligned & (plen > pmax)
+                if di.id_inv is not None:
+                    # renumbered device ids -> file-order ids (slot 0 is
+                    # the offset; overflow rows are recomputed with
+                    # file-order ids)
+                    cols = np.arange(paths.shape[1])[None, :]
+                    sel = ((aligned & ~over)[:, None] & (cols >= 1)
+                           & (cols < counts[:, None]))
+                    v = paths[sel]
+                    paths[sel] = np.sign(v) * di.id_inv[np.abs(v)]
+            if over.any():
+                with spans.span("drain.recompute"):
+                    spans.count("reads", int(over.sum()))
+                    paths, counts, aligned = _recompute(
+                        s0, paths, counts, status, over, pmax)
+            status_all[s0 : s0 + nb] = status
+            counts_all[s0 : s0 + nb] = counts
             cols = np.arange(paths.shape[1])[None, :]
-            sel = ((aligned & ~over)[:, None] & (cols >= 1)
-                   & (cols < counts[:, None]))
-            v = paths[sel]
-            paths[sel] = np.sign(v) * di.id_inv[np.abs(v)]
-        if over.any():
-            # the device rows hold only pmax path slots: recompute these
-            # reads exactly with the executable spec
-            full = {}
-            for i in np.nonzero(over)[0]:
-                _, codes, nm = parsed.record(s0 + int(i))
-                st, path = spec(graph, codes, nm)
-                status[i] = st
-                full[int(i)] = path or []
-            aligned = (status == STATUS_ALIGNED_FWD) | (
-                status == STATUS_ALIGNED_RC)
-            wide = max([pmax] + [len(p) for p in full.values()])
-            if wide > paths.shape[1]:
-                paths = np.pad(paths, ((0, 0), (0, wide - paths.shape[1])))
-            for i, path in full.items():
-                paths[i, : len(path)] = path
-                paths[i, len(path):] = 0
-                counts[i] = len(path)
-            counts = np.where(aligned, counts, 0)
-        status_all[s0 : s0 + nb] = status
-        counts_all[s0 : s0 + nb] = counts
-        cols = np.arange(paths.shape[1])[None, :]
-        flat = paths[aligned[:, None] & (cols < counts[:, None])]
-        flat_parts[slot] = flat
-        t2 = time.perf_counter()
-        if on_batch is not None:
-            on_batch(slot, s0, nb, status, counts, flat)
-        xfer["format_s"] += time.perf_counter() - t2
-        if progress is not None:
-            seen["aligned"] += int(aligned.sum())
-            progress(s0 + nb, N, seen["aligned"])
-        xfer["wait_s"] += t1 - t0
-        xfer["drain_s"] += time.perf_counter() - t1
+            flat = paths[aligned[:, None] & (cols < counts[:, None])]
+            flat_parts[slot] = flat
+            if on_batch is not None:
+                with spans.span("format"):
+                    on_batch(slot, s0, nb, status, counts, flat)
+            if progress is not None:
+                seen["aligned"] += int(aligned.sum())
+                progress(s0 + nb, N, seen["aligned"])
+
+    def _recompute(s0, paths, counts, status, over, pmax):
+        """The device rows hold only pmax path slots: the reads of `over`
+        recomputed exactly with the executable spec (status in place)."""
+        full = {}
+        for i in np.nonzero(over)[0]:
+            _, codes, nm = parsed.record(s0 + int(i))
+            st, path = spec(graph, codes, nm)
+            status[i] = st
+            full[int(i)] = path or []
+        aligned = (status == STATUS_ALIGNED_FWD) | (
+            status == STATUS_ALIGNED_RC)
+        wide = max([pmax] + [len(p) for p in full.values()])
+        if wide > paths.shape[1]:
+            paths = np.pad(paths, ((0, 0), (0, wide - paths.shape[1])))
+        for i, path in full.items():
+            paths[i, : len(path)] = path
+            paths[i, len(path):] = 0
+            counts[i] = len(path)
+        return paths, np.where(aligned, counts, 0), aligned
 
     pending: deque = deque()
+
+    def stall():
+        """Wait for the oldest batch's drain (its failure raises)."""
+        slot, fut = pending.popleft()
+        with spans.span("stall", batch0 + slot):
+            fut.result()
+
     with ThreadPoolExecutor(max_workers=1) as pool:
         try:
             for slot, s0 in enumerate(range(0, N, batch_size)):
-                t0 = time.perf_counter()
-                nb = min(batch_size, N - s0)
-                L = _bucket_len(
-                    int(lens_all[s0 : s0 + nb].max(initial=k + 1)), k)
-                pmax = min(_pmax_for(di, L), _pmax_cap(L))
-                shards = launch(s0, nb, L, pmax)
-                flat_parts.append(None)
-                pending.append(pool.submit(drain, slot, s0, nb, pmax,
-                                           shards))
-                t1 = time.perf_counter()
-                xfer["launch_s"] += t1 - t0
+                batch = batch0 + slot
+                with spans.span("launch", batch):
+                    nb = min(batch_size, N - s0)
+                    L = _bucket_len(
+                        int(lens_all[s0 : s0 + nb].max(initial=k + 1)), k)
+                    pmax = min(_pmax_for(di, L), _pmax_cap(L))
+                    shards = launch(s0, nb, L, pmax)
+                    flat_parts.append(None)
+                    pending.append((slot, pool.submit(
+                        drain, slot, batch, s0, nb, pmax, shards)))
                 if len(pending) >= IN_FLIGHT:
-                    pending.popleft().result()
-                    xfer["stall_s"] += time.perf_counter() - t1
-            t1 = time.perf_counter()
+                    stall()
             while pending:
-                pending.popleft().result()
-            xfer["stall_s"] += time.perf_counter() - t1
+                stall()
         except BaseException:
-            for f in pending:
+            for _, f in pending:
                 f.cancel()
             raise
 

@@ -154,10 +154,38 @@ def _load_mphf(z, pfx: str) -> MPHF:
     )
 
 
-def load_index(path: str) -> UnitigGraph:
+class _Members:
+    """An npz file's members by name, each read from the file (and
+    inflated, in a compressed file) in an `index.read` span of `spans`,
+    with counters `file_bytes` (its stored size) and `array_bytes`."""
+
+    def __init__(self, z, spans):
+        self.z, self.spans = z, spans
+
+    def __contains__(self, name) -> bool:
+        return name in self.z
+
+    def __getitem__(self, name):
+        with self.spans.span("index.read"):
+            a = self.z[name]
+            self.spans.count("file_bytes",
+                             self.z.zip.getinfo(name + ".npy").compress_size)
+            self.spans.count("array_bytes", a.nbytes)
+        return a
+
+    @property
+    def zip(self):
+        return self.z.zip
+
+
+def load_index(path: str, spans=None) -> UnitigGraph:
     """Load a persisted index; returns the graph with its device index
-    kept in `graph._torch_device_index` when the file carries one (v2)."""
-    z = np.load(path, allow_pickle=False)
+    kept in `graph._torch_device_index` when the file carries one (v2).
+    The members' reads are spans of `spans` (`index.read`, spans.py)."""
+    from ..spans import Recorder
+
+    z = _Members(np.load(path, allow_pickle=False),
+                 Recorder() if spans is None else spans)
     magic = str(z["magic"])
     if magic == _MAGIC_V1:
         return _load_v1(z)

@@ -21,7 +21,8 @@ import json
 import os
 import sys
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from typing import ClassVar
 
 import numpy as np
 import torch
@@ -34,6 +35,7 @@ from .engine.runner import align_bulk, get_device_index, mesh_index
 from .index.build import UnitigGraph, build_graph
 from .index.device import hbm_report
 from .index.persist import save_index as persist_index
+from .spans import Recorder
 from .spec import (
     _CHARS, RunStats, _count_stats, _format_outputs,
     run_pipeline as spec_pipeline,
@@ -47,46 +49,49 @@ IMPLS = ("auto", "python", "jax")   # dbgtpu's --impl choices
 
 @dataclass
 class TorchRunStats(RunStats):
-    """RunStats plus the port's phase split.  The phases below
+    """RunStats plus the port's phase split and the run's span recorder
+    (spans.py).  Each `*_seconds` leg of LEGS is the wall time of its
+    spans (`leg`); index_seconds (the graph's build or load and its save) and
+    map_seconds are set from the spans as each ends.  The phases below
     lie inside map_seconds, as the device index build and upload do in
     dbgtpu."""
 
     device: str = ""
-    device_index_seconds: float = 0.0   # build_device_index (host)
-    upload_seconds: float = 0.0         # index tensors onto the device
-    parse_seconds: float = 0.0          # read files -> packed records
-    align_seconds: float = 0.0          # pack + kernels + unpack + format
-    # the pipelined runner's legs, summed over batches (inside
-    # align_seconds): pack, upload, launches and queued copies on the
-    # calling thread; the drain thread's work (rebuild, recompute,
-    # format; format alone beside it) and its waits for the device; the
-    # calling thread's waits for the drain
-    launch_seconds: float = 0.0
-    drain_seconds: float = 0.0
-    format_seconds: float = 0.0
-    wait_seconds: float = 0.0
-    stall_seconds: float = 0.0
+    spans: Recorder = field(default_factory=Recorder)
     # bytes of index tables each device holds (one entry per device of
     # the mesh, or the one device): the whole index, or under
     # --shard-index its own ranges of the two large tables and the rest
     index_card_bytes: list | None = None
 
+    # leg -> the span it sums; the runner's legs (engine/runner.py
+    # align_bulk) lie inside align and are summed over batches
+    LEGS: ClassVar[dict] = {
+        "device_index_seconds": "index.device",  # device index build (host)
+        "upload_seconds": "index.upload",   # index tensors onto the devices
+        "parse_seconds": "parse",           # read files -> packed records
+        "align_seconds": "align",           # pack, kernels, unpack, format
+        "launch_seconds": "launch",         # pack, upload, launch, queue copies
+        "drain_seconds": "drain",           # rebuild, recompute, format
+        "format_seconds": "format",         # the output text, in the drain
+        "wait_seconds": "fetch",            # the drain's waits and copies
+        "stall_seconds": "stall",           # the launch thread's waits
+    }
+    INDEX_SPANS: ClassVar[tuple] = ("index.load", "graph.build",
+                                    "index.save")
+
+    def leg(self, name: str) -> float:
+        """Seconds of leg `name` of LEGS: the wall time of its spans."""
+        return self.spans.total(self.LEGS[name])
+
     def as_dict(self) -> dict:
         d = super().as_dict()
-        d.update(
-            device=self.device,
-            device_index_seconds=round(self.device_index_seconds, 3),
-            upload_seconds=round(self.upload_seconds, 3),
-            parse_seconds=round(self.parse_seconds, 3),
-            align_seconds=round(self.align_seconds, 3),
-            launch_seconds=round(self.launch_seconds, 3),
-            drain_seconds=round(self.drain_seconds, 3),
-            format_seconds=round(self.format_seconds, 3),
-            wait_seconds=round(self.wait_seconds, 3),
-            stall_seconds=round(self.stall_seconds, 3),
-        )
+        d["device"] = self.device
+        d.update((leg, round(self.leg(leg), 3)) for leg in self.LEGS)
         if self.index_card_bytes is not None:
             d["index_card_bytes"] = self.index_card_bytes
+        trace = self.spans.trace()
+        if trace is not None:
+            d["trace"] = trace
         return d
 
 
@@ -140,72 +145,77 @@ def make_progress_printer(every_batches: int):
 
 
 def _add_xfer(stats, xfer) -> None:
-    """One align_bulk call's payload bytes and leg seconds into stats."""
+    """One align_bulk call's payload bytes into stats."""
     stats.payload_h2d_bytes += xfer["h2d_bytes"]
     stats.payload_d2h_bytes += xfer["d2h_bytes"]
-    for leg in ("launch", "drain", "format", "wait", "stall"):
-        setattr(stats, f"{leg}_seconds",
-                getattr(stats, f"{leg}_seconds") + xfer[f"{leg}_s"])
 
 
 def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
               mode, partial, index_layout, stats, paths_out, na_out,
               rec_range=None, progress=None, mesh=None, shard_index=False):
-    t = time.monotonic()
-    parsed = native.parse_reads(rf, graph.k, fastq)
-    if rec_range is not None:
-        s, e = rec_range(parsed.n)
-        parsed = parsed.slice_records(s, e)
-    stats.parse_seconds += time.monotonic() - t
+    spans = stats.spans
+    with spans.span("parse"):
+        parsed = native.parse_reads(rf, graph.k, fastq)
+        spans.count("bytes", os.path.getsize(rf))
+        if rec_range is not None:
+            s, e = rec_range(parsed.n)
+            parsed = parsed.slice_records(s, e)
+        spans.count("reads", parsed.n)
     on_batch = None
     parts_p: dict = {}
     parts_n: dict = {}
     if native.available():
         # per-batch native formatting (dbgtpu pipeline._run_file_bulk)
+        # in the runner's `format` span: the paths text, the
+        # notAligned image (base letters and N, in numpy) and the
+        # notAligned text, each in its own span
         def on_batch(slot, s0, nb, status_b, counts_b, flat_b):
-            po = np.zeros(nb + 1, np.int64)
-            np.cumsum(counts_b, out=po[1:])
             ho = parsed.hdr_off[s0 : s0 + nb + 1]
-            if correction:
-                parts_p[slot] = native.format_corrected_native(
-                    parsed.headers, ho, status_b, po, flat_b,
-                    parsed.seq_off[s0 : s0 + nb + 1],
-                    graph.pool, graph.offsets, graph.lengths, graph.k,
-                )
-            else:
-                parts_p[slot] = native.format_paths_native(
-                    parsed.headers, ho, status_b, po, flat_b,
-                )
-            al = (status_b == STATUS_ALIGNED_FWD) | (
-                status_b == STATUS_ALIGNED_RC)
-            if al.all():
-                parts_n[slot] = b""
-            else:
-                so = parsed.seq_off[s0 : s0 + nb + 1]
-                chars = _CHARS[parsed.codes[so[0] : so[-1]]].copy()
-                chars[parsed.nmask[so[0] : so[-1]]] = ord("N")
-                parts_n[slot] = native.format_notaligned_native(
-                    parsed.headers, ho, status_b, chars, so - so[0],
-                )
+            with spans.span("format.paths"):
+                po = np.zeros(nb + 1, np.int64)
+                np.cumsum(counts_b, out=po[1:])
+                if correction:
+                    parts_p[slot] = native.format_corrected_native(
+                        parsed.headers, ho, status_b, po, flat_b,
+                        parsed.seq_off[s0 : s0 + nb + 1],
+                        graph.pool, graph.offsets, graph.lengths, graph.k,
+                    )
+                else:
+                    parts_p[slot] = native.format_paths_native(
+                        parsed.headers, ho, status_b, po, flat_b,
+                    )
+            with spans.span("format.na_image"):
+                al = (status_b == STATUS_ALIGNED_FWD) | (
+                    status_b == STATUS_ALIGNED_RC)
+                chars = None
+                if not al.all():
+                    so = parsed.seq_off[s0 : s0 + nb + 1]
+                    chars = _CHARS[parsed.codes[so[0] : so[-1]]].copy()
+                    chars[parsed.nmask[so[0] : so[-1]]] = ord("N")
+            with spans.span("format.na_text"):
+                parts_n[slot] = b"" if chars is None else (
+                    native.format_notaligned_native(
+                        parsed.headers, ho, status_b, chars, so - so[0]))
 
     xfer: dict = {}
-    t = time.monotonic()
-    status, path_off, flat = align_bulk(
-        graph, parsed, m, effort, batch_size=batch_size, device=device,
-        mode=mode, partial=partial, index_layout=index_layout, mesh=mesh,
-        shard_index=shard_index, on_batch=on_batch, xfer=xfer,
-        progress=progress,
-    )
-    stats.align_seconds += time.monotonic() - t
+    with spans.span("align"):
+        status, path_off, flat = align_bulk(
+            graph, parsed, m, effort, batch_size=batch_size, device=device,
+            mode=mode, partial=partial, index_layout=index_layout,
+            mesh=mesh, shard_index=shard_index, on_batch=on_batch,
+            xfer=xfer, progress=progress, spans=spans,
+        )
     _add_xfer(stats, xfer)
     aligned = _count_stats(stats, status)
     if on_batch is not None:
-        paths_out.append(b"".join(parts_p[i] for i in sorted(parts_p)))
-        na_out.append(b"".join(parts_n[i] for i in sorted(parts_n)))
+        with spans.span("write"):
+            paths_out.append(b"".join(parts_p[i] for i in sorted(parts_p)))
+            na_out.append(b"".join(parts_n[i] for i in sorted(parts_n)))
     else:
-        pb, nab = _format_outputs(
-            graph, parsed, status, path_off, flat, correction, aligned
-        )
+        with spans.span("format"):
+            pb, nab = _format_outputs(
+                graph, parsed, status, path_off, flat, correction, aligned
+            )
         paths_out.append(pb)
         na_out.append(nab)
 
@@ -216,18 +226,18 @@ def _upload_index(graph, index_layout, device, mesh, mode, shard_index,
     carries it, and its tensors on `device` or on each device of `mesh`
     (memoized; cut over the mesh under `shard_index`, after dbgtpu's
     guards, runner.mesh_index)."""
-    t = time.monotonic()
-    di = get_device_index(graph, index_layout)
-    stats.device_index_seconds = time.monotonic() - t
-    t = time.monotonic()
-    devices = mesh or [device]
-    ixs = mesh_index(graph, index_layout, devices, mode, bool(mesh),
-                     shard_index)
-    for d in devices:
-        _sync(d)
-    stats.upload_seconds = time.monotonic() - t
+    spans = stats.spans
+    with spans.span("index.device"):
+        di = get_device_index(graph, index_layout, spans)
+    with spans.span("index.upload"):
+        devices = mesh or [device]
+        ixs = mesh_index(graph, index_layout, devices, mode, bool(mesh),
+                         shard_index)
+        for d in devices:
+            _sync(d)
+        stats.index_card_bytes = [ix.held_bytes() for ix in ixs]
+        spans.count("bytes", sum(stats.index_card_bytes))
     stats.index_hbm = hbm_report(di)
-    stats.index_card_bytes = [ix.held_bytes() for ix in ixs]
 
 
 def run_pipeline(
@@ -251,6 +261,7 @@ def run_pipeline(
     impl: str = "auto",
     mesh_devices: int = 0,
     shard_index: bool = False,
+    spans: Recorder | None = None,
 ):
     """Returns (paths_bytes, not_aligned_bytes, TorchRunStats).
 
@@ -276,19 +287,23 @@ def run_pipeline(
     `--shard-index`) on a mesh takes dbgtpu's guards and, over more than
     one device, cuts the index's junction and probe tables over the
     mesh's devices (engine/index.py sharded_index_tensors); without a
-    mesh it changes nothing."""
+    mesh it changes nothing.  `spans` is the run's span recorder (a new
+    one, on under an active torch.profiler, by default)."""
     if mode not in DEVICE_MODES + PATH_MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}")
     device = torch.device(device)
-    stats = TorchRunStats(device=str(device))
-    t0 = time.monotonic()
+    stats = _stats(device, spans)
+    spans = stats.spans
     if graph is None:
-        graph = build_graph(unitig_file, k, dog_mode=(mode == "anchors"))
+        with spans.span("graph.build"):
+            graph = build_graph(unitig_file, k,
+                                dog_mode=(mode == "anchors"))
     if save_index:
-        persist_index(graph, save_index, layout=index_layout)
-    stats.index_seconds = time.monotonic() - t0
+        with spans.span("index.save"):
+            persist_index(graph, save_index, layout=index_layout)
+    stats.index_seconds = spans.total(*stats.INDEX_SPANS)
 
     rec_range = None
     if num_processes > 1:
@@ -297,31 +312,40 @@ def run_pipeline(
 
     if mode in PATH_MODES or impl == "python":
         stats.device = HOST_SPEC
-        paths, na, host = spec_pipeline(
-            reads_files, unitig_file, k, m=m, effort=effort, fastq=fastq,
-            correction=correction, graph=graph, mode=mode, partial=partial,
-            rec_range=rec_range)
-        for name in ("read_number", "aligned", "not_aligned", "no_overlap",
-                     "map_seconds"):
+        with spans.span("map") as sp:
+            paths, na, host = spec_pipeline(
+                reads_files, unitig_file, k, m=m, effort=effort,
+                fastq=fastq, correction=correction, graph=graph, mode=mode,
+                partial=partial, rec_range=rec_range)
+        for name in ("read_number", "aligned", "not_aligned", "no_overlap"):
             setattr(stats, name, getattr(host, name))
+        stats.map_seconds = sp.seconds
         return paths, na, stats
 
-    t1 = time.monotonic()
-    mesh = mesh_of(mesh_devices, device)
-    _upload_index(graph, index_layout, device, mesh, mode, shard_index,
-                  stats)
-    progress = make_progress_printer(progress_every)
     paths_out: list[bytes] = []
     na_out: list[bytes] = []
-    for rf in reads_files:
-        if progress is not None:
-            progress.segment()
-        _run_file(graph, rf, m, effort, fastq, correction, batch_size,
-                  device, mode, partial, index_layout, stats, paths_out,
-                  na_out, rec_range=rec_range, progress=progress,
-                  mesh=mesh, shard_index=shard_index)
-    stats.map_seconds = time.monotonic() - t1
-    return b"".join(paths_out), b"".join(na_out), stats
+    with spans.span("map") as sp:
+        mesh = mesh_of(mesh_devices, device)
+        _upload_index(graph, index_layout, device, mesh, mode, shard_index,
+                      stats)
+        progress = make_progress_printer(progress_every)
+        for rf in reads_files:
+            if progress is not None:
+                progress.segment()
+            _run_file(graph, rf, m, effort, fastq, correction, batch_size,
+                      device, mode, partial, index_layout, stats, paths_out,
+                      na_out, rec_range=rec_range, progress=progress,
+                      mesh=mesh, shard_index=shard_index)
+    stats.map_seconds = sp.seconds
+    with spans.span("write"):
+        return b"".join(paths_out), b"".join(na_out), stats
+
+
+def _stats(device, spans) -> TorchRunStats:
+    """A run's stats on `device`, holding `spans` or a new recorder (on
+    under an active torch.profiler)."""
+    return TorchRunStats(device=str(device),
+                         spans=Recorder.for_run() if spans is None else spans)
 
 
 def _journal_fingerprint(reads_files, unitig_file, k, m, effort, mode,
@@ -356,6 +380,7 @@ def run_pipeline_resumable(
     progress_every: int = 0,
     mesh_devices: int = 0,
     shard_index: bool = False,
+    spans: Recorder | None = None,
 ) -> TorchRunStats:
     """Crash-resumable mapping run (counterpart of dbgtpu/pipeline.py
     run_pipeline_resumable; same journal, so either package resumes the
@@ -370,15 +395,16 @@ def run_pipeline_resumable(
     torn tail past the last fsync) and mapping continues at the
     journaled record offset, so the final bytes equal a single
     uninterrupted run's.  The journal is removed on completion.
-    `mesh_devices` and `shard_index` are run_pipeline's."""
+    `mesh_devices`, `shard_index` and `spans` are run_pipeline's."""
     if mode not in DEVICE_MODES:
         raise ValueError(f"a resumable run takes a device mode, not {mode!r}")
     device = torch.device(device)
-    stats = TorchRunStats(device=str(device))
-    t_ix = time.monotonic()
+    stats = _stats(device, spans)
+    spans = stats.spans
     if graph is None:
-        graph = build_graph(unitig_file, k, dog_mode=(mode == "anchors"))
-    t_ix = time.monotonic() - t_ix
+        with spans.span("graph.build"):
+            graph = build_graph(unitig_file, k,
+                                dog_mode=(mode == "anchors"))
     if not segment_records:
         segment_records = 4 * batch_size
     segment_records = max(segment_records, batch_size)
@@ -420,20 +446,20 @@ def run_pipeline_resumable(
             )
     for name, val in state["stats"].items():
         setattr(stats, name, val)
-    stats.index_seconds = t_ix
-    t1 = time.monotonic()
-    mesh = mesh_of(mesh_devices, device)
-    _upload_index(graph, index_layout, device, mesh, mode, shard_index,
-                  stats)
-    progress = make_progress_printer(progress_every)
-
-    with open(paths_file, "ab") as pf, open(na_file, "ab") as naf:
+    stats.index_seconds = spans.total(*stats.INDEX_SPANS)
+    with spans.span("map") as sp, open(paths_file, "ab") as pf, \
+            open(na_file, "ab") as naf:
+        mesh = mesh_of(mesh_devices, device)
+        _upload_index(graph, index_layout, device, mesh, mode, shard_index,
+                      stats)
+        progress = make_progress_printer(progress_every)
         for fi, rf in enumerate(reads_files):
             if fi < state["file_idx"]:
                 continue
-            t = time.monotonic()
-            parsed_all = native.parse_reads(rf, graph.k, fastq)
-            stats.parse_seconds += time.monotonic() - t
+            with spans.span("parse"):
+                parsed_all = native.parse_reads(rf, graph.k, fastq)
+                spans.count("reads", parsed_all.n)
+                spans.count("bytes", os.path.getsize(rf))
             start = state["record_off"] if fi == state["file_idx"] else 0
             for s0 in range(start, parsed_all.n, segment_records):
                 e0 = min(s0 + segment_records, parsed_all.n)
@@ -441,46 +467,49 @@ def run_pipeline_resumable(
                 if progress is not None:
                     progress.segment()
                 xfer: dict = {}
-                t = time.monotonic()
-                status, path_off, flat = align_bulk(
-                    graph, parsed, m, effort, batch_size=batch_size,
-                    device=device, mode=mode, partial=partial,
-                    index_layout=index_layout, mesh=mesh,
-                    shard_index=shard_index, progress=progress, xfer=xfer,
-                )
-                aligned = _count_stats(stats, status)
-                pb, nab = _format_outputs(
-                    graph, parsed, status, path_off, flat, correction,
-                    aligned,
-                )
-                stats.align_seconds += time.monotonic() - t
+                with spans.span("align"):
+                    status, path_off, flat = align_bulk(
+                        graph, parsed, m, effort, batch_size=batch_size,
+                        device=device, mode=mode, partial=partial,
+                        index_layout=index_layout, mesh=mesh,
+                        shard_index=shard_index, progress=progress,
+                        xfer=xfer, spans=spans,
+                    )
+                    aligned = _count_stats(stats, status)
+                    with spans.span("format"):
+                        pb, nab = _format_outputs(
+                            graph, parsed, status, path_off, flat,
+                            correction, aligned,
+                        )
                 _add_xfer(stats, xfer)
-                pf.write(pb)
-                pf.flush()
-                os.fsync(pf.fileno())
-                naf.write(nab)
-                naf.flush()
-                os.fsync(naf.fileno())
-                state.update(
-                    file_idx=fi, record_off=e0,
-                    paths_bytes=state["paths_bytes"] + len(pb),
-                    na_bytes=state["na_bytes"] + len(nab),
-                    stats=dict(
-                        read_number=stats.read_number,
-                        aligned=stats.aligned,
-                        not_aligned=stats.not_aligned,
-                        no_overlap=stats.no_overlap,
-                    ),
-                )
-                tmp = journal_file + ".tmp"
-                with open(tmp, "w") as jf:
-                    json.dump(state, jf)
-                    jf.flush()
-                    os.fsync(jf.fileno())
-                os.replace(tmp, journal_file)
+                with spans.span("write"):
+                    pf.write(pb)
+                    pf.flush()
+                    os.fsync(pf.fileno())
+                    naf.write(nab)
+                    naf.flush()
+                    os.fsync(naf.fileno())
+                    state.update(
+                        file_idx=fi, record_off=e0,
+                        paths_bytes=state["paths_bytes"] + len(pb),
+                        na_bytes=state["na_bytes"] + len(nab),
+                        stats=dict(
+                            read_number=stats.read_number,
+                            aligned=stats.aligned,
+                            not_aligned=stats.not_aligned,
+                            no_overlap=stats.no_overlap,
+                        ),
+                    )
+                    tmp = journal_file + ".tmp"
+                    with open(tmp, "w") as jf:
+                        json.dump(state, jf)
+                        jf.flush()
+                        os.fsync(jf.fileno())
+                    os.replace(tmp, journal_file)
             state["file_idx"] = fi + 1
             state["record_off"] = 0
-    stats.map_seconds = time.monotonic() - t1
+    stats.map_seconds = sp.seconds
     if os.path.exists(journal_file):
         os.remove(journal_file)
     return stats
+

@@ -281,7 +281,7 @@ def test_init_distributed_and_stats_sum_in_one_process(monkeypatch):
 
 @pytest.mark.parametrize("extra", [[], ["--resume", "--batch-size", "8"]])
 def test_profile_dir_writes_a_trace(tmp_path, monkeypatch, extra):
-    """--profile-dir writes a Chrome trace of the mapping call into DIR,
+    """--profile-dir writes a Chrome trace of the whole run into DIR,
     of a journaled run too; the bytes do not change."""
     rf, uf = _files(tmp_path)
     monkeypatch.chdir(tmp_path)

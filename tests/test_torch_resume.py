@@ -60,7 +60,7 @@ def test_resume_uninterrupted_matches_buffered(tmp_path, mode, layout):
     assert open(naf, "rb").read() == want_n
     for f in _COUNTS:
         assert getattr(stats, f) == getattr(want_s, f), f
-    assert stats.payload_d2h_bytes > 0 and stats.align_seconds > 0
+    assert stats.payload_d2h_bytes > 0 and stats.leg("align_seconds") > 0
     assert not (tmp_path / "paths.resume.json").exists()
 
 

@@ -313,8 +313,8 @@ def run_mode(cell, mode, layout, reps, device, codes_all, rf, uf, td, n_spec,
             _, _, stats = mapped()
             wall = time.monotonic() - t0
             row = dict(wall_s=wall, reads_per_s=stats.read_number / wall,
-                       aligned=stats.aligned, parse_s=stats.parse_seconds,
-                       align_s=stats.align_seconds,
+                       aligned=stats.aligned, parse_s=stats.leg("parse_seconds"),
+                       align_s=stats.leg("align_seconds"),
                        **{f"{k}_s": v for k, v in st.t.items()})
             out["warm"].append(row)
             cs.log(f"{tag} warm {rep}: " + ", ".join(
