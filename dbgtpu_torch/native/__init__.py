@@ -32,19 +32,6 @@ _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-class _Parsed(ctypes.Structure):
-    _fields_ = [
-        ("n", ctypes.c_int64),
-        ("seq_bytes", ctypes.c_int64),
-        ("hdr_bytes", ctypes.c_int64),
-        ("codes", ctypes.POINTER(ctypes.c_uint8)),
-        ("nmask", ctypes.POINTER(ctypes.c_uint8)),
-        ("seq_off", ctypes.POINTER(ctypes.c_int64)),
-        ("headers", ctypes.POINTER(ctypes.c_uint8)),
-        ("hdr_off", ctypes.POINTER(ctypes.c_int64)),
-    ]
-
-
 def _build_lib() -> Optional[ctypes.CDLL]:
     _LIB_CACHE.mkdir(parents=True, exist_ok=True)
     tag = f"{_SRC.stat().st_mtime_ns:x}"
@@ -53,7 +40,7 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         tmp = so.with_suffix(f".{os.getpid()}.tmp.so")
         cmd = [
             "g++", "-O3", "-march=native", "-std=c++17", "-shared",
-            "-fPIC", str(_SRC), "-o", str(tmp),
+            "-fPIC", "-pthread", str(_SRC), "-o", str(tmp),
         ]
         try:
             subprocess.run(
@@ -66,11 +53,14 @@ def _build_lib() -> Optional[ctypes.CDLL]:
         lib = ctypes.CDLL(str(so))
     except OSError:
         return None
-    lib.dbg_parse_reads.restype = ctypes.POINTER(_Parsed)
-    lib.dbg_parse_reads.argtypes = [
-        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+    lib.dbg_parse_reads_into.restype = ctypes.c_int32
+    lib.dbg_parse_reads_into.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_uint8),
+        ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64),
     ]
-    lib.dbg_free_parsed.argtypes = [ctypes.POINTER(_Parsed)]
     lib.dbg_format_paths.restype = ctypes.POINTER(ctypes.c_uint8)
     lib.dbg_format_paths.argtypes = [
         ctypes.POINTER(ctypes.c_uint8), ctypes.POINTER(ctypes.c_int64),
@@ -166,33 +156,71 @@ class ParsedReads:
         )
 
 
-def _copy_arr(ptr, n, dtype):
-    if n == 0:
-        return np.zeros(0, dtype)
-    return np.ctypeslib.as_array(ptr, shape=(n,)).astype(dtype, copy=True)
+# A FASTA file is cut into one chunk a started _CHUNK_BYTES, parsed at
+# once on up to _MAX_THREADS of the usable cores.
+_CHUNK_BYTES = 8 << 20
+_MAX_THREADS = 8
 
 
-def parse_reads_native(path: str, k: int, fastq: bool) -> ParsedReads:
+def parse_threads(nbytes: int, fastq: bool) -> int:
+    """Chunks a read file of `nbytes` bytes is parsed in at once: 1 for
+    FASTQ ('@' may open a quality line, so no cut is safe)."""
+    if fastq:
+        return 1
+    return max(1, min(len(os.sched_getaffinity(0)), _MAX_THREADS,
+                      -(-nbytes // _CHUNK_BYTES)))
+
+
+def parse_reads_chunked(
+    path: str, k: int, fastq: bool, threads: Optional[int] = None,
+) -> tuple[ParsedReads, int]:
+    """(parsed, chunks): the file parsed by `dbg_parse_reads_into` in
+    one pass over up to `threads` chunks (default `parse_threads`) cut
+    at record starts, straight into arrays allocated here once
+    (np.empty: untouched pages cost nothing) and sized from the file:
+    codes, nmask and headers at most its bytes, the offsets at most one
+    a `min_rec` bytes and one a chunk.  The result holds views of them;
+    only the headers are copied, into `bytes`."""
     lib = _get_lib()
     if lib is None:
         raise RuntimeError("native io unavailable")
-    p = lib.dbg_parse_reads(str(path).encode(), k, 1 if fastq else 0)
-    if not p:
-        raise FileNotFoundError(path)
-    try:
-        c = p.contents
-        n = int(c.n)
-        out = ParsedReads(
-            n=n,
-            codes=_copy_arr(c.codes, int(c.seq_bytes), np.uint8),
-            nmask=_copy_arr(c.nmask, int(c.seq_bytes), np.uint8).astype(bool),
-            seq_off=_copy_arr(c.seq_off, n + 1, np.int64),
-            headers=bytes(_copy_arr(c.headers, int(c.hdr_bytes), np.uint8)),
-            hdr_off=_copy_arr(c.hdr_off, n + 1, np.int64),
-        )
-    finally:
-        lib.dbg_free_parsed(p)
-    return out
+    size = os.stat(path).st_size
+    if threads is None:
+        threads = parse_threads(size, fastq)
+    if threads < 1:
+        raise ValueError(f"threads must be >= 1, got {threads}")
+    # the fewest file bytes one accepted record takes: FASTA '>', the
+    # header's newline and more than max(k, 2) bases; FASTQ a newline
+    # and 3 bases
+    min_rec = 4 if fastq else max(k, 2) + 3
+    cap = size // min_rec + threads + 1
+    codes = np.empty(size, np.uint8)
+    nmask = np.empty(size, np.uint8)
+    hdrs = np.empty(size, np.uint8)
+    seq_off = np.empty(cap, np.int64)
+    hdr_off = np.empty(cap, np.int64)
+    out = np.zeros(4, np.int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    rc = lib.dbg_parse_reads_into(
+        os.fsencode(path), k, 1 if fastq else 0, threads, min_rec, size,
+        cap, codes.ctypes.data_as(u8p), nmask.ctypes.data_as(u8p),
+        hdrs.ctypes.data_as(u8p), seq_off.ctypes.data_as(i64p),
+        hdr_off.ctypes.data_as(i64p), out.ctypes.data_as(i64p),
+    )
+    if rc == -1:
+        raise OSError(f"cannot read {path}")
+    if rc != 0:
+        raise RuntimeError(f"{path} changed while it was parsed")
+    n, sb, hb, chunks = (int(v) for v in out)
+    return ParsedReads(
+        n=n,
+        codes=codes[:sb],
+        nmask=nmask[:sb].view(bool),
+        seq_off=seq_off[: n + 1],
+        headers=bytes(hdrs[:hb]),
+        hdr_off=hdr_off[: n + 1],
+    ), chunks
 
 
 def parse_reads_python(path: str, k: int, fastq: bool) -> ParsedReads:
@@ -223,11 +251,17 @@ def parse_reads_python(path: str, k: int, fastq: bool) -> ParsedReads:
     )
 
 
-def parse_reads(path: str, k: int, fastq: bool) -> ParsedReads:
-    """Bulk parse; native when available, python spec otherwise."""
+def parse_reads(path: str, k: int, fastq: bool, count=None) -> ParsedReads:
+    """Bulk parse; native when available, python spec otherwise.
+    `count(name, n)`, when given, receives `threads`: the chunks parsed
+    at once."""
     if available():
-        return parse_reads_native(path, k, fastq)
-    return parse_reads_python(path, k, fastq)
+        parsed, chunks = parse_reads_chunked(path, k, fastq)
+    else:
+        parsed, chunks = parse_reads_python(path, k, fastq), 1
+    if count is not None:
+        count("threads", chunks)
+    return parsed
 
 
 def format_paths_native(

@@ -2,91 +2,149 @@
 //
 // Counterpart of the reference's C++ host runtime
 // (Aligner::getReads, aligner.cpp:46-117): parses FASTA/FASTQ with the
-// reference's acceptance rules and emits flat arrays ready for numpy /
-// device batching — 2-bit codes, N-mask, record offsets, headers.
+// reference's acceptance rules, in one pass over threads, into flat
+// arrays the caller allocated — 2-bit codes, N-mask, record offsets,
+// headers — ready for numpy / device batching.
 // Behavior contract is dbgtpu_torch/io/fasta.py (the executable spec); the
 // two are parity-tested byte-for-byte.
 //
-// Build: g++ -O3 -march=native -shared -fPIC io.cpp -o libdbgtpu_torch_io.so
+// Build: g++ -O3 -march=native -shared -fPIC -pthread io.cpp -o libdbgtpu_torch_io.so
 // (driven by dbgtpu_torch/native/__init__.py, cached, with python fallback).
+
+#include <fcntl.h>
+#include <sys/mman.h>
+#include <sys/stat.h>
+#include <unistd.h>
 
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <system_error>
+#include <thread>
 #include <vector>
 
 namespace {
 
-struct Tables {
-    uint8_t code[256];   // A=0 C=1 G=2 else 3
-    uint8_t ok[256];     // 1 iff in {A,C,G,T,N}
-    uint8_t isn[256];    // 1 iff 'N'
-    Tables() {
-        memset(code, 3, sizeof(code));
-        memset(ok, 0, sizeof(ok));
-        memset(isn, 0, sizeof(isn));
-        code[(unsigned)'A'] = 0;
-        code[(unsigned)'C'] = 1;
-        code[(unsigned)'G'] = 2;
-        code[(unsigned)'T'] = 3;
-        ok[(unsigned)'A'] = ok[(unsigned)'C'] = ok[(unsigned)'G'] =
-            ok[(unsigned)'T'] = ok[(unsigned)'N'] = 1;
-        isn[(unsigned)'N'] = 1;
-    }
-};
-const Tables T;
-
-struct RecordSink {
-    std::vector<uint8_t> codes, nmask, headers;
-    std::vector<int64_t> seq_off{0}, hdr_off{0};
+// One chunk's records, written in one pass into the caller's arrays:
+// codes, nmask and header bytes from the chunk's own input offset on
+// (a chunk never writes more bytes than it reads, so the chunks'
+// regions do not overlap), and each accepted record's end offsets,
+// relative to the chunk, into its own slots of seq_off / hdr_off.
+struct Writer {
+    uint8_t* codes;
+    uint8_t* nmask;
+    uint8_t* hdrs;
+    int64_t* seq_end;
+    int64_t* hdr_end;
+    int64_t rec_cap;
+    int64_t n = 0, seq = 0, hdr = 0;
     // in-progress record state
-    int64_t rec_seq_start = 0, rec_hdr_start = 0;
-    bool rec_valid = true;
-    bool rec_open = false;
+    int64_t rec_seq = 0, rec_hdr = 0;
+    uint8_t bad = 0;
+    bool open = false, overflow = false;
 
-    void open_record(const char* hdr, size_t hlen) {
-        rec_seq_start = (int64_t)codes.size();
-        rec_hdr_start = (int64_t)headers.size();
-        headers.insert(headers.end(), hdr, hdr + hlen);
-        rec_valid = true;
-        rec_open = true;
+    void open_record(const char* h, size_t len) {
+        rec_seq = seq;
+        rec_hdr = hdr;
+        memcpy(hdrs + hdr, h, len);
+        hdr += (int64_t)len;
+        bad = 0;
+        open = true;
     }
-    void add_seq(const char* s, size_t n) {
-        for (size_t i = 0; i < n; ++i) {
-            unsigned c = (unsigned char)s[i];
-            if (!T.ok[c]) rec_valid = false;
-            codes.push_back(T.code[c]);
-            nmask.push_back(T.isn[c]);
+    // A=0 C=1 G=2 T=3 N=3 (other bytes reject the record, so their
+    // codes are never kept); branch-free so that it vectorises (the
+    // validity is a sum: an OR of the compares becomes a 64-bit bit
+    // test, which does not).
+    void add_seq(const char* s, size_t len) {
+        uint8_t* c = codes + seq;
+        uint8_t* m = nmask + seq;
+        uint8_t b = 0;
+        for (size_t i = 0; i < len; ++i) {
+            uint8_t x = (uint8_t)s[i];
+            uint8_t isn = x == 'N';
+            uint8_t ok = (uint8_t)(x == 'A') + (uint8_t)(x == 'C') +
+                         (uint8_t)(x == 'G') + (uint8_t)(x == 'T') + isn;
+            c[i] = (uint8_t)((((x >> 1) ^ (x >> 2)) & 3) | (isn * 3));
+            m[i] = isn;
+            b |= (uint8_t)(ok ^ 1);
         }
+        bad |= b;
+        seq += (int64_t)len;
     }
     // close; keep iff valid && len > 2 && len > min_len
     void close_record(int64_t min_len) {
-        if (!rec_open) return;
-        int64_t len = (int64_t)codes.size() - rec_seq_start;
-        if (rec_valid && len > 2 && len > min_len) {
-            seq_off.push_back((int64_t)codes.size());
-            hdr_off.push_back((int64_t)headers.size());
+        if (!open) return;
+        open = false;
+        int64_t len = seq - rec_seq;
+        if (!bad && len > 2 && len > min_len) {
+            if (n >= rec_cap) {
+                overflow = true;
+                return;
+            }
+            seq_end[n] = seq;
+            hdr_end[n] = hdr;
+            ++n;
         } else {
-            codes.resize(rec_seq_start);
-            nmask.resize(rec_seq_start);
-            headers.resize(rec_hdr_start);
+            seq = rec_seq;
+            hdr = rec_hdr;
         }
-        rec_open = false;
     }
 };
 
-// Split buf into newline-terminated lines (last line may lack \n);
-// calls fn(line_start, line_len_without_newline).
-template <class F>
-void for_lines(const char* buf, size_t n, F fn) {
-    size_t i = 0;
-    while (i < n) {
-        const char* nl = (const char*)memchr(buf + i, '\n', n - i);
-        size_t len = nl ? (size_t)(nl - (buf + i)) : n - i;
-        fn(buf + i, len);
-        i += len + (nl ? 1 : 0);
+// FASTA: records joined across lines, accepted iff charset ok &&
+// len > 2 && len > k; lines before the first header are skipped.
+void parse_fasta(Writer& w, const char* p, const char* end, int64_t k) {
+    while (p < end) {
+        const char* nl = (const char*)memchr(p, '\n', (size_t)(end - p));
+        const char* e = nl ? nl : end;
+        if (e > p && *p == '>') {
+            w.close_record(k);
+            w.open_record(p, (size_t)(e - p));
+        } else if (w.open) {
+            w.add_seq(p, (size_t)(e - p));
+        }
         if (!nl) break;
+        p = nl + 1;
+    }
+    w.close_record(k);
+}
+
+// FASTQ: 4-line records, accepted iff charset ok && len > 2 (no len > k
+// rule, matching the reference; its last-record duplication defect is
+// NOT replicated).  A truncated trailing record (missing '+' or qual
+// line) still yields its sequence, then parsing stops.
+void parse_fastq(Writer& w, const char* buf, size_t n) {
+    size_t i = 0;
+    auto next_line = [&](const char*& s, size_t& len) -> bool {
+        if (i >= n) return false;
+        const char* nl = (const char*)memchr(buf + i, '\n', n - i);
+        s = buf + i;
+        len = nl ? (size_t)(nl - s) : n - i;
+        i += len + (nl ? 1 : 0);
+        return true;
+    };
+    for (;;) {
+        const char *h, *s, *pl, *q;
+        size_t hl, sl, pll, ql;
+        if (!next_line(h, hl)) break;
+        if (!next_line(s, sl)) { s = nullptr; sl = 0; }
+        bool have_plus = next_line(pl, pll);
+        bool have_qual = next_line(q, ql);
+        w.open_record(h, hl);
+        if (s) w.add_seq(s, sl);
+        w.close_record(2);  // len > 2 only (no k rule in fastq)
+        if (!have_plus || !have_qual) break;
+    }
+}
+
+// Runs fn on a new thread of pool, or here when no thread can start.
+template <class F>
+void spawn(std::vector<std::thread>& pool, F fn) {
+    try {
+        pool.emplace_back(fn);
+    } catch (const std::system_error&) {
+        fn();
     }
 }
 
@@ -94,99 +152,124 @@ void for_lines(const char* buf, size_t n, F fn) {
 
 extern "C" {
 
-struct Parsed {
-    int64_t n;          // accepted records
-    int64_t seq_bytes;  // total sequence length
-    int64_t hdr_bytes;
-    uint8_t* codes;     // [seq_bytes]
-    uint8_t* nmask;     // [seq_bytes]
-    int64_t* seq_off;   // [n+1]
-    uint8_t* headers;   // [hdr_bytes] concatenated header lines (no \n)
-    int64_t* hdr_off;   // [n+1]
-};
-
-static Parsed* finish(RecordSink& b) {
-    Parsed* p = (Parsed*)malloc(sizeof(Parsed));
-    p->n = (int64_t)b.seq_off.size() - 1;
-    p->seq_bytes = (int64_t)b.codes.size();
-    p->hdr_bytes = (int64_t)b.headers.size();
-    p->codes = (uint8_t*)malloc(b.codes.size() ? b.codes.size() : 1);
-    p->nmask = (uint8_t*)malloc(b.nmask.size() ? b.nmask.size() : 1);
-    p->headers = (uint8_t*)malloc(b.headers.size() ? b.headers.size() : 1);
-    p->seq_off = (int64_t*)malloc(b.seq_off.size() * sizeof(int64_t));
-    p->hdr_off = (int64_t*)malloc(b.hdr_off.size() * sizeof(int64_t));
-    memcpy(p->codes, b.codes.data(), b.codes.size());
-    memcpy(p->nmask, b.nmask.data(), b.nmask.size());
-    memcpy(p->headers, b.headers.data(), b.headers.size());
-    memcpy(p->seq_off, b.seq_off.data(), b.seq_off.size() * sizeof(int64_t));
-    memcpy(p->hdr_off, b.hdr_off.data(), b.hdr_off.size() * sizeof(int64_t));
-    return p;
-}
-
-// Parse a read file.  fastq=0: FASTA — records joined across lines,
-// accepted iff charset ok && len>2 && len>k.  fastq=1: 4-line FASTQ —
-// accepted iff charset ok && len>2 (no len>k rule, matching the
-// reference; its last-record duplication defect is NOT replicated).
-Parsed* dbg_parse_reads(const char* path, int64_t k, int32_t fastq) {
-    FILE* f = fopen(path, "rb");
-    if (!f) return nullptr;
-    fseek(f, 0, SEEK_END);
-    long fsz = ftell(f);
-    fseek(f, 0, SEEK_SET);
-    std::vector<char> buf((size_t)fsz);
-    if (fsz && fread(buf.data(), 1, (size_t)fsz, f) != (size_t)fsz) {
-        fclose(f);
-        return nullptr;
+// Parse a read file straight into the caller's arrays, each of
+// cap_bytes (>= the file's size) bytes: codes (2-bit codes), nmask (0/1
+// for 'N') and headers (header lines, no newline); seq_off and hdr_off
+// of cap_recs slots receive the n + 1 record offsets.  A FASTA file is
+// cut into up to `threads` chunks at "\n>" (every '>' line is a header,
+// so no record spans a cut), parsed at once, then closed up in order.
+// A chunk of b bytes holds at most b / min_rec accepted records
+// (min_rec: the fewest bytes one takes), so chunk t's offset slots start
+// at floor(its start / min_rec) + t.  FASTQ is one chunk ('@' may open
+// a quality line).  out[0..3] = records, sequence bytes, header bytes,
+// chunks.  Returns 0, -1 when the file cannot be read, -2 when it
+// outgrows the arrays.
+int32_t dbg_parse_reads_into(
+    const char* path, int64_t k, int32_t fastq, int32_t threads,
+    int64_t min_rec, int64_t cap_bytes, int64_t cap_recs,
+    uint8_t* codes, uint8_t* nmask, uint8_t* headers,
+    int64_t* seq_off, int64_t* hdr_off, int64_t* out) {
+    int fd = open(path, O_RDONLY);
+    if (fd < 0) return -1;
+    struct stat st;
+    if (fstat(fd, &st) != 0) {
+        close(fd);
+        return -1;
     }
-    fclose(f);
+    int64_t size = (int64_t)st.st_size;
+    if (size > cap_bytes || cap_recs < 2) {
+        close(fd);
+        return -2;
+    }
+    seq_off[0] = hdr_off[0] = 0;
+    out[0] = out[1] = out[2] = 0;
+    out[3] = 1;
+    if (size == 0) {
+        close(fd);
+        return 0;
+    }
+    void* map = mmap(nullptr, (size_t)size, PROT_READ, MAP_PRIVATE, fd, 0);
+    close(fd);
+    if (map == MAP_FAILED) return -1;
+    const char* buf = (const char*)map;
 
-    RecordSink b;
+    // chunk starts: 0, then the first "\n>" at or after t * size / T
+    std::vector<int64_t> cut{0};
     if (!fastq) {
-        for_lines(buf.data(), buf.size(), [&](const char* s, size_t len) {
-            if (len > 0 && s[0] == '>') {
-                b.close_record(k);
-                b.open_record(s, len);
-            } else if (b.rec_open) {
-                b.add_seq(s, len);
-            }
-        });
-        b.close_record(k);
-    } else {
-        // 4-line records; a truncated trailing record (missing '+' or
-        // qual line) still yields its sequence, then parsing stops.
-        size_t i = 0, n = buf.size();
-        auto next_line = [&](const char*& s, size_t& len) -> bool {
-            if (i >= n) return false;
-            const char* nl = (const char*)memchr(buf.data() + i, '\n', n - i);
-            s = buf.data() + i;
-            len = nl ? (size_t)(nl - s) : n - i;
-            i += len + (nl ? 1 : 0);
-            return true;
-        };
-        for (;;) {
-            const char *h, *s, *pl, *q;
-            size_t hl, sl, pll, ql;
-            if (!next_line(h, hl)) break;
-            if (!next_line(s, sl)) { s = nullptr; sl = 0; }
-            bool have_plus = next_line(pl, pll);
-            bool have_qual = next_line(q, ql);
-            b.open_record(h, hl);
-            if (s) b.add_seq(s, sl);
-            b.close_record(2);  // len > 2 only (no k rule in fastq)
-            if (!have_plus || !have_qual) break;
+        for (int32_t t = 1; t < threads; ++t) {
+            int64_t from = size * t / threads;
+            if (from <= cut.back()) from = cut.back() + 1;
+            if (from >= size) break;
+            const char* hit = (const char*)memmem(
+                buf + from - 1, (size_t)(size - from + 1), "\n>", 2);
+            if (!hit) break;
+            cut.push_back(hit + 1 - buf);
         }
     }
-    return finish(b);
-}
+    cut.push_back(size);
+    size_t nc = cut.size() - 1;
+    std::vector<int64_t> rec_at(nc + 1);
+    for (size_t t = 0; t < nc; ++t)
+        rec_at[t] = cut[t] / min_rec + (int64_t)t;
+    rec_at[nc] = cap_recs - 1;
+    std::vector<Writer> ws(nc);
+    for (size_t t = 0; t < nc; ++t) {
+        Writer& w = ws[t];
+        w.codes = codes + cut[t];
+        w.nmask = nmask + cut[t];
+        w.hdrs = headers + cut[t];
+        w.seq_end = seq_off + 1 + rec_at[t];
+        w.hdr_end = hdr_off + 1 + rec_at[t];
+        w.rec_cap = rec_at[t + 1] - rec_at[t];
+    }
+    auto run = [&](size_t t) {
+        if (fastq)
+            parse_fastq(ws[t], buf, (size_t)size);
+        else
+            parse_fasta(ws[t], buf + cut[t], buf + cut[t + 1], k);
+    };
+    std::vector<std::thread> pool;
+    for (size_t t = 1; t < nc; ++t) spawn(pool, [&run, t] { run(t); });
+    run(0);
+    for (auto& th : pool) th.join();
+    munmap(map, (size_t)size);
 
-void dbg_free_parsed(Parsed* p) {
-    if (!p) return;
-    free(p->codes);
-    free(p->nmask);
-    free(p->headers);
-    free(p->seq_off);
-    free(p->hdr_off);
-    free(p);
+    for (const Writer& w : ws)
+        if (w.overflow) return -2;
+    // close the chunks up in order: each moves down, never past the
+    // next chunk's unread region, so one array's moves run in turn; the
+    // three arrays move at once.  Then the offsets are rebased in place
+    // (a slot only moves down, to one already read).
+    auto close_up = [&](uint8_t* base, uint8_t* Writer::*at,
+                        int64_t Writer::*len) {
+        int64_t o = 0;
+        for (const Writer& w : ws) {
+            memmove(base + o, w.*at, (size_t)(w.*len));
+            o += w.*len;
+        }
+    };
+    if (nc > 1) {
+        pool.clear();
+        spawn(pool, [&] { close_up(codes, &Writer::codes, &Writer::seq); });
+        spawn(pool, [&] { close_up(nmask, &Writer::nmask, &Writer::seq); });
+        close_up(headers, &Writer::hdrs, &Writer::hdr);
+        for (auto& th : pool) th.join();
+    }
+    int64_t n = 0, sb = 0, hb = 0;
+    for (const Writer& w : ws) {
+        for (int64_t i = 0; i < w.n; ++i) {
+            seq_off[1 + n + i] = sb + w.seq_end[i];
+            hdr_off[1 + n + i] = hb + w.hdr_end[i];
+        }
+        n += w.n;
+        sb += w.seq;
+        hb += w.hdr;
+    }
+    out[0] = n;
+    out[1] = sb;
+    out[2] = hb;
+    out[3] = (int64_t)nc;
+    return 0;
 }
 
 // ---------------------------------------------------------------- writer

@@ -155,7 +155,7 @@ def _run_file(graph, rf, m, effort, fastq, correction, batch_size, device,
               rec_range=None, progress=None, mesh=None, shard_index=False):
     spans = stats.spans
     with spans.span("parse"):
-        parsed = native.parse_reads(rf, graph.k, fastq)
+        parsed = native.parse_reads(rf, graph.k, fastq, spans.count)
         spans.count("bytes", os.path.getsize(rf))
         if rec_range is not None:
             s, e = rec_range(parsed.n)
@@ -457,7 +457,8 @@ def run_pipeline_resumable(
             if fi < state["file_idx"]:
                 continue
             with spans.span("parse"):
-                parsed_all = native.parse_reads(rf, graph.k, fastq)
+                parsed_all = native.parse_reads(rf, graph.k, fastq,
+                                                spans.count)
                 spans.count("reads", parsed_all.n)
                 spans.count("bytes", os.path.getsize(rf))
             start = state["record_off"] if fi == state["file_idx"] else 0
