@@ -7,7 +7,14 @@ configuration (a file under `configs/`) and its traffic mix
 `read(run)` returns a number, or None where it finds nothing to read (the
 metric is then left out of the result).  A cell reports, with `--trace
 0`, the end-to-end metrics that list it (or list no cells) and, with
-`--trace 1`, the per-layer ones.
+`--trace 1`, the per-layer ones that list it.  A configuration's `mode`
+becomes the program's flag through MODE_FLAGS, and its `reference`
+(a package under `benchmark/`, by default `reference`) judges the jobs:
+the package declares the modes it judges in `MODES`, and holds
+`graph.build_graph(unitig_path, k)` and `check.compare(...)`.  Its
+comparison has to return every number it declares in `COMPARES` (by
+default COMPARED, those of `reference/`): a run whose comparison leaves
+one out is not correct.
 
 The window drives the program's entry point, `dbgtpu_torch.cli.main`,
 in this process: each step is one job, the bgreat command line of the
@@ -25,6 +32,7 @@ import ast
 import contextlib
 import gc
 import hashlib
+import importlib
 import importlib.util
 import io
 import json
@@ -36,7 +44,7 @@ import traceback
 from dataclasses import dataclass, field
 from pathlib import Path
 
-from . import data, roofline
+from . import data, roofline, spans
 from .trace import Trace, from_chrome
 
 BENCH = Path(__file__).resolve().parent
@@ -45,6 +53,11 @@ ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "dbgtpu")
 PROGRAM = "dbgtpu_torch"
 SAMPLE = 8192       # reads of a run that the reference maps one by one
+REFERENCE = "reference"     # the reference package of a configuration
+# the numbers a reference package compares unless it declares its own
+COMPARED = ("sample_reads_differ", "records_misplaced", "counters_differ")
+# a configuration's mode -> the program's flags (greedy: none)
+MODE_FLAGS = {"greedy": [], "dog": ["-G"], "exhaustive": ["-b"]}
 
 
 class OffCard(RuntimeError):
@@ -53,6 +66,10 @@ class OffCard(RuntimeError):
 
 class Forbidden(RuntimeError):
     """A forbidden module was loaded."""
+
+
+class Refused(ValueError):
+    """A configuration that the harness cannot run or judge."""
 
 
 @dataclass
@@ -149,8 +166,9 @@ def cell_parts(spec: dict, workload: str, root: Path = ROOT):
 
 def metrics_of(spec: dict, workload: str, trace: bool) -> list:
     """The metric entries a run of `workload` reports: end-to-end without
-    a trace, per-layer with one; a metric without `workloads` is reported
-    in every cell that reports the metric it moves."""
+    a trace, per-layer with one.  An end-to-end metric without
+    `workloads` is reported in every cell; a per-layer one without it in
+    every cell that reports the metric it moves."""
     e2e = [m for m in spec["end_to_end"]
            if workload in m.get("workloads", [workload])]
     if not trace:
@@ -177,29 +195,104 @@ def forbidden_modules() -> list:
     return sorted(n for n in sys.modules if n.split(".")[0] in FORBIDDEN)
 
 
+def reference_name(config: dict) -> str:
+    """The reference package a configuration names."""
+    name = config.get("reference", REFERENCE)
+    if not (isinstance(name, str) and name.isidentifier()):
+        raise Refused(f"reference {name!r}: not a package name")
+    return name
+
+
+def _module_name(name: str, root: Path) -> str:
+    """The module name of package `name` of the benchmark at `root`:
+    `benchmark.<name>` in this checkout, a name of its own elsewhere."""
+    if root.resolve() == ROOT:
+        return f"benchmark.{name}"
+    tag = hashlib.sha256(str(root.resolve()).encode()).hexdigest()[:12]
+    return f"_benchmark_{tag}_{name}"
+
+
+def reference_of(config: dict, root: Path = ROOT):
+    """The configuration's reference package, imported from `root`'s
+    files (once a process)."""
+    name = reference_name(config)
+    init = root / "benchmark" / name / "__init__.py"
+    if not init.is_file():
+        raise Refused(f"reference {name!r}: no package benchmark/{name}/")
+    mod_name = _module_name(name, root)
+    if mod_name in sys.modules:
+        return sys.modules[mod_name]
+    spec = importlib.util.spec_from_file_location(
+        mod_name, init, submodule_search_locations=[str(init.parent)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
+    try:
+        spec.loader.exec_module(mod)
+    except BaseException:
+        del sys.modules[mod_name]
+        raise
+    return mod
+
+
+def reference_packages(spec: dict, root: Path = ROOT) -> list:
+    """The reference packages the configurations of `spec` name."""
+    names = {REFERENCE}
+    for entry in spec["configs"]:
+        with open(root / entry["file"]) as f:
+            names.add(reference_name(json.load(f)))
+    return sorted(names)
+
+
 def reference_imports(root: Path = ROOT) -> list:
-    """Imports of the program, the JAX package or JAX by the reference:
-    its sources' import statements, and the modules and objects its
-    loaded modules hold."""
+    """Imports of the program, the JAX package or JAX by a reference
+    package that a configuration names: its sources' import statements,
+    and the modules and objects its loaded modules hold."""
     bad = set(FORBIDDEN) | {PROGRAM}
     found = []
-    for src in sorted((root / "benchmark" / "reference").glob("*.py")):
-        for node in ast.walk(ast.parse(src.read_text())):
-            names = ([a.name for a in node.names]
-                     if isinstance(node, ast.Import) else
-                     [node.module or ""] if isinstance(node, ast.ImportFrom)
-                     and not node.level else [])
-            found += [f"{src.name}: {n}" for n in names
-                      if n.split(".")[0] in bad]
-    for name, mod in list(sys.modules.items()):
-        if not name.startswith("benchmark.reference"):
-            continue
-        for key, val in vars(mod).items():
-            owner = getattr(val, "__module__", None) or (
-                getattr(val, "__name__", "") if type(val) is type(sys) else "")
-            if isinstance(owner, str) and owner.split(".")[0] in bad:
-                found.append(f"{name}.{key}: {owner}")
+    for name in reference_packages(load_spec(root), root):
+        pkg = root / "benchmark" / name
+        for src in sorted(pkg.rglob("*.py")):
+            for node in ast.walk(ast.parse(src.read_text())):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else
+                         [node.module or ""]
+                         if isinstance(node, ast.ImportFrom)
+                         and not node.level else [])
+                found += [f"{src.relative_to(pkg.parent)}: {n}"
+                          for n in names if n.split(".")[0] in bad]
+        prefix = _module_name(name, root)
+        for mod_name, mod in list(sys.modules.items()):
+            if mod_name != prefix and not mod_name.startswith(prefix + "."):
+                continue
+            for key, val in vars(mod).items():
+                owner = getattr(val, "__module__", None) or (
+                    getattr(val, "__name__", "")
+                    if type(val) is type(sys) else "")
+                if isinstance(owner, str) and owner.split(".")[0] in bad:
+                    found.append(f"{mod_name}.{key}: {owner}")
     return found
+
+
+def compared_names(config: dict, root: Path = ROOT) -> tuple:
+    """The numbers the configuration's reference package has to return:
+    those it declares in COMPARES, else COMPARED."""
+    return tuple(getattr(reference_of(config, root), "COMPARES", COMPARED))
+
+
+def refuse_unjudged(config: dict, root: Path = ROOT) -> None:
+    """Raises Refused where the program has no flag for the
+    configuration's mode, its reference package does not declare it, or
+    the package declares nothing that it compares."""
+    mode = config["mode"]
+    if mode not in MODE_FLAGS:
+        raise Refused(f"mode {mode!r}: the program has no such mode")
+    modes = getattr(reference_of(config, root), "MODES", ())
+    if mode not in modes:
+        raise Refused(f"mode {mode!r}: reference "
+                      f"{reference_name(config)!r} judges {modes}")
+    if not compared_names(config, root):
+        raise Refused(f"reference {reference_name(config)!r} declares "
+                      "no number that it compares")
 
 
 def job_argv(config: dict, traffic: dict, graph: data.GraphFiles,
@@ -211,13 +304,13 @@ def job_argv(config: dict, traffic: dict, graph: data.GraphFiles,
             "-f", str(out[0]), "-a", str(out[1]),
             "--index-layout", config["index_layout"],
             "--batch-size", str(config["batch_size"])]
-    if config["mode"] != "greedy":
-        raise ValueError(f"mode {config['mode']!r}: the reference maps "
-                         "the greedy mode only")
+    argv += MODE_FLAGS[config["mode"]]
     if traffic["index"] == "load":
         argv += ["--load-index", str(graph.index)]
     if config.get("mesh"):
         argv += ["--mesh", str(config["mesh"])]
+    if config.get("shard_index"):
+        argv.append("--shard-index")
     return argv
 
 
@@ -242,45 +335,14 @@ def _call(main, argv: list) -> int:
         return main(argv)
 
 
-def _phases(job: Job, span: tuple, build: bool) -> list:
-    """[(name, start, end)] of a job's host phases on the trace's clock,
-    from its summary's legs in the order the program runs them."""
-    s = job.summary or {}
-    t, out = span[0], []
-    for name, dur in (
-            ("graph_build" if build else "index_load",
-             s.get("index_seconds", 0.0)),
-            ("device_index_and_upload", s.get("device_index_seconds", 0.0)
-             + s.get("upload_seconds", 0.0)),
-            ("parse", s.get("parse_seconds", 0.0)),
-            ("align", s.get("align_seconds", 0.0))):
-        out.append((name, t, min(t + dur, span[1])))
-        t = min(t + dur, span[1])
-    out.append(("write_and_exit", t, span[1]))
-    return out
-
-
 def breakdown(run: Run) -> dict:
     """The device operations that took most time, and the cards' idle
-    time by what the host was doing (a job's phase, or the harness
-    between jobs), mean over the cards: 10 of each, longest first."""
+    time by the program's span open at each moment (spans.idle_by_span;
+    `unspanned` where none below `job` is, the harness's time between
+    jobs included), mean over the cards: 10 of each, longest first."""
     tr = run.trace
     ops = sorted(tr.time_by_name().items(), key=lambda x: -x[1])[:10]
-    build = run.traffic["index"] == "build"
-    phases = [p for job, span in zip(run.jobs, tr.jobs)
-              for p in _phases(job, span, build)]
-    idle: dict = {}
-    for card in range(run.cards):
-        for gs, ge in tr.idle_gaps(card):
-            inside = 0.0
-            for name, ps, pe in phases:
-                d = min(ge, pe) - max(gs, ps)
-                if d > 0:
-                    idle[name] = idle.get(name, 0.0) + d / run.cards
-                    inside += d
-            rest = (ge - gs) - inside
-            if rest > 0:
-                idle["harness"] = idle.get("harness", 0.0) + rest / run.cards
+    idle = spans.idle_by_span(run) or {}
     gaps = sorted(idle.items(), key=lambda x: -x[1])[:10]
     return {"device_ops": [[n[:120], s] for n, s in ops],
             "idle_gaps": [[n, s] for n, s in gaps]}
@@ -306,6 +368,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     t0 = time.monotonic() if t_process is None else t_process
     spec = load_spec(root)
     cell, config, traffic = cell_parts(spec, workload, root)
+    refuse_unjudged(config, root)
     cards = int(cell["chips"])
     on_card = device == "cuda"
     if trace and not on_card:
@@ -317,8 +380,9 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
     dev_argv = ["--device", device]
     tmp = Path(tempfile.mkdtemp(prefix="dbgbench."))
     try:
-        def save_job(argv):
-            rc = _call(cli.main, argv + dev_argv)
+        def save_job(argv):     # the index of the configuration's mode
+            rc = _call(cli.main, argv + MODE_FLAGS[config["mode"]]
+                       + dev_argv)
             if rc != 0:
                 raise RuntimeError(f"index save exited {rc}")
 
@@ -381,6 +445,12 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             if job.rc == 0 and p.exists():
                 job.summary = json.loads(p.read_text())
                 job.digest = _digest(job.out)
+            if job is not jobs[-1]:
+                # once digested, an earlier job's files go: deleted within
+                # the page cache's 30 s before writeback, they never reach
+                # the disk (a job of 1,048,576 reads writes ~106 MB)
+                for f in job.out:
+                    f.unlink(missing_ok=True)
             if job.error:
                 print(job.error, file=sys.stderr)
         if trace:
@@ -421,7 +491,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
             torch.cuda.empty_cache()
         t_check = time.monotonic()
         compared = check(run, reads, seed, sample,
-                         device if on_card else "cpu")
+                         device if on_card else "cpu", root)
         for i, j in enumerate(run.done):
             legs = " ".join(f"{k[:-8]} {j.summary[k]:.3f}" for k in (
                 "index_seconds", "upload_seconds", "parse_seconds",
@@ -444,21 +514,29 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool, *,
 
 
 def check(run: Run, reads: Path, seed: int, sample: int,
-          device: str) -> dict:
-    """{name: (value, limit)}: the reference's comparison of what the
-    last job wrote; the jobs whose files differ from the last job's (every
-    job maps the same read file); the jobs that failed; and, where the
-    traffic builds the index, the jobs that did not build it."""
-    from .reference import check as ref_check
-    from .reference.graph import build_graph
+          device: str, root: Path = ROOT) -> dict:
+    """{name: (value, limit)}: the configuration's reference package's
+    comparison of what the last job wrote; the jobs whose files differ
+    from the last job's (every job maps the same read file); the numbers
+    the package declares that its comparison left out; the jobs that
+    failed; and, where the traffic builds the index, the jobs that did
+    not build it."""
+    ref = reference_of(run.config, root)
+    ref_check = importlib.import_module(ref.__name__ + ".check")
+    ref_graph = importlib.import_module(ref.__name__ + ".graph")
 
-    g = build_graph(str(run.graph.unitigs), run.config["k"])
+    g = ref_graph.build_graph(str(run.graph.unitigs), run.config["k"])
     last = run.jobs[-1]
     if last.rc == 0:
         compared = ref_check.compare(
             g, reads.read_bytes(), last.out[0].read_bytes(),
             last.out[1].read_bytes(), [j.summary for j in run.done],
             run.config["m"], run.config["e"], sample, seed, device)
+        missing = [n for n in compared_names(run.config, root)
+                   if n not in compared]
+        if missing:
+            _log("the reference's comparison left out " + ", ".join(missing))
+        compared["comparisons_missing"] = (len(missing), 0)
         compared["jobs_differ"] = (sum(1 for j in run.done
                                        if j.digest != last.digest), 0)
     else:

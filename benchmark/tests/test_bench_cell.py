@@ -36,11 +36,11 @@ def test_tiny_cell_correct(tree, cell):
     assert r["attempted"] >= 1 and r["failed"] == 0
     names = set(r["metrics"])
     assert "setup_s" in names
-    assert ("cold_run_s" if cell == "tiny.cold" else "reads_per_s") in names
+    assert "reads_per_s" in names
     assert r["device"]["platform"] == "cpu"
     assert list(r["compared"]) == (
         ["sample_reads_differ", "records_misplaced", "counters_differ",
-         "jobs_differ", "failed_jobs"]
+         "comparisons_missing", "jobs_differ", "failed_jobs"]
         + (["jobs_not_cold"] if cell == "tiny.cold" else []))
 
 
@@ -149,7 +149,7 @@ def test_one_earlier_job_altered_is_not_correct(tree, monkeypatch):
                 f.write(blob)
         return rc
     monkeypatch.setattr(cli, "main", first_job_altered)
-    r = _run(tree, "tiny.warm", seconds=3.0)
+    r = _run(tree, "tiny.warm", seconds=20.0)  # two jobs on a loaded host
     assert r["attempted"] >= 2
     assert r["compared"]["jobs_differ"]["value"] == 1
     assert r["compared"]["sample_reads_differ"]["value"] == 0
@@ -167,6 +167,24 @@ def test_run_exits_without_a_card():
          "ecoli.warm", "--seed", "1", "--seconds", "1", "--trace", "0"],
         capture_output=True, text=True, timeout=300)
     assert out.returncode == 1 and out.stdout == ""
+
+
+def test_run_exits_with_fewer_cards_than_the_cell(tmp_path):
+    """run.py prints no result and exits 1 where the machine has one card
+    and the cell asks for four (torch's card count stubbed)."""
+    root = copy_tree(tmp_path / "tree")
+    add_cell(root, "tiny.four", "load", mesh=4, chips=4)
+    code = ("import runpy, sys, torch\n"
+            "torch.cuda.is_available = lambda: True\n"
+            "torch.cuda.device_count = lambda: 1\n"
+            "sys.argv = ['run.py', '--workload', 'tiny.four', '--seed', "
+            "'1', '--seconds', '1', '--trace', '0']\n"
+            "runpy.run_path(%r, run_name='__main__')\n"
+            % str(root / "benchmark" / "run.py"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=root)
+    assert out.returncode == 1 and out.stdout == "", out.stderr
+    assert "needs 4 CUDA card(s); found 1" in out.stderr
 
 
 def test_run_exits_without_the_program(tmp_path):

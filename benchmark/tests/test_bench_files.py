@@ -68,3 +68,30 @@ def test_every_cell_reports_what_its_layers_move():
             assert m["moves"] in e2e, (w, m["name"])
     for m in SPEC["per_layer"]:
         assert set(m["workloads"]) <= cells
+
+
+# what the two cells of the first benchmark report, as they did when
+# reads_per_s listed them
+WARM_E2E = ["reads_per_s", "setup_s"]
+WARM_LAYER = [
+    "parse_s_per_mreads", "index_load_s", "launch_ms_per_batch",
+    "drain_ms_per_batch", "format_ms_per_batch", "kernel_ms_per_batch",
+    "kernel_roofline_pct", "device_idle_pct", "na_image_ms_per_batch",
+    "na_text_ms_per_batch", "paths_text_ms_per_batch", "drain_cpu_pct",
+    "index_read_s", "write_s_per_mreads", "device_idle_unspanned_pct"]
+
+
+@pytest.mark.parametrize("cell", ["ecoli.warm", "celegans.warm"])
+def test_warm_cells_report_what_they_did(cell):
+    assert [m["name"] for m in harness.metrics_of(SPEC, cell, False)] == (
+        WARM_E2E)
+    assert [m["name"] for m in harness.metrics_of(SPEC, cell, True)] == (
+        WARM_LAYER)
+
+
+def test_throughput_and_set_up_in_every_cell():
+    """reads_per_s and setup_s list no cells: a cell added later reports
+    both without an edit to their entries."""
+    e2e = {m["name"]: m for m in SPEC["end_to_end"]}
+    assert "workloads" not in e2e["reads_per_s"]
+    assert "workloads" not in e2e["setup_s"]

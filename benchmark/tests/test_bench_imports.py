@@ -3,6 +3,7 @@ JAX package or JAX: by their import statements, and in a fresh process
 that loads them."""
 
 import ast
+import importlib
 import subprocess
 import sys
 
@@ -45,7 +46,27 @@ def test_harness_check_sees_a_forbidden_import(tmp_path, monkeypatch):
     assert harness.reference_imports(root) == []
     (root / "benchmark" / "reference" / "leak.py").write_text(
         "import dbgtpu_torch.spec\n")
-    assert harness.reference_imports(root) == ["leak.py: dbgtpu_torch.spec"]
+    assert harness.reference_imports(root) == [
+        "reference/leak.py: dbgtpu_torch.spec"]
+
+
+def test_stub_reference_of_a_configuration_is_scanned(tmp_path):
+    """A reference package that a configuration names is scanned: its
+    import statements, and once loaded the objects its modules hold."""
+    from benchmark.tests.tiny import add_cell, add_reference, copy_tree
+
+    root = copy_tree(tmp_path / "tree")
+    add_reference(root, "reference_leak", ("greedy",),
+                  check="from dbgtpu_torch.spec import RunStats as S")
+    assert harness.reference_imports(root) == []     # named by none yet
+    add_cell(root, "tiny.leak", "load", reference="reference_leak")
+    assert harness.reference_imports(root) == [
+        "reference_leak/check.py: dbgtpu_torch.spec"]
+    ref = harness.reference_of({"reference": "reference_leak"}, root)
+    importlib.import_module(ref.__name__ + ".check")
+    found = harness.reference_imports(root)
+    assert found[0] == "reference_leak/check.py: dbgtpu_torch.spec"
+    assert found[1:] == [f"{ref.__name__}.check.S: dbgtpu_torch.spec"]
 
 
 def test_forbidden_names_compare_whole(monkeypatch):

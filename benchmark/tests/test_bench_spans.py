@@ -148,3 +148,17 @@ def test_reader_finds_nothing_without_spans(run, metric):
     assert read(run) is None
     run.trace = None
     assert read(run) is None
+
+
+def test_breakdown_idle_gaps_by_span(run):
+    """breakdown()'s idle gaps are the ten longest of idle_by_span, the
+    unspanned time named as such; its device operations by time."""
+    got = harness.breakdown(run)
+    idle = spans.idle_by_span(run)
+    assert len(idle) > 10
+    want = sorted(idle.items(), key=lambda x: -x[1])[:10]
+    assert got["idle_gaps"] == [[n, s] for n, s in want]
+    assert got["idle_gaps"][0] == [spans.UNSPANNED, pytest.approx(3.1)]
+    assert got["idle_gaps"][1] == ["parse", pytest.approx(2.8)]
+    assert got["device_ops"] == [["read_scan_kernel", pytest.approx(0.5)],
+                                 ["member_kernel", pytest.approx(0.2)]]

@@ -16,21 +16,6 @@ TINY_CONFIG = {
     "assumed": {},
 }
 
-# the metrics of a cell whose jobs build the graph (traffic cold131k),
-# which no cell of BENCHMARK.json reports yet: a later change adds them
-# as these entries, their readers being in benchmark/metrics/
-COLD_METRICS = {
-    "end_to_end": [{"name": "cold_run_s", "unit": "s", "better": "lower",
-                    "bound": 0.25, "source": "host_clock"}],
-    "per_layer": [
-        {"name": "index_build_s", "unit": "s", "better": "lower",
-         "source": "program_span", "layer": "graph and device-index build",
-         "moves": "cold_run_s"},
-        {"name": "device_idle_pct.cold", "unit": "%", "better": "lower",
-         "source": "device_trace", "layer": "device",
-         "moves": "cold_run_s"}],
-}
-
 
 def copy_tree(dest: Path) -> Path:
     """BENCHMARK.json and benchmark/ copied under `dest`."""
@@ -42,15 +27,15 @@ def copy_tree(dest: Path) -> Path:
 
 
 def add_cell(root: Path, name: str = "tiny.warm", index: str = "load",
-             reads: int = 1200, like: str = "ecoli.warm",
-             **config) -> str:
+             reads: int = 1200, **config) -> str:
     """Adds a tiny configuration, traffic mix and cell to the copy at
     `root`, as a later change would: new files, and entries appended to
-    BENCHMARK.json; the cell reports what `like` reports, or, where its
-    jobs build the graph, COLD_METRICS."""
+    BENCHMARK.json, no entry that was there changed; the cell reports
+    every end-to-end metric that lists no cells."""
     cfg_name = name.replace(".", "_")
+    cfg = dict(TINY_CONFIG, **config)
     (root / "benchmark" / "configs" / f"{cfg_name}.json").write_text(
-        json.dumps(dict(TINY_CONFIG, **config)))
+        json.dumps(cfg))
     (root / "benchmark" / "traffic" / f"{cfg_name}.json").write_text(
         json.dumps({"reads": reads, "read_len": 100, "sub_rate": 0.01,
                     "index": index}))
@@ -60,16 +45,40 @@ def add_cell(root: Path, name: str = "tiny.warm", index: str = "load",
         "file": f"benchmark/configs/{cfg_name}.json", "reduced": [],
         "why": "tiny"})
     spec["workloads"].append({"name": name, "config": cfg_name,
-                              "traffic": cfg_name, "chips": 1,
+                              "traffic": cfg_name, "chips": cfg["chips"],
                               "why": "tiny"})
-    if index == "build":
-        for group, entries in COLD_METRICS.items():
-            new = {e["name"] for e in entries}
-            spec[group] = [m for m in spec[group] if m["name"] not in new]
-            spec[group] += [dict(e, workloads=[name]) for e in entries]
-        like = None
-    for m in spec["end_to_end"] + spec["per_layer"]:
-        if like in m.get("workloads", []):
-            m["workloads"].append(name)
     (root / "BENCHMARK.json").write_text(json.dumps(spec, indent=2))
     return name
+
+
+STUB_COMPARE = """
+def _records(blob):
+    return len(blob.splitlines()) // 2
+
+
+def compare(g, reads, paths, na, summaries, m, e, sample, seed, device):
+    n = _records(reads)
+    return {"records_misplaced": (abs(n - _records(paths) - _records(na)),
+                                  0),
+            "counters_differ": (sum(s.get("reads") != n
+                                    for s in summaries), 0)}
+"""
+STUB_COMPARES = ("records_misplaced", "counters_differ")
+
+
+def add_reference(root: Path, name: str, modes: tuple, check: str = "",
+                  compares: tuple | None = STUB_COMPARES,
+                  compare: str = STUB_COMPARE) -> Path:
+    """A stub reference package `benchmark/<name>/` declaring `modes`
+    and, unless None, `compares`; its comparison (`compare`, by default
+    one that counts the reads in the two files and in each summary) is
+    put in check.py below `check`."""
+    pkg = root / "benchmark" / name
+    pkg.mkdir()
+    (pkg / "__init__.py").write_text(
+        f"MODES = {tuple(modes)!r}\n" + ("" if compares is None else
+                                         f"COMPARES = {tuple(compares)!r}\n"))
+    (pkg / "graph.py").write_text(
+        "def build_graph(path, k):\n    return (path, k)\n")
+    (pkg / "check.py").write_text(check + "\n" + compare)
+    return pkg
